@@ -1,0 +1,132 @@
+"""Client-local training loops (mirrors ``repro/core/client.py``).
+
+A client model is a functional pair ``apply(params, state, x, train) ->
+(logits, new_state)`` over flat dicts of tensors.  The loops run a stack of
+K clients at once: parameters, model state and optimizer state carry a
+leading (K,) axis, and each minibatch step is one
+``vmap(grad_and_value(loss))`` over that axis.  The reference's
+``lax.scan`` over epochs and batches becomes a Python loop.
+
+Minibatch order comes from epoch permutations of shape (K, epochs, nb, bs):
+each epoch is a permutation of the client's n items cut to nb = n // bs
+whole batches (the tail is dropped, as the reference's ``_epoch_perm``
+drops it).  Every loop takes them precomputed (``perms=``), so a test can
+hand in the reference's own draws; without them it draws from ``gen``, a
+``torch.Generator`` on the data's device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from ..optim.optimizers import Optimizer
+from .losses import distill_xent, xent_int_labels
+
+
+@dataclass(frozen=True)
+class LocalSpec:
+    apply_fn: Callable
+    opt: Optimizer
+    epochs: int
+    batch_size: int
+
+
+def epoch_perms(gen: torch.Generator, K: int, epochs: int, n_items: int,
+                batch_size: int) -> torch.Tensor:
+    """(K, epochs, nb, bs) minibatch indices: an independent permutation of
+    ``range(n_items)`` per client and epoch, cut to ``nb = n_items //
+    batch_size`` whole batches."""
+    nb = n_items // batch_size
+    keys = torch.rand((K, epochs, n_items), generator=gen, device=gen.device)
+    return keys.argsort(dim=-1)[..., :nb * batch_size].reshape(
+        K, epochs, nb, batch_size)
+
+
+def _perms_for(spec: LocalSpec, K: int, n: int, perms, gen, device):
+    bs = min(spec.batch_size, n)     # clamp: batch_size > n gives zero batches
+    if perms is None:
+        if gen is None:
+            raise ValueError("pass precomputed perms or a generator")
+        return epoch_perms(gen, K, spec.epochs, n, bs)
+    expected = (K, spec.epochs, n // bs, bs)
+    if tuple(perms.shape) != expected:
+        raise ValueError(f"perms must have shape {expected}, got "
+                         f"{tuple(perms.shape)}")
+    return perms.to(device)
+
+
+def _train(spec: LocalSpec, params, state, opt_state, perms, loss_fn, batch):
+    """E epochs of minibatch SGD on the (K, ...) stack.  ``batch(idx)``
+    gathers the (K, bs, ...) inputs and targets of one step; ``loss_fn(p, s,
+    xb, tb) -> (loss, new_state)`` is one client's loss."""
+    step_fn = vmap(grad_and_value(loss_fn, has_aux=True))
+    K, epochs, nb, _ = perms.shape
+    step = 0
+    epoch_losses = []
+    for e in range(epochs):
+        losses = []
+        for b in range(nb):
+            xb, tb = batch(perms[:, e, b])
+            grads, (loss, state) = step_fn(params, state, xb, tb)
+            params, opt_state = spec.opt.update(grads, params, opt_state, step)
+            step += 1
+            losses.append(loss)
+        epoch_losses.append(torch.stack(losses, dim=1).mean(dim=1))
+    return (params, state, opt_state,
+            torch.stack(epoch_losses, dim=1).mean(dim=1))
+
+
+def local_update(spec: LocalSpec, params, state, opt_state, x, y, perms=None,
+                 gen=None):
+    """"1. Update": E epochs of minibatch supervised training of K clients
+    on their private data x: (K, n, ...), y: (K, n).  Returns the new
+    (params, state, opt_state) stacks and each client's mean loss (K,)."""
+    K, n = y.shape[:2]
+    perms = _perms_for(spec, K, n, perms, gen, x.device)
+    rows = torch.arange(K, device=x.device)[:, None]
+
+    def batch(idx):
+        return x[rows, idx], y[rows, idx]
+
+    def loss_fn(p, s, xb, yb):
+        logits, ns = spec.apply_fn(p, s, xb, True)
+        return xent_int_labels(logits, yb), ns
+
+    return _train(spec, params, state, opt_state, perms, loss_fn, batch)
+
+
+def local_distill(spec: LocalSpec, params, state, opt_state, x_open,
+                  teacher_probs, perms=None, gen=None):
+    """"6. Distillation" (Eq. 10): K clients train on the shared open batch
+    x_open: (n, ...) against the broadcast global logit (n, C)."""
+    K = next(iter(params.values())).shape[0]
+    n = x_open.shape[0]
+    perms = _perms_for(spec, K, n, perms, gen, x_open.device)
+
+    def batch(idx):
+        return x_open[idx], teacher_probs[idx]
+
+    def loss_fn(p, s, xb, tb):
+        logits, ns = spec.apply_fn(p, s, xb, True)
+        return distill_xent(logits, tb), ns
+
+    return _train(spec, params, state, opt_state, perms, loss_fn, batch)
+
+
+def predict_probs(apply_fn: Callable, params, state, x, batch_size: int = 0):
+    """Inference probabilities of one model on the open batch ("2.
+    Prediction", Eq. 9).  ``batch_size > 0`` runs the forward pass chunk by
+    chunk so a large open batch never holds all activations at once."""
+    with torch.no_grad():
+        n = x.shape[0]
+        if batch_size <= 0 or batch_size >= n:
+            logits, _ = apply_fn(params, state, x, False)
+            return torch.softmax(logits.float(), dim=-1)
+        out = []
+        for i in range(0, n, batch_size):
+            logits, _ = apply_fn(params, state, x[i:i + batch_size], False)
+            out.append(torch.softmax(logits.float(), dim=-1))
+        return torch.cat(out, dim=0)

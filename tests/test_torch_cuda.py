@@ -1,0 +1,135 @@
+"""The CUDA kernels K1-K4 against their plain versions, on the card.
+
+Every test here is marked ``cuda`` and skips (from its fixture) where torch
+sees no card.  The file imports nothing of JAX, so on a machine without it
+the tests run with
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import aggregation
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import distill_loss as tdl
+from repro_torch.kernels import era_sharpen as tes
+
+ATOL_ERA = {torch.float32: 1e-6, torch.bfloat16: 5e-3}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(device, seed):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _probs(device, shape, seed, dtype=torch.float32, scale=2.0):
+    x = torch.randn(shape, generator=_gen(device, seed), device=device)
+    return torch.softmax(x * scale, dim=-1).to(dtype)
+
+
+def _weights(device, K, seed):
+    w = torch.rand((K,), generator=_gen(device, seed), device=device)
+    w[0] = 0.0
+    return w / w.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,C,dtype", [(100, 1000, 10, torch.float32),
+                                         (3, 13, 151, torch.bfloat16),
+                                         (2, 1, 10, torch.float32),
+                                         (4, 7, 20_000, torch.float32)])
+def test_era_kernels_match_plain(cuda_device, K, N, C, dtype):
+    p = _probs(cuda_device, (K, N, C), K + N + C, dtype)
+    w = _weights(cuda_device, K, K)
+    atol = ATOL_ERA[dtype]
+    pairs = ((tes.era_sharpen(p, 0.1), tes.era_sharpen_plain(p, 0.1)),
+             (tes.weighted_era_sharpen(p, w, 0.1),
+              tes.weighted_era_sharpen_plain(p, w, 0.1)),
+             (tes.weighted_era_sharpen(p, w, sharpen=False),
+              tes.weighted_era_sharpen_plain(p, w, sharpen=False)))
+    torch.cuda.synchronize()
+    for out, exp in pairs:
+        assert out.dtype == torch.float32 and out.shape == (N, C)
+        torch.testing.assert_close(out, exp, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_zero_weight_client_changes_no_bit(cuda_device):
+    p = _probs(cuda_device, (4, 9, 12), 3)
+    garbage = p.clone()
+    garbage[0], garbage[3] = 1e30, -1e30
+    w = torch.tensor([0.0, 0.5, 0.5, 0.0], device=cuda_device)
+    a = tes.weighted_era_sharpen(p, w, 0.1)
+    b = tes.weighted_era_sharpen(garbage, w, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V,dtype", [(100, 10, torch.float32),
+                                       (37, 1000, torch.float32),
+                                       (64, 4096, torch.bfloat16)])
+def test_distill_kernels_match_plain(cuda_device, N, V, dtype):
+    g = _gen(cuda_device, N + V)
+    z = (torch.randn((N, V), generator=g, device=cuda_device) * 4).to(dtype)
+    t = _probs(cuda_device, (N, V), N, dtype, scale=1.0)
+    loss, logz = tdl.distill_loss_fwd(z, t)
+    ploss, plogz = tdl.distill_loss_fwd_plain(z, t)
+    torch.cuda.synchronize()
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(loss, ploss, atol=atol, rtol=1e-3)
+    torch.testing.assert_close(logz, plogz, atol=atol, rtol=1e-3)
+    tmass = t.float().sum(-1)
+    gscale = torch.tensor([1.0 / N], device=cuda_device)
+    dz = tdl.distill_loss_bwd(z, t, plogz, tmass, gscale)
+    exp = tdl.distill_loss_bwd_plain(z, t, plogz, tmass, gscale)
+    torch.cuda.synchronize()
+    assert dz.dtype == dtype
+    # bf16: every |dz| is at most gscale, so the tolerance scales with it;
+    # rtol is one bf16 rounding step (2^-7) of the value
+    atol, rtol = ((1e-6 / N, 1e-2) if dtype == torch.bfloat16 else (1e-6, 0.0))
+    torch.testing.assert_close(dz.float(), exp.float(), atol=atol, rtol=rtol)
+    assert not torch.allclose(torch.zeros_like(exp.float()), exp.float(),
+                              atol=atol, rtol=rtol), "a zeroed dz would pass"
+
+
+@pytest.mark.cuda
+def test_distill_loss_autograd_on_the_card(cuda_device):
+    """The autograd Function (K3 forward, K4 backward) against autograd of
+    the plain loss, atol 1e-5."""
+    g = _gen(cuda_device, 5)
+    z = torch.randn((64, 256), generator=g, device=cuda_device) * 3
+    t = _probs(cuda_device, (64, 256), 6, scale=1.0)
+    zk = z.clone().requires_grad_(True)
+    ops.distill_loss_2d.apply(zk, t).backward()
+    zp = z.clone().requires_grad_(True)
+    tdl.distill_loss_fwd_plain(zp, t)[0].mean().backward()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zk.grad, zp.grad, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_aggregation_routes_to_kernels_and_counts(cuda_device):
+    p = _probs(cuda_device, (4, 8, 10), 9)
+    w = torch.tensor([1.0, 2.0, 0.0, 1.0], device=cuda_device)
+    _build.reset_launches()
+    aggregation.era(p, 0.1, use_kernel=True)
+    aggregation.weighted_era(p, w, 0.1, use_kernel=True)
+    aggregation.weighted_sa(p, w, use_kernel=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["era_sharpen"] == 1
+    assert _build.LAUNCHES["weighted_era_sharpen"] == 2
+    with pytest.raises(ValueError, match="dtype"):
+        tes.era_sharpen(p.double(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tes.era_sharpen(p.transpose(1, 2), 0.1)
+    assert np.isfinite(aggregation.era(p, 0.1, True).cpu().numpy()).all()
