@@ -1,33 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
-Phases, in order; any failure exits non-zero and prints no result:
+Two paths: the DS-FL round (slice 1) and serving mamba2-2.7b at full width
+(slice 2).  Phases, in order; any failure exits non-zero and prints no
+result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
              off for matmuls and convolutions, so float32 means float32.
  2. build    the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
-             one process per source), timed, with ptxas's report.
+             one process per source, all started together), timed, with
+             ptxas's report.
  3. kernels  each kernel against its plain PyTorch version on the card:
              K1/K2 (ERA, weighted ERA) at the round's (100, 1000, 10) f32,
              at (3, 13, 151) bf16 and the zero-weight bitwise check; K3/K4
              (distillation loss and gradient) at the round's distillation
              batch (100, 10) f32, at a ragged f32 shape and at (2048,
-             151936) bf16 (the vocabulary of configs/qwen1_5_4b.py).
+             151936) bf16 (the vocabulary of configs/qwen1_5_4b.py); K5 (the
+             SSD within-chunk block) at the serving prefill's (M, Q, H, P, G,
+             N) = (32, 256, 80, 64, 1, 128), at Q = 1, at a ragged Q = 100
+             and at G > 1 shapes with ragged P and N, atol = rtol = 1e-4.
  4. timing   CUDA events over >= 100 launches after a warm-up, for each
              kernel and its plain version; the bound is the larger of the
              bytes moved over 3.35 TB/s and the fp32 operations over 67
              TFLOP/s (H100 SXM data sheet); for K3 also the library call
-             ``F.cross_entropy(z, t, reduction="none")`` as a yardstick.
- 5. slice    the main path: DS-FL (paper Algorithm 1) through
-             ``FedEngine.run`` with ``DSFLAlgorithm(use_kernel=True)``, the
-             paper's MNIST CNN at full width (582,218 trainable parameters,
-             582,410 with BatchNorm state), K=100 clients, DSFLConfig
-             defaults: 2 ERA rounds, 1 weighted-ERA round, 1 masked round
-             with half the clients present.  Launch counts are zeroed just
-             before the rounds and read just after: these are the kernels
-             line's ``launches``.  The round never reaches K3/K4 (its
+             ``F.cross_entropy(z, t, reduction="none")`` as a yardstick (no
+             single PyTorch call computes K1, K2, K4 or K5).
+ 5. slice    the DS-FL path: paper Algorithm 1 through ``FedEngine.run``
+             with ``DSFLAlgorithm(use_kernel=True)``, the paper's MNIST CNN
+             at full width (582,218 trainable parameters, 582,410 with
+             BatchNorm state), K=100 clients, DSFLConfig defaults: 2 ERA
+             rounds, 1 weighted-ERA round, 1 masked round with half the
+             clients present.  Launch counts are zeroed just before the
+             rounds and read just after.  The round never reaches K3/K4 (its
              distillation calls the plain loss, as the JAX reference's
              does), so a side check then zeroes the counts again and runs
              the distillation loss of the final state through
@@ -38,7 +44,33 @@ Phases, in order; any failure exits non-zero and prints no result:
              distillation epoch) from the same weights and draws on the card
              (kernels) and on the CPU (plain versions), compared leaf by
              leaf.
- 7. the ``{"kernels": [...]}`` line, the card's line, and the result line.
+ 7. serve    the serving path: mamba2-2.7b at the config's widths and its 64
+             layers in bf16 (2,702,579,200 values from the port's seeded
+             init on the card) through ``ServeEngine(slots=8,
+             seq_budget=2112, buckets=(256, 1024, 2048))``: four
+             2048-token prompts through one
+             ``insert_batch``, prompts of 1024, 1030, 256 and 40 tokens
+             through ``insert`` (the 1030 and 40 force 6 and 39 tail tokens
+             through decode), 32 new tokens each, decoding with
+             ``decode_chunk=1`` first, then ``decode_chunk=8``.  Launch
+             counts are zeroed just before the first insert and read after
+             the last step: K5 must show 64 launches per prefill shot (one
+             per Mamba layer), K1-K4 none.  Prints prefill ms per shot,
+             decode ms per step, generated tokens per second, peak device
+             memory and K5's share of the (4, 2048) prefill.
+    trace    after that window, a ``torch.profiler`` trace of one (4,
+             2048) prefill shot and of decode steps (d=1 and d=4): host
+             time, device time, idle share and the top ops by device time.
+ 8. routes   the same weights widened to float32, at all 64 layers, and the
+             same (4, 2048) prefill through K5 and through its plain
+             version patched in: last-token logits, the decode cache and
+             the greedy first tokens, held to ``ROUTE_RTOL``; the plain
+             route with a 1% fault in the SSD core must fail that check.
+ 9. LM card vs CPU  mamba2-2.7b at full width and depth 2 in float32, the
+             same weights on the card (K5) and on the CPU (plain versions):
+             one (1, 512) prefill and 8 decode steps, logits and every cache
+             leaf compared.
+10. the ``{"kernels": [...]}`` line, the card's line, and the result line.
 """
 from __future__ import annotations
 
@@ -62,6 +94,22 @@ CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL = 2e-4, 1e-3
 # the kernels the DS-FL round launches; K3/K4 sit behind
 # losses.distill_xent(use_kernel=True), which the round does not call
 ON_MAIN_PATH = ("era_sharpen", "weighted_era_sharpen")
+SERVE_KERNELS = ("ssd_chunk",)      # what the serving path launches
+K5_TOL = 1e-4                       # the reference's (tests/test_kernels.py)
+K5_MAIN = (32, 256, 80, 64, 1, 128)  # (M, Q, H, P, G, N) of a (4, 2048) prefill
+# Kernel route vs plain route at full width and depth, in float32.  The two
+# routes differ only in the order of the SSD core's f32 sums, about 1e-6 of
+# its values.  In bf16 every layer rounds that onto a bf16 step (2^-8) where
+# a value sits near a rounding boundary, and 64 layers carry those steps:
+# a comparison there cannot tell a rounding-order difference from a
+# percent-level fault.  In float32 there is no such step, so each tensor
+# (logits and every cache leaf) is held to ROUTE_RTOL of its largest
+# magnitude, and the run shows the check has the power it claims: the plain
+# route with every SSD core output times (1 +- ROUTE_FAULT) at random must
+# land outside it.  A greedy token may differ only where the plain route's
+# top-2 margin is below twice the largest logit difference.
+ROUTE_RTOL = 1e-4
+ROUTE_FAULT = 1e-2
 
 
 def fail(msg: str):
@@ -274,6 +322,403 @@ def phase_kernels_and_timing():
             f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) library_ms={r['library_ms']}")
     return recs, extra
+
+
+def _ssd_inputs(M, Q, H, P, G, N, seed, bc_scale=None, dtype=torch.float32):
+    """K5's inputs on the card: x normal; dt = softplus(normal) and dA =
+    -0.3 dt, as the reference's kernel tests draw them; B and C normal times
+    ``bc_scale``, by default N^-1/4, so the scores C.B have unit variance at
+    every N (the reference's tests, at N <= 16, have scores of variance N;
+    the model's own scores are about 0.1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    s = N ** -0.25 if bc_scale is None else bc_scale
+    x = rn(M, Q, H, P)
+    dt = torch.nn.functional.softplus(rn(M, Q, H))
+    out = x, dt, -0.3 * dt, rn(M, Q, G, N) * s, rn(M, Q, G, N) * s
+    return tuple(t.to(dtype) for t in out)
+
+
+def _ssd_float64(x, dt, dA, Bm, Cm):
+    """K5's function in float64, head by head (the oracle of the accuracy
+    report)."""
+    x, dt, dA, Bm, Cm = (t.double() for t in (x, dt, dA, Bm, Cm))
+    H, G, Q = x.shape[2], Bm.shape[2], x.shape[1]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    y = torch.empty_like(x)
+    for h in range(H):
+        g = h // (H // G)
+        cum = torch.cumsum(dA[:, :, h], dim=1)                    # (M, Q)
+        L = torch.exp((cum[:, :, None] - cum[:, None, :]).masked_fill(
+            ~causal, float("-inf")))
+        W = torch.einsum("mqn,mkn->mqk", Cm[:, :, g], Bm[:, :, g]) * L \
+            * dt[:, None, :, h]
+        y[:, :, h] = torch.einsum("mqk,mkp->mqp", W, x[:, :, h])
+    return y
+
+
+def k5_bound(M, Q, H, P, G, N):
+    """Bytes: x, dt, dA, B, C read once and y written once.  Operations:
+    the scores C.B are shared by the H/G heads of a group, so per (chunk,
+    group) the causal pairs i >= j each take N multiply-adds for them; per
+    (chunk, head) each pair takes P multiply-adds for the product with x and
+    four operations for exp(cum_i - cum_j), dt and the scaling, plus the
+    cumsum.  (The kernel forms the scores for every head again.)"""
+    nbytes = 4 * (2 * M * Q * H * P + 2 * M * Q * H + 2 * M * Q * G * N)
+    pairs = Q * (Q + 1) // 2
+    flops = M * (G * pairs * 2 * N + H * (pairs * (2 * P + 4) + Q))
+    return bound(nbytes, flops)
+
+
+def phase_k5():
+    """K5 against its plain version at the serving path's shapes (phase 3)
+    and its timing at the (4, 2048) prefill's shape (phase 4)."""
+    from repro_torch.kernels import ssd_chunk as ssd
+    shapes = (("main path (4, 2048) prefill", K5_MAIN),
+              ("bucket-1 prefill, Q=1", (4, 1, 80, 64, 1, 128)),
+              ("ragged Q=100", (3, 100, 80, 64, 1, 128)),
+              ("G>1, ragged P and N", (5, 77, 12, 40, 3, 24)),
+              ("G>1, two P tiles, three Q tiles", (2, 130, 8, 96, 2, 64)))
+    err_main = 0.0
+    for i, (label, shape) in enumerate(shapes):
+        args = _ssd_inputs(*shape, seed=20 + i)
+        out, exp = ssd.ssd_chunk(*args), ssd.ssd_chunk_plain(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            fail(f"K5 {label}: non-finite output")
+        err = check(f"K5 ssd_chunk {label} {shape} f32", out, exp, K5_TOL,
+                    K5_TOL)
+        if i == 0:
+            err_main = err
+            if close(torch.zeros_like(exp), exp, K5_TOL, K5_TOL):
+                fail("K5: the tolerance would pass a zeroed y")
+    # accuracy at unit-normal B and C (scores of std sqrt(N) = 11.3), where
+    # fp32 rounding in any order reaches 1e-4: both versions against float64
+    raw = _ssd_inputs(*K5_MAIN, seed=21, bc_scale=1.0)
+    exact = _ssd_float64(*raw)
+    e_k = float((ssd.ssd_chunk(*raw).double() - exact).abs().max())
+    e_p = float((ssd.ssd_chunk_plain(*raw).double() - exact).abs().max())
+    say(f"accuracy K5 {K5_MAIN} at unit-normal B, C (max |y| "
+        f"{float(exact.abs().max()):.4g}): largest error against float64 "
+        f"{e_k:.3e} (kernel), {e_p:.3e} (plain version)")
+    del raw, exact
+    args = _ssd_inputs(*K5_MAIN, seed=20)
+    b, by = k5_bound(*K5_MAIN)
+    rec = dict(source="src/repro_torch/csrc/ssd_chunk.cu",
+               replaces="src/repro/kernels/ssd_chunk.py:48",
+               max_abs_err=err_main,
+               ms=time_ms(lambda: ssd.ssd_chunk(*args)),
+               plain_ms=time_ms(lambda: ssd.ssd_chunk_plain(*args), iters=20),
+               bound_ms=b, bound_by=by, library_ms=None,
+               shape=list(K5_MAIN), dtype="float32")
+    say(f"timing ssd_chunk {rec['shape']} float32: ms={rec['ms']:.5f} "
+        f"plain_ms={rec['plain_ms']:.5f} bound_ms={rec['bound_ms']:.5f} "
+        f"({rec['bound_by']}) library_ms=none (no single PyTorch call "
+        f"computes it); {rec['bound_ms'] / rec['ms']:.1%} of the bound")
+    return rec
+
+
+def _serving_model():
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models.api import model_init
+    from repro_torch.models.base import param_count
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    params = model_init(cfg, generator("cuda", 0), "cuda")
+    torch.cuda.synchronize()
+    n = param_count(params)
+    say(f"serve: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
+        f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, {cfg.dtype}: {n} values, "
+        f"{sum(v.numel() * v.element_size() for v in params.values())} bytes,"
+        f" seeded init in {time.perf_counter() - t0:.1f} s")
+    if n != 2_702_579_200:
+        fail(f"mamba2-2.7b parameter count {n}")
+    return cfg, params
+
+
+SERVE_PROMPTS = (2048, 2048, 2048, 2048, 1024, 1030, 256, 40)
+SERVE_NEW, SERVE_D1_STEPS = 32, 16
+
+
+def phase_serve(smi, cfg, params, k5_ms):
+    """The serving path at full width (phase 7)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Request, ServeEngine
+    g = torch.Generator().manual_seed(5)
+    prompts = [tuple(torch.randint(0, cfg.vocab, (n,), generator=g).tolist())
+               for n in SERVE_PROMPTS]
+    reqs = [Request(id=i, tokens=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    eng = ServeEngine(cfg, params, slots=8, seq_budget=2112,
+                      buckets=(256, 1024, 2048), device="cuda")
+    # warm-up outside the window: cuBLAS handles and the first GEMMs
+    eng.insert(Request(id=-1, tokens=prompts[6], max_new_tokens=1))
+    eng.pop_completed()
+    eng.reset()
+    torch.cuda.synchronize()
+
+    shots, t_shot = [], time.perf_counter
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    shots_before = eng.n_prefill_shots
+    _build.reset_launches()                       # the serving path's window
+    t_start = t_shot()
+    t0 = t_shot()
+    eng.insert_batch(reqs[:4], now=0.0)
+    torch.cuda.synchronize()
+    shots.append(("insert_batch 4 x 2048", t_shot() - t0))
+    for req in reqs[4:]:
+        t0 = t_shot()
+        eng.insert(req, now=0.0)
+        torch.cuda.synchronize()
+        n = eng.prefill_len(req.prompt_len)
+        shots.append((f"insert {req.prompt_len} (prefill 1 x {n})",
+                      t_shot() - t0))
+    t_decode = t_shot()
+    steps, d1_times = 0, []
+    while eng.n_active:
+        d = 1 if steps < SERVE_D1_STEPS else 8
+        before = eng.n_steps
+        t0 = t_shot()
+        eng.step(now=float(steps), decode_chunk=d)
+        dt = t_shot() - t0
+        if d == 1:
+            d1_times.append(dt)
+        steps += eng.n_steps - before
+    torch.cuda.synchronize()
+    t_end = t_shot()
+    launches = dict(_build.LAUNCHES)              # end of the window
+    peak = torch.cuda.max_memory_allocated()
+    done = {r.id: r for r in eng.pop_completed()}
+    say(f"launches in the serving window: {json.dumps(launches)}")
+
+    if sorted(done) != list(range(len(reqs))):
+        fail(f"serve: completed {sorted(done)} of {len(reqs)} requests")
+    for r in done.values():
+        if len(r.tokens) != SERVE_NEW or not all(0 <= t < cfg.vocab
+                                                 for t in r.tokens):
+            fail(f"serve: request {r.id} returned {r.tokens}")
+    for k, v in eng.cache.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            fail(f"serve: cache leaf {k} is not finite")
+    shots_n = eng.n_prefill_shots - shots_before
+    if shots_n != 5:
+        fail(f"serve: {shots_n} prefill shots in the window, expected 5")
+    if launches["ssd_chunk"] != cfg.n_layers * shots_n:
+        fail(f"serve: K5 launched {launches['ssd_chunk']} times in "
+             f"{shots_n} prefill shots, not {cfg.n_layers} per shot")
+    for name in ("era_sharpen", "weighted_era_sharpen", "distill_loss_fwd",
+                 "distill_loss_bwd"):
+        if launches[name]:
+            fail(f"serve: {name} was launched on the serving path")
+    n_gen = sum(len(r.tokens) for r in done.values())
+    big_shot = shots[0][1]
+    steady = d1_times[1:]
+    rec = dict(
+        device=smi, prompts=list(SERVE_PROMPTS), max_new_tokens=SERVE_NEW,
+        prefill_shots={k: v * 1e3 for k, v in shots},
+        prefill_shots_unit="ms",
+        decode_ms_per_step_d1=1e3 * sum(steady) / len(steady),
+        decode_steps=eng.n_steps, host_syncs=eng.n_dispatches,
+        decode_seconds=t_end - t_decode,
+        generated_tokens=n_gen,
+        generated_tokens_per_s_decode=n_gen / (t_end - t_decode),
+        generated_tokens_per_s_end_to_end=n_gen / (t_end - t_start),
+        max_memory_allocated=peak,
+        k5_ms_at_main_shape=k5_ms,
+        k5_share_of_4x2048_prefill=k5_ms * cfg.n_layers / 1e3 / big_shot,
+        launches=launches)
+    chunk_s = (t_end - t_decode) - sum(d1_times)
+    chunk_steps = eng.n_steps - len(d1_times)
+    rec["decode_ms_per_step_d8"] = 1e3 * chunk_s / max(chunk_steps, 1)
+    for k, v in shots:
+        say(f"serve [{smi}]: prefill {k}: {v * 1e3:.3f} ms")
+    say(f"serve [{smi}]: decode at 8 slots: "
+        f"{rec['decode_ms_per_step_d1']:.3f} ms/step (decode_chunk=1, "
+        f"{len(steady)} steady steps), {rec['decode_ms_per_step_d8']:.3f} "
+        f"ms/step (decode_chunk=8, {chunk_steps} steps)")
+    say(f"serve [{smi}]: {n_gen} generated tokens: "
+        f"{rec['generated_tokens_per_s_decode']:.1f} tokens/s over the decode"
+        f" phase, {rec['generated_tokens_per_s_end_to_end']:.1f} tokens/s "
+        f"from the first insert to the last token")
+    say(f"serve [{smi}]: peak device memory {peak} B")
+    say(f"serve [{smi}]: K5 share of the (4, 2048) prefill: {k5_ms:.4f} ms x "
+        f"{cfg.n_layers} / {big_shot * 1e3:.3f} ms = "
+        f"{rec['k5_share_of_4x2048_prefill']:.1%}")
+    say("serve " + json.dumps(rec))
+    return launches, prompts[:4]
+
+
+def _trace_summary(prof):
+    """(device ms, kernels, queue-full markers, top 8 (name, count, device
+    ms)) of a profile.  The device time is the sum of the kernels' own
+    durations (one stream, so they do not overlap); the profiler's "Command
+    Buffer Full" markers (the host waiting on a full launch queue) are
+    counted apart.  The top list attributes each kernel to the op that
+    launched it, and the port's own kernels (csrc/*.cu, in anonymous
+    namespaces) by their own name."""
+    from torch.autograd import DeviceType
+    full = sum(e.name == "Command Buffer Full" for e in prof.events())
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name != "Command Buffer Full"]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ops = [(e.key, e.count, e.self_device_time_total / 1e3)
+           for e in prof.key_averages() if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    own = {}
+    for e in kernels:
+        if e.name.startswith("(anonymous namespace)::"):
+            name = e.name.split("::")[1].split("(")[0]
+            c, t = own.get(name, (0, 0.0))
+            own[name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
+    ops += [(k, c, t) for k, (c, t) in own.items()]
+    return dev_ms, len(kernels), full, sorted(ops, key=lambda r: -r[2])[:8]
+
+
+def phase_trace(smi, cfg, params, prompts):
+    """Where the serving time goes (phase 7, after its window): a
+    ``torch.profiler`` trace of one (4, 2048) prefill shot, 4 decode steps
+    at 8 slots with decode_chunk=1, and one chunk of 4; for each, the host
+    time, the device time the profiler saw, the idle share and the top ops
+    by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, slots=8, seq_budget=2112,
+                      buckets=(256, 1024, 2048), device="cuda")
+    reqs = [Request(id=i, tokens=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    eng.insert_batch(reqs)                        # warm: same shapes again
+    eng.reset()
+    parts = (("prefill 4 x 2048", lambda: eng.insert_batch(reqs)),
+             ("4 decode steps, d=1", lambda: [eng.step() for _ in range(4)]),
+             ("1 chunk of 4 steps, d=4", lambda: eng.step(decode_chunk=4)))
+    out = {}
+    for name, fn in parts:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms, n_kernels, n_full, tops = _trace_summary(prof)
+        out[name] = dict(
+            host_ms=host_ms, device_ms=dev_ms, device_kernels=n_kernels,
+            launch_queue_full_markers=n_full,
+            idle_share=1 - dev_ms / host_ms if host_ms else None,
+            top=[(k[:60], c, t) for k, c, t in tops])
+        say(f"trace [{smi}]: {name}: host {host_ms:.3f} ms, device "
+            f"{dev_ms:.3f} ms in {n_kernels} kernels (profiled; idle share "
+            f"{out[name]['idle_share']:.1%}; {n_full} launch-queue-full "
+            f"markers); top by device ms: " +
+            "; ".join(f"{k} x{c} {t:.3f}" for k, c, t in out[name]["top"]))
+    if out["prefill 4 x 2048"]["device_ms"] == 0.0:
+        say("trace: the profiler saw no device time on this machine")
+    say("trace " + json.dumps(out))
+
+
+def phase_routes(smi, cfg, params, prompts):
+    """The (4, 2048) prefill of the serving weights widened to float32,
+    through K5, through its plain version, and through the plain version
+    with a 1% fault (phase 8)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ssd_chunk as ssd
+    from repro_torch.models.api import model_prefill
+    cfg = cfg.replace(dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def faulty_plain(*a):
+        y = ssd.ssd_chunk_plain(*a)
+        sign = torch.randint(0, 2, y.shape, generator=g, device="cuda") * 2 - 1
+        return y * (1 + ROUTE_FAULT * sign)
+
+    routes = {"kernel": ssd.ssd_chunk, "plain": ssd.ssd_chunk_plain,
+              "1% fault": faulty_plain}
+    toks = torch.tensor(prompts, device="cuda")
+    out = {}
+    for route, fn in routes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(ssd, "ssd_chunk", fn):
+            logits, cache = model_prefill(cfg, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        say(f"routes [{smi}]: (4, 2048) float32 prefill, {route} route: "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"routes: {route} logits are not finite")
+        out[route] = dict(cache, logits=logits)
+    kern, base, fault = out["kernel"], out["plain"], out["1% fault"]
+    report = {k: dict(diff=max_err(kern[k], base[k]),
+                      fault=max_err(fault[k], base[k]),
+                      max_abs=float(base[k].abs().max())) for k in base}
+    lk, lp = kern["logits"], base["logits"]
+    top2 = torch.topk(lp, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = torch.argmax(lk, -1) == torch.argmax(lp, -1)
+    say(f"routes [{smi}]: float32, 64 layers, largest difference from the "
+        f"plain route (kernel route; 1% fault; largest magnitude): " +
+        ", ".join(f"{k} {r['diff']:.4g} ({r['fault']:.4g}; {r['max_abs']:.4g})"
+                  for k, r in report.items()) +
+        f"; greedy first tokens agree {int(agree.sum())}/{agree.numel()} "
+        f"(top-2 margins {[round(float(x), 4) for x in margin]}); tolerance "
+        f"{ROUTE_RTOL} of the largest magnitude")
+    for k, r in report.items():
+        if r["diff"] > ROUTE_RTOL * r["max_abs"]:
+            fail(f"routes: {k} differ by {r['diff']:.4g}, above {ROUTE_RTOL} "
+                 f"of {r['max_abs']:.4g}")
+    if all(r["fault"] <= ROUTE_RTOL * r["max_abs"] for r in report.values()):
+        fail(f"routes: a {ROUTE_FAULT:.0%} fault in the SSD core passes the "
+             f"tolerance, so the check cannot see one")
+    decided = margin > 2 * report["logits"]["diff"]
+    if bool((decided & ~agree).any()):
+        fail("routes: a greedy first token differs where the top-2 margin "
+             "exceeds twice the largest logit difference")
+
+
+def phase_lm_card_vs_cpu(smi):
+    """mamba2-2.7b at full width, depth 2, float32: one (1, 512) prefill and
+    8 decode steps on the card (K5) and on the CPU (phase 9)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import (model_decode_step, model_init,
+                                        model_prefill)
+    cfg = get_config("mamba2-2.7b").replace(n_layers=2, dtype="float32")
+    params = model_init(cfg, torch.Generator().manual_seed(1), "cpu")
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, 512 + 8), generator=g)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = {k: v.to(device) for k, v in params.items()}
+        t = toks.to(device)
+        t0 = time.perf_counter()
+        logits, cache = model_prefill(cfg, p, {"tokens": t[:, :512]})
+        seen = [(logits, dict(cache))]
+        for i in range(8):
+            logits, cache = model_decode_step(cfg, p, cache, t[:, 512 + i],
+                                              512 + i)
+            seen.append((logits, dict(cache)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        say(f"lm card vs cpu: {device} prefill + 8 steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+        runs[device] = [(lg.cpu(), {k: v.cpu() for k, v in c.items()})
+                        for lg, c in seen]
+    worst = 0.0
+    for step, ((la, ca), (lb, cb)) in enumerate(zip(runs["cuda"],
+                                                    runs["cpu"])):
+        for name, a, b in [("logits", la, lb)] + [(k, ca[k], cb[k])
+                                                  for k in cb]:
+            worst = max(worst, max_err(a, b))
+            if not close(a, b, CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL):
+                fail(f"lm card vs cpu: step {step} {name} differs by "
+                     f"{max_err(a, b):.3e}")
+    say(f"lm card vs cpu [{smi}]: d_model {cfg.d_model}, depth "
+        f"{cfg.n_layers}, float32: logits and every cache leaf agree after "
+        f"the prefill and each of 8 decode steps (max diff {worst:.3e}; atol "
+        f"{CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL})")
 
 
 def _paper_cnn(device):
@@ -489,14 +934,32 @@ def main():
     smi = phase_device()
     phase_build()
     recs, _ = phase_kernels_and_timing()
+    recs["ssd_chunk"] = phase_k5()
     eng, state, task, launches, side = phase_slice()
     phase_legs(eng, state, task)
     del eng, state, task
     phase_card_vs_cpu()
-    kernels = [dict(name=name, route="cuda", launches=launches[name],
-                    on_main_path=name in ON_MAIN_PATH,
-                    side_check_launches=side[name], check="pass", **r)
-               for name, r in recs.items()]
+    torch.cuda.empty_cache()
+    cfg, params = _serving_model()
+    serve_launches, prompts = phase_serve(smi, cfg, params,
+                                          recs["ssd_chunk"]["ms"])
+    phase_trace(smi, cfg, params, prompts)
+    wide = {k: v.float() for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    phase_routes(smi, cfg, wide, prompts)
+    del wide
+    torch.cuda.empty_cache()
+    phase_lm_card_vs_cpu(smi)
+    kernels = []
+    for name, r in recs.items():
+        serving = name in SERVE_KERNELS
+        kernels.append(dict(
+            name=name, route="cuda",
+            launches=(serve_launches if serving else launches)[name],
+            path="serve mamba2-2.7b" if serving else "DS-FL round",
+            on_main_path=serving or name in ON_MAIN_PATH,
+            side_check_launches=side[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {smi}")
     say(json.dumps({"kernels": kernels}))

@@ -1,11 +1,17 @@
-"""Carry weights and round states across between nested numpy trees (the
-layout ``jax.device_get`` gives of the reference's pytrees) and the port's
-flat ``dict[str, Tensor]`` with ``/``-joined names.
+"""Carry weights, decode caches and round states across between nested
+numpy trees (the layout ``jax.device_get`` gives of the reference's
+pytrees) and the port's flat ``dict[str, Tensor]`` with ``/``-joined names.
 
 A nested dict ``{"c1": {"w": a}}`` becomes ``{"c1/w": tensor(a)}``; an
-empty tuple (the reference's SGD state) becomes ``{}``.  The reference's
-round state is read by attribute (``.clients.params`` and so on), so this
-module needs nothing of the reference package."""
+empty tuple (the reference's SGD state) becomes ``{}``.  The reference's LM
+parameters (``init_lm``) become ``embed/tok``, ``blocks/s0_mix/w_z`` (with
+the stacked block axis) and so on, and its decode cache (``init_cache``,
+``prefill``) ``s0/state``, ``s0/conv_x`` and so on.  numpy has no bfloat16
+of its own: the reference's bf16 leaves arrive as ``ml_dtypes.bfloat16``
+arrays, cross through float32 (exact) and land as ``torch.bfloat16``; on
+the way back a bf16 tensor becomes a float32 array (exact as well).  The
+reference's round state is read by attribute (``.clients.params`` and so
+on), so this module needs nothing of the reference package."""
 from __future__ import annotations
 
 import numpy as np
@@ -31,8 +37,14 @@ def flatten_tree(tree, prefix: str = "", out=None) -> dict:
 def from_numpy_tree(tree, device) -> dict:
     """Nested numpy tree -> flat ``{"a/b": Tensor}`` on ``device`` (copied:
     the tensors share no memory with the arrays)."""
-    return {k: torch.tensor(v, device=device)
-            for k, v in flatten_tree(tree).items()}
+    return {k: _tensor(v, device) for k, v in flatten_tree(tree).items()}
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":      # ml_dtypes.bfloat16, via float32
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
 
 
 def to_numpy_tree(flat: dict) -> dict:
@@ -43,7 +55,8 @@ def to_numpy_tree(flat: dict) -> dict:
         node = out
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        node[leaf] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return out
 
 

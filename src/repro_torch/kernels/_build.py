@@ -23,12 +23,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("era_sharpen", "distill_loss")
+SOURCES = ("era_sharpen", "distill_loss", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"era_sharpen": 0, "weighted_era_sharpen": 0,
-            "distill_loss_fwd": 0, "distill_loss_bwd": 0}
+            "distill_loss_fwd": 0, "distill_loss_bwd": 0, "ssd_chunk": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,9 @@
 """The kernels as the rest of the port calls them (mirrors
 ``repro/kernels/ops.py``).  The teacher-building ops are not differentiated;
 the distillation loss is a `torch.autograd.Function` whose forward is K3 and
-whose backward is K4.  On CPU tensors every op runs its plain version.
+whose backward is K4; the SSD chunk block (K5) serves inference only, as in
+the reference (no backward).  On CPU tensors every op runs its plain
+version.
 """
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import torch
 
 from .distill_loss import distill_loss_bwd, distill_loss_fwd
 from . import era_sharpen as _era
+from . import ssd_chunk as _ssd
 
 F32 = torch.float32
 
@@ -68,3 +71,22 @@ def distill_loss(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
     z = student_logits.reshape(-1, V).contiguous()
     t = teacher_probs.reshape(-1, V).contiguous()
     return distill_loss_2d.apply(z, t)
+
+
+# -------------------------------------------------------------- ssd chunk ----
+def ssd_chunk(xr, dtr, dAr, Br, Cr, hpg: int) -> torch.Tensor:
+    """The within-chunk blocks of ``models.ssm.ssd_chunked`` (the
+    reference's ``_chunk_local``): xr: (B, nc, Q, H, P), dtr/dAr:
+    (B, nc, Q, H), Br/Cr: (B, nc, Q, G, N) -> (B, nc, Q, H, P) fp32.
+    ``hpg`` (heads per group) must agree with the shapes (H // G)."""
+    B, nc, Q, H, P = xr.shape
+    G, N = Br.shape[3], Br.shape[4]
+    if H != hpg * G:
+        raise ValueError(f"ssd_chunk: hpg={hpg} with G={G} groups does not "
+                         f"give H={H} heads")
+    y = _ssd.ssd_chunk(xr.reshape(B * nc, Q, H, P).contiguous(),
+                       dtr.reshape(B * nc, Q, H).contiguous(),
+                       dAr.reshape(B * nc, Q, H).contiguous(),
+                       Br.reshape(B * nc, Q, G, N).contiguous(),
+                       Cr.reshape(B * nc, Q, G, N).contiguous())
+    return y.reshape(B, nc, Q, H, P)

@@ -40,3 +40,4 @@ def distill_loss_grad_ref(student_logits, teacher_probs, g):
     t = teacher_probs.to(F32)
     tmass = t.sum(dim=-1, keepdim=True)
     return (g / x.shape[0]) * (p * tmass - t)
+

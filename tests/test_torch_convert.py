@@ -115,6 +115,24 @@ def test_tree_roundtrip_and_flat_names():
     assert convert.from_numpy_tree((), CPU) == {}
 
 
+def test_bf16_leaves_cross_exactly():
+    """The reference's bf16 leaves (ml_dtypes arrays in numpy) land as
+    torch.bfloat16 with the same values, and come back as float32."""
+    import jax.numpy as jnp
+    vals = np.array([[1.0, -2.5, 3.140625], [1e-3, 65280.0, -0.0]],
+                    np.float32)
+    tree = to_np({"embed": {"tok": jnp.asarray(vals, jnp.bfloat16)}})
+    assert tree["embed"]["tok"].dtype.name == "bfloat16"
+    flat = convert.from_numpy_tree(tree, CPU)
+    t = flat["embed/tok"]
+    assert t.dtype == torch.bfloat16
+    want = np.asarray(jnp.asarray(vals, jnp.bfloat16).astype(jnp.float32))
+    np.testing.assert_array_equal(t.float().numpy(), want)
+    back = convert.to_numpy_tree(flat)["embed"]["tok"]
+    assert back.dtype == np.float32
+    np.testing.assert_array_equal(back, want)
+
+
 def test_round_state_roundtrip_from_reference(rng):
     from repro.core.algorithms import DSFLAlgorithm
     from repro.core.protocol import DSFLConfig

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K4 against their plain versions, on the card.
+"""The CUDA kernels K1-K5 against their plain versions, on the card, and
+the serving path's launches of K5.
 
 Every test here is marked ``cuda`` and skips (from its fixture) where torch
 sees no card.  The file imports nothing of JAX, so on a machine without it
@@ -14,6 +15,7 @@ from repro_torch.core import aggregation
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import distill_loss as tdl
 from repro_torch.kernels import era_sharpen as tes
+from repro_torch.kernels import ssd_chunk as tssd
 
 ATOL_ERA = {torch.float32: 1e-6, torch.bfloat16: 5e-3}
 
@@ -133,3 +135,77 @@ def test_aggregation_routes_to_kernels_and_counts(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tes.era_sharpen(p.transpose(1, 2), 0.1)
     assert np.isfinite(aggregation.era(p, 0.1, True).cpu().numpy()).all()
+
+
+# ---------------------------------------------------------------------- K5 --
+def _ssd_inputs(device, M, Q, H, P, G, N, seed):
+    """As chip_smoke.py draws them: B and C scaled by N^-1/4, so the scores
+    C.B have unit variance at every N."""
+    g = _gen(device, seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=device)
+    x = rn(M, Q, H, P)
+    dt = torch.nn.functional.softplus(rn(M, Q, H))
+    s = N ** -0.25
+    return x, dt, -0.3 * dt, rn(M, Q, G, N) * s, rn(M, Q, G, N) * s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Q,H,P,G,N", [
+    (32, 256, 80, 64, 1, 128),      # mamba2-2.7b, a (4, 2048) prefill
+    (4, 1, 80, 64, 1, 128),         # the bucket-1 prefill
+    (3, 100, 80, 64, 1, 128),       # a ragged chunk
+    (5, 77, 12, 40, 3, 24),         # G > 1, ragged P and N
+    (2, 130, 8, 96, 2, 64)])        # two P tiles, three query tiles
+def test_ssd_chunk_kernel_matches_plain(cuda_device, M, Q, H, P, G, N):
+    """K5 against its plain version at chip_smoke.py's shapes, atol = rtol
+    = 1e-4 (the reference's tolerance)."""
+    args = _ssd_inputs(cuda_device, M, Q, H, P, G, N, M + Q)
+    _build.reset_launches()
+    y = tssd.ssd_chunk(*args)
+    exp = tssd.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_chunk"] == 1
+    assert y.shape == (M, Q, H, P) and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, exp, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="dtype"):
+        tssd.ssd_chunk(args[0].double(), *args[1:])
+    with pytest.raises(RuntimeError, match="no backward"):
+        tssd.ssd_chunk(args[0].clone().requires_grad_(True), *args[1:])
+    strided = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.ssd_chunk(strided, *args[1:])
+
+
+@pytest.mark.cuda
+def test_serving_launches_ssd_chunk_per_prefill(cuda_device, monkeypatch):
+    """A smoke-size ServeEngine on the card: every prefill shot launches K5
+    once per Mamba layer and decoding launches it never; the tokens equal
+    the plain route's (K5's plain version patched in)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import model_init
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("mamba2-2.7b").smoke()
+    params = model_init(cfg, _gen(cuda_device, 0), cuda_device)
+    params["embed/tok"] *= 0.1
+    g = np.random.default_rng(0)
+    prompts = [tuple(int(t) for t in g.integers(0, cfg.vocab, n))
+               for n in (16, 16, 37, 5)]
+    got = {}
+    for use_kernel in (True, False):
+        if not use_kernel:
+            monkeypatch.setattr(tssd, "ssd_chunk", tssd.ssd_chunk_plain)
+        eng = ServeEngine(cfg, params, slots=4, seq_budget=64,
+                          buckets=(16, 32))
+        _build.reset_launches()
+        eng.insert_batch([Request(id=i, tokens=p, max_new_tokens=6)
+                          for i, p in enumerate(prompts[:2])])
+        for i, p in enumerate(prompts[2:], start=2):
+            eng.insert(Request(id=i, tokens=p, max_new_tokens=6))
+        shots = dict(_build.LAUNCHES)["ssd_chunk"]
+        while eng.n_active:
+            eng.step(decode_chunk=4)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["ssd_chunk"] == shots
+        assert shots == (cfg.n_layers * 3 if use_kernel else 0)
+        got[use_kernel] = {r.id: r.tokens for r in eng.pop_completed()}
+    assert got[True] == got[False]
