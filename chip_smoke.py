@@ -4,8 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
 Two paths: the DS-FL round (slice 1) and serving mamba2-2.7b at full width
-(slice 2).  Phases, in order; any failure exits non-zero and prints no
-result:
+(slice 2; its SSD kernel K5 runs on the tensor cores).  Phases, in order;
+any failure exits non-zero and prints no result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
              off for matmuls and convolutions, so float32 means float32.
@@ -19,14 +19,24 @@ result:
              batch (100, 10) f32, at a ragged f32 shape and at (2048,
              151936) bf16 (the vocabulary of configs/qwen1_5_4b.py); K5 (the
              SSD within-chunk block) at the serving prefill's (M, Q, H, P, G,
-             N) = (32, 256, 80, 64, 1, 128), at Q = 1, at a ragged Q = 100
-             and at G > 1 shapes with ragged P and N, atol = rtol = 1e-4.
+             N) = (32, 256, 80, 64, 1, 128), at Q = 1, at a ragged Q = 100,
+             at G > 1 shapes with ragged P and N, at a head slice that does
+             not divide H/G and at rows that are not 16-byte aligned, atol =
+             rtol = 1e-4; its shared memory as the wrapper's plan computes it;
+             its error against float64 at unit-normal B and C no more than
+             twice the plain version's.
  4. timing   CUDA events over >= 100 launches after a warm-up, for each
-             kernel and its plain version; the bound is the larger of the
-             bytes moved over 3.35 TB/s and the fp32 operations over 67
-             TFLOP/s (H100 SXM data sheet); for K3 also the library call
-             ``F.cross_entropy(z, t, reduction="none")`` as a yardstick (no
-             single PyTorch call computes K1, K2, K4 or K5).
+             kernel and its plain version; for K1/K2 also the device time
+             from a CUDA graph of 100 launches (the stream timing measures
+             the host's launch rate there).  The bound is the larger of the
+             bytes moved over 3.35 TB/s and the operations over the card's
+             rate for their type (H100 SXM data sheet): 67 TFLOP/s for fp32
+             outside the tensor cores, 495 TFLOP/s for TF32 products, which
+             K5 runs three of per fp32 product (3xTF32); K5 also prints its
+             earlier bound with every operation at the fp32 rate.  For K3
+             also the library call ``F.cross_entropy(z, t,
+             reduction="none")`` as a yardstick (no single PyTorch call
+             computes K1, K2, K4 or K5).
  5. slice    the DS-FL path: paper Algorithm 1 through ``FedEngine.run``
              with ``DSFLAlgorithm(use_kernel=True)``, the paper's MNIST CNN
              at full width (582,218 trainable parameters, 582,410 with
@@ -89,6 +99,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
 TIMING_ITERS = 100
 CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL = 2e-4, 1e-3
 # the kernels the DS-FL round launches; K3/K4 sit behind
@@ -97,6 +108,14 @@ ON_MAIN_PATH = ("era_sharpen", "weighted_era_sharpen")
 SERVE_KERNELS = ("ssd_chunk",)      # what the serving path launches
 K5_TOL = 1e-4                       # the reference's (tests/test_kernels.py)
 K5_MAIN = (32, 256, 80, 64, 1, 128)  # (M, Q, H, P, G, N) of a (4, 2048) prefill
+K5_SHAPES = (("main path (4, 2048) prefill", K5_MAIN),
+             ("bucket-1 prefill, Q=1", (4, 1, 80, 64, 1, 128)),
+             ("ragged Q=100", (3, 100, 80, 64, 1, 128)),
+             ("G>1, ragged P and N", (5, 77, 12, 40, 3, 24)),
+             ("G>1, two P tiles, three Q tiles", (2, 130, 8, 96, 2, 64)),
+             ("head slices of 16 and 4, N=20, P=40, Q=130",
+              (24, 130, 20, 40, 1, 20)),
+             ("rows not 16-byte aligned, P=37, N=13", (3, 70, 6, 37, 2, 13)))
 # Kernel route vs plain route at full width and depth, in float32.  The two
 # routes differ only in the order of the SSD core's f32 sums, about 1e-6 of
 # its values.  In bf16 every layer rounds that onto a bf16 step (2^-8) where
@@ -135,9 +154,38 @@ def time_ms(fn, iters=TIMING_ITERS, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def graph_ms(fn, launches=TIMING_ITERS, replays=10) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in a
+    CUDA graph, replayed after a warm-up, timed with events, so the host's
+    launch rate is out of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+    """The least time of a call: the larger of its bytes over the memory
+    rate and its operations over the rate of their type (fp32 outside the
+    tensor cores, TF32 on them; the two units run side by side)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = max(flops / FP32_FLOPS, tf32_flops / TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -253,6 +301,7 @@ def phase_kernels_and_timing():
         replaces="src/repro/kernels/era_sharpen.py:68", max_abs_err=e1,
         ms=time_ms(lambda: es.era_sharpen(p, T)),
         plain_ms=time_ms(lambda: es.era_sharpen_plain(p, T)),
+        graph_ms=graph_ms(lambda: es.era_sharpen(p, T)),
         bound_ms=b1, bound_by=by1, library_ms=None, shape=[K, N, C],
         dtype="float32")
     recs["weighted_era_sharpen"] = dict(
@@ -260,6 +309,7 @@ def phase_kernels_and_timing():
         replaces="src/repro/kernels/era_sharpen.py:113", max_abs_err=e2,
         ms=time_ms(lambda: es.weighted_era_sharpen(p, w, T)),
         plain_ms=time_ms(lambda: es.weighted_era_sharpen_plain(p, w, T)),
+        graph_ms=graph_ms(lambda: es.weighted_era_sharpen(p, w, T)),
         bound_ms=b2, bound_by=by2, library_ms=None, shape=[K, N, C],
         dtype="float32")
 
@@ -318,7 +368,9 @@ def phase_kernels_and_timing():
         extra += [dict(name="distill_loss_fwd", **f_),
                   dict(name="distill_loss_bwd", **b_)]
     for name, r in list(recs.items()) + [(e["name"], e) for e in extra]:
-        say(f"timing {name} {r['shape']} {r['dtype']}: ms={r['ms']:.5f} "
+        graph = (f" graph_ms={r['graph_ms']:.5f} ({r['bound_ms'] / r['graph_ms']:.1%}"
+                 f" of the bound)" if "graph_ms" in r else "")
+        say(f"timing {name} {r['shape']} {r['dtype']}: ms={r['ms']:.5f}{graph} "
             f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) library_ms={r['library_ms']}")
     return recs, extra
@@ -361,26 +413,35 @@ def k5_bound(M, Q, H, P, G, N):
     """Bytes: x, dt, dA, B, C read once and y written once.  Operations:
     the scores C.B are shared by the H/G heads of a group, so per (chunk,
     group) the causal pairs i >= j each take N multiply-adds for them; per
-    (chunk, head) each pair takes P multiply-adds for the product with x and
-    four operations for exp(cum_i - cum_j), dt and the scaling, plus the
-    cumsum.  (The kernel forms the scores for every head again.)"""
+    (chunk, head) each pair takes P multiply-adds for the product with x
+    (products), and four operations for exp(cum_i - cum_j), dt and the
+    scaling, plus the cumsum (elementwise).  The products held to fp32
+    accuracy on the tensor cores take three TF32 products each (3xTF32).
+    Returns that bound, what bounds it, and the bound with every operation
+    at the fp32 rate outside the tensor cores."""
     nbytes = 4 * (2 * M * Q * H * P + 2 * M * Q * H + 2 * M * Q * G * N)
     pairs = Q * (Q + 1) // 2
-    flops = M * (G * pairs * 2 * N + H * (pairs * (2 * P + 4) + Q))
-    return bound(nbytes, flops)
+    products = M * pairs * 2 * (G * N + H * P)
+    elementwise = M * H * (pairs * 4 + Q)
+    b, by = bound(nbytes, elementwise, 3 * products)
+    return b, by, bound(nbytes, products + elementwise)[0]
 
 
 def phase_k5():
     """K5 against its plain version at the serving path's shapes (phase 3)
     and its timing at the (4, 2048) prefill's shape (phase 4)."""
     from repro_torch.kernels import ssd_chunk as ssd
-    shapes = (("main path (4, 2048) prefill", K5_MAIN),
-              ("bucket-1 prefill, Q=1", (4, 1, 80, 64, 1, 128)),
-              ("ragged Q=100", (3, 100, 80, 64, 1, 128)),
-              ("G>1, ragged P and N", (5, 77, 12, 40, 3, 24)),
-              ("G>1, two P tiles, three Q tiles", (2, 130, 8, 96, 2, 64)))
+    lib = ssd._lib()
     err_main = 0.0
-    for i, (label, shape) in enumerate(shapes):
+    for i, (label, shape) in enumerate(K5_SHAPES):
+        M, Q, H, P, G, N = shape
+        plan = ssd.launch_plan(M, Q, H, G, N, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        smem = lib.ssd_chunk_smem_bytes(Q, N, plan.heads_per_block)
+        say(f"K5 plan {shape}: {plan}; kernel's shared memory {smem} B")
+        if smem != plan.smem_bytes:
+            fail(f"K5 {label}: the kernel needs {smem} B of shared memory, "
+                 f"the wrapper's plan {plan.smem_bytes}")
         args = _ssd_inputs(*shape, seed=20 + i)
         out, exp = ssd.ssd_chunk(*args), ssd.ssd_chunk_plain(*args)
         torch.cuda.synchronize()
@@ -401,20 +462,25 @@ def phase_k5():
     say(f"accuracy K5 {K5_MAIN} at unit-normal B, C (max |y| "
         f"{float(exact.abs().max()):.4g}): largest error against float64 "
         f"{e_k:.3e} (kernel), {e_p:.3e} (plain version)")
+    if not e_k <= 2 * e_p:
+        fail(f"K5: error against float64 {e_k:.3e}, above twice the plain "
+             f"version's {e_p:.3e}")
     del raw, exact
     args = _ssd_inputs(*K5_MAIN, seed=20)
-    b, by = k5_bound(*K5_MAIN)
+    b, by, b32 = k5_bound(*K5_MAIN)
     rec = dict(source="src/repro_torch/csrc/ssd_chunk.cu",
                replaces="src/repro/kernels/ssd_chunk.py:48",
-               max_abs_err=err_main,
+               max_abs_err=err_main, float64_err=e_k, float64_err_plain=e_p,
                ms=time_ms(lambda: ssd.ssd_chunk(*args)),
                plain_ms=time_ms(lambda: ssd.ssd_chunk_plain(*args), iters=20),
-               bound_ms=b, bound_by=by, library_ms=None,
+               bound_ms=b, bound_by=by, fp32_bound_ms=b32, library_ms=None,
                shape=list(K5_MAIN), dtype="float32")
     say(f"timing ssd_chunk {rec['shape']} float32: ms={rec['ms']:.5f} "
         f"plain_ms={rec['plain_ms']:.5f} bound_ms={rec['bound_ms']:.5f} "
-        f"({rec['bound_by']}) library_ms=none (no single PyTorch call "
-        f"computes it); {rec['bound_ms'] / rec['ms']:.1%} of the bound")
+        f"({rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.1%} of it) "
+        f"fp32_bound_ms={b32:.5f} (every operation at the fp32 rate; "
+        f"{b32 / rec['ms']:.1%} of it) library_ms=none (no single PyTorch "
+        f"call computes it)")
     return rec
 
 

@@ -1,15 +1,19 @@
 """K5: Mamba2's within-chunk ("diagonal") SSD block, with its plain
 PyTorch version.
 
-The CUDA kernel is in ``csrc/ssd_chunk.cu`` (one block per chunk, head,
-64-row query tile and 64-column head-dim tile, walking the key tiles up to
-the diagonal in fp32; the note there gives its bound).  A wrapper given a
-CPU tensor computes the plain version; given a CUDA tensor it launches the
-kernel or raises.
+The CUDA kernel is in ``csrc/ssd_chunk.cu``: one block per chunk, group,
+64-row query tile and slice of at most 16 of the group's heads; the block
+forms the scores C·Bᵀ of its query rows once, keeps them in shared memory
+and walks each head of the slice over its key tiles, with both products on
+the tensor cores in 3xTF32 (fp32 accuracy).  The note there gives its bound.
+`launch_plan` picks the slice size and checks the shared memory.  A wrapper
+given a CPU tensor computes the plain version; given a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -17,10 +21,13 @@ from . import _build
 
 F32 = torch.float32
 SMEM_LIMIT = 232_448               # bytes of shared memory a block may use
+H100_SMS = 132
+MAX_HEADS = 16                      # heads per block at most (csrc kMaxHeads)
+TILE = 64                          # query rows per block, key rows per tile
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ssd_chunk": [_VP] * 6 + [_CI] * 6 + [_VP],
-    "ssd_chunk_smem_bytes": [_CI, _CI],
+    "ssd_chunk": [_VP] * 6 + [_CI] * 7 + [_VP],
+    "ssd_chunk_smem_bytes": [_CI, _CI, _CI],
 }
 
 
@@ -28,6 +35,46 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("ssd_chunk", _SIGNATURES)
     lib.ssd_chunk_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def smem_bytes(Q: int, N: int, hs: int) -> int:
+    """Shared memory of one block, as ``csrc/ssd_chunk.cu`` lays it out: the
+    staging area (the C tile and two B tiles, N padded to 8k + 4 floats, or
+    two x tiles of 64 x 72 and the key halves' sums of y, 4 x 32 x 32), the
+    score tiles (64 x 68 each), and the cumsum and dt of hs heads."""
+    n_qt = -(-Q // TILE)
+    stage = max(3 * TILE * (-(-N // 8) * 8 + 4),
+                2 * TILE * (TILE + 8) + 4 * 32 * 32)
+    return 4 * (stage + n_qt * TILE * (TILE + 4) + 2 * hs * n_qt * TILE)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    heads_per_block: int   # hs: heads of a group that share one block's scores
+    slices: int            # blocks per (chunk, group, query tile)
+    query_tiles: int
+    blocks: int
+    smem_bytes: int
+
+
+def launch_plan(M: int, Q: int, H: int, G: int, N: int,
+                n_sms: int = H100_SMS) -> LaunchPlan:
+    """hs = min(H/G, 8), halved while the grid would hold fewer blocks than
+    the card has SMs, then lowered while a block's shared memory would not
+    fit.  Raises if even one head per block does not fit."""
+    hpg, n_qt = H // G, -(-Q // TILE)
+    hs = min(hpg, MAX_HEADS)
+    while hs > 1 and M * G * n_qt * -(-hpg // hs) < n_sms:
+        hs //= 2
+    while hs > 1 and smem_bytes(Q, N, hs) > SMEM_LIMIT:
+        hs -= 1
+    smem = smem_bytes(Q, N, hs)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunk: chunk length Q={Q} and state size N={N} "
+                         f"need {smem} bytes of shared memory per block, "
+                         f"above the card's {SMEM_LIMIT}")
+    slices = -(-hpg // hs)
+    return LaunchPlan(hs, slices, n_qt, M * G * n_qt * slices, smem)
 
 
 def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
@@ -92,19 +139,17 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, dA, Bm, Cm)
     M, Q, H, P, G, N = _check(x, dt, dA, Bm, Cm)
+    plan = launch_plan(M, Q, H, G, N, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    if plan.blocks >= 2 ** 31:
+        raise ValueError(f"ssd_chunk: {plan.blocks} blocks exceed the grid "
+                         f"limit")
     lib = _lib()
-    smem = lib.ssd_chunk_smem_bytes(Q, N)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ssd_chunk: chunk length Q={Q} and state size N={N} "
-                         f"need {smem} bytes of shared memory per block, "
-                         f"above the card's {SMEM_LIMIT}")
-    n_blocks = M * H * -(-Q // 64) * -(-P // 64)
-    if n_blocks >= 2 ** 31:
-        raise ValueError(f"ssd_chunk: {n_blocks} blocks exceed the grid limit")
     y = torch.empty((M, Q, H, P), dtype=F32, device=x.device)
     err = lib.ssd_chunk(_build.ptr(x), _build.ptr(dt), _build.ptr(dA),
                         _build.ptr(Bm), _build.ptr(Cm), _build.ptr(y),
-                        M, Q, H, P, G, N, _build.stream_of(y))
+                        M, Q, H, P, G, N, plan.heads_per_block,
+                        _build.stream_of(y))
     _build.check(lib, err, "ssd_chunk")
     _build.LAUNCHES["ssd_chunk"] += 1
     return y

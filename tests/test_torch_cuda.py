@@ -155,11 +155,19 @@ def _ssd_inputs(device, M, Q, H, P, G, N, seed):
     (4, 1, 80, 64, 1, 128),         # the bucket-1 prefill
     (3, 100, 80, 64, 1, 128),       # a ragged chunk
     (5, 77, 12, 40, 3, 24),         # G > 1, ragged P and N
-    (2, 130, 8, 96, 2, 64)])        # two P tiles, three query tiles
+    (2, 130, 8, 96, 2, 64),         # two P tiles, three query tiles
+    (24, 130, 20, 40, 1, 20),       # head slices of 16 and 4; N, P not 8k
+    (3, 70, 6, 37, 2, 13),          # rows not 16-byte aligned (4-byte copies)
+    (1, 1, 12, 40, 3, 20)])         # Q = 1 with G > 1
 def test_ssd_chunk_kernel_matches_plain(cuda_device, M, Q, H, P, G, N):
     """K5 against its plain version at chip_smoke.py's shapes, atol = rtol
-    = 1e-4 (the reference's tolerance)."""
+    = 1e-4 (the reference's tolerance); the kernel's shared memory is the
+    wrapper's plan's, and one call is one launch."""
     args = _ssd_inputs(cuda_device, M, Q, H, P, G, N, M + Q)
+    plan = tssd.launch_plan(M, Q, H, G, N, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert tssd._lib().ssd_chunk_smem_bytes(
+        Q, N, plan.heads_per_block) == plan.smem_bytes
     _build.reset_launches()
     y = tssd.ssd_chunk(*args)
     exp = tssd.ssd_chunk_plain(*args)
@@ -174,6 +182,22 @@ def test_ssd_chunk_kernel_matches_plain(cuda_device, M, Q, H, P, G, N):
     strided = args[0].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         tssd.ssd_chunk(strided, *args[1:])
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_head_slice_is_ragged_and_refuses_large_chunks(cuda_device):
+    """At (24, 130, 20, 40, 1, 20) the plan gives slices of 16 and 4 heads
+    (a ragged last slice) on a 132-SM card; a chunk whose score tiles do not
+    fit a block's shared memory is refused before any launch."""
+    if torch.cuda.get_device_properties(cuda_device).multi_processor_count \
+            == 132:
+        plan = tssd.launch_plan(24, 130, 20, 1, 20)
+        assert (plan.heads_per_block, plan.slices) == (16, 2)
+    args = _ssd_inputs(cuda_device, 1, 512, 8, 64, 1, 128, 0)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        tssd.ssd_chunk(*args)
+    assert _build.LAUNCHES["ssd_chunk"] == 0
 
 
 @pytest.mark.cuda
