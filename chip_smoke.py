@@ -13,8 +13,11 @@ any failure exits non-zero and prints no result:
              one process per source, all started together), timed, with
              ptxas's report.
  3. kernels  each kernel against its plain PyTorch version on the card:
-             K1/K2 (ERA, weighted ERA) at the round's (100, 1000, 10) f32,
-             at (3, 13, 151) bf16 and the zero-weight bitwise check; K3/K4
+             K1/K2 (ERA, weighted ERA and its weighted mean) at every timed
+             shape, at K in (1, 3) x N in (1, 13, 100) x C in (10, 46, 151,
+             32768) in f32 and bf16, zero-weight clients of +-1e30 rows
+             (bitwise), two launches bitwise equal, and the wrappers' refusals;
+             K3/K4
              (distillation loss and gradient) at the round's distillation
              batch (100, 10) f32, at a ragged f32 shape and at (2048,
              151936) bf16 (the vocabulary of configs/qwen1_5_4b.py); K5 (the
@@ -26,17 +29,21 @@ any failure exits non-zero and prints no result:
              its error against float64 at unit-normal B and C no more than
              twice the plain version's.
  4. timing   CUDA events over >= 100 launches after a warm-up, for each
-             kernel and its plain version; for K1/K2 also the device time
+             kernel and its plain version; for K1-K4 also the device time
              from a CUDA graph of 100 launches (the stream timing measures
-             the host's launch rate there).  The bound is the larger of the
+             the host's launch rate at small shapes), and for K1/K2 that
+             graph hot (one input, kept in the L2 cache) and cold (cycling
+             over copies larger together than the L2 cache), at the round's
+             (100, 1000, 10), (100, 1000, 46) and (10, 256, 32768) f32.  The bound is the larger of the
              bytes moved over 3.35 TB/s and the operations over the card's
              rate for their type (H100 SXM data sheet): 67 TFLOP/s for fp32
              outside the tensor cores, 495 TFLOP/s for TF32 products, which
              K5 runs three of per fp32 product (3xTF32); K5 also prints its
              earlier bound with every operation at the fp32 rate.  For K3
              also the library call ``F.cross_entropy(z, t,
-             reduction="none")`` as a yardstick (no single PyTorch call
-             computes K1, K2, K4 or K5).
+             reduction="none")`` as a yardstick, and for K2's weighted mean
+             ``torch.mv(p.view(K, N*C).t(), w)`` (no single PyTorch call
+             computes K1, K2 with its softmax, K4 or K5).
  5. slice    the DS-FL path: paper Algorithm 1 through ``FedEngine.run``
              with ``DSFLAlgorithm(use_kernel=True)``, the paper's MNIST CNN
              at full width (582,218 trainable parameters, 582,410 with
@@ -101,11 +108,15 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
 TIMING_ITERS = 100
+L2_BYTES = 50 * 2 ** 20       # H100 L2 cache
 CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL = 2e-4, 1e-3
 # the kernels the DS-FL round launches; K3/K4 sit behind
 # losses.distill_xent(use_kernel=True), which the round does not call
 ON_MAIN_PATH = ("era_sharpen", "weighted_era_sharpen")
 SERVE_KERNELS = ("ssd_chunk",)      # what the serving path launches
+# K1/K2 timing shapes (K, N, C) f32: the DS-FL round's, reuters_dnn's 46
+# classes, and the edge of the kernel's regime (C = 32k), beyond the L2 cache
+ERA_SHAPES = ((100, 1000, 10), (100, 1000, 46), (10, 256, 32768))
 K5_TOL = 1e-4                       # the reference's (tests/test_kernels.py)
 K5_MAIN = (32, 256, 80, 64, 1, 128)  # (M, Q, H, P, G, N) of a (4, 2048) prefill
 K5_SHAPES = (("main path (4, 2048) prefill", K5_MAIN),
@@ -154,20 +165,29 @@ def time_ms(fn, iters=TIMING_ITERS, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, launches=TIMING_ITERS, replays=10) -> float:
-    """Device time of one call of ``fn``: ``launches`` calls captured in a
-    CUDA graph, replayed after a warm-up, timed with events, so the host's
-    launch rate is out of the number."""
-    side = torch.cuda.Stream()
+@functools.cache
+def _capture_stream():
+    return torch.cuda.Stream()
+
+
+def graph_ms(fns, launches=TIMING_ITERS, replays=10) -> float:
+    """Device time of one call: ``launches`` calls captured in a CUDA graph,
+    replayed after a warm-up, timed with events, so the host's launch rate
+    is out of the number.  ``fns`` is one callable, or a list whose calls
+    take turns (launch i calls ``fns[i % len(fns)]``): given calls on
+    distinct copies of an input larger together than the L2 cache, each
+    call finds its input cold in device memory."""
+    fns = fns if isinstance(fns, (list, tuple)) else [fns]
+    side = _capture_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for fn in fns[:3]:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
+        for i in range(launches):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -178,6 +198,14 @@ def graph_ms(fn, launches=TIMING_ITERS, replays=10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (launches * replays)
+
+
+def cold_copies(t: torch.Tensor) -> list:
+    """At least 13 distinct copies of ``t``, and more than twice the L2
+    cache (50 MB) together, so a call cycling over them reads each one from
+    device memory."""
+    n = max(13, -(-2 * L2_BYTES // (t.numel() * t.element_size())))
+    return [t.clone() for _ in range(n)]
 
 
 def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
@@ -248,6 +276,145 @@ def _zt(N, V, seed, dtype):
     return z, t
 
 
+def _weights(K, seed, zeros=(0,)):
+    w = torch.rand((K,), generator=torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    w[list(zeros)] = 0.0
+    return w / w.sum()
+
+
+def era_calls(es, p, w, T=0.1):
+    """The three functions of K1/K2 on (p, w): name -> (kernel call, plain
+    call)."""
+    return {
+        "era_sharpen": (lambda: es.era_sharpen(p, T),
+                        lambda: es.era_sharpen_plain(p, T)),
+        "weighted_era_sharpen": (
+            lambda: es.weighted_era_sharpen(p, w, T),
+            lambda: es.weighted_era_sharpen_plain(p, w, T)),
+        "weighted_mean": (
+            lambda: es.weighted_era_sharpen(p, w, sharpen=False),
+            lambda: es.weighted_era_sharpen_plain(p, w, sharpen=False))}
+
+
+def era_timing(es, K, N, C, seed):
+    """K1, K2 and K2's weighted mean at (K, N, C) f32 (``es`` the module of
+    ``kernels/era_sharpen.py`` of the tree under test): each checked against
+    its plain version at atol 1e-6, then timed by stream events (``ms``, the
+    host's launch rate at small shapes), by a CUDA graph on one input
+    (``graph_ms``, hot: the input stays in the L2 cache) and by a CUDA graph
+    cycling over copies larger together than the L2 cache (``graph_cold_ms``,
+    what the bound is about).  The weighted mean also times its one-call
+    yardstick ``torch.mv(p.view(K, N*C).t(), w)`` the same three ways, and
+    K1's row the graph time of zeroing the (N, C) output (``fill_graph_ms``:
+    what the smallest kernel costs a launch in a graph)."""
+    p = _probs((K, N, C), seed)
+    w = _weights(K, seed + 1)
+    copies = cold_copies(p)
+    n_in, n_out = K * N * C * 4, N * C * 4
+    bounds = {"era_sharpen": bound(n_in + n_out, K * N * C + 5 * N * C),
+              "weighted_era_sharpen": bound(n_in + K * 4 + n_out,
+                                            2 * K * N * C + 5 * N * C),
+              "weighted_mean": bound(n_in + K * 4 + n_out, 2 * K * N * C)}
+    rows = {}
+    for name, (kern, plain) in era_calls(es, p, w).items():
+        err = check(f"{name} {(K, N, C)} f32", kern(), plain(), 1e-6)
+        cold = [era_calls(es, c, w)[name][0] for c in copies]
+        b, by = bounds[name]
+        rows[name] = dict(
+            source="src/repro_torch/csrc/era_sharpen.cu",
+            replaces="src/repro/kernels/era_sharpen.py:" +
+            ("68" if name == "era_sharpen" else "113"),
+            max_abs_err=err, ms=time_ms(kern), graph_ms=graph_ms(kern),
+            graph_cold_ms=graph_ms(cold), plain_ms=time_ms(plain),
+            bound_ms=b, bound_by=by, library_ms=None, shape=[K, N, C],
+            dtype="float32", cold_copies=len(copies))
+    # the floor of a launch in a graph: the smallest kernel on the output
+    fill = torch.empty((N, C), device="cuda")
+    rows["era_sharpen"]["fill_graph_ms"] = graph_ms(fill.zero_)
+    lib = lambda q: (lambda: torch.mv(q.view(K, N * C).t(), w))
+    rows["weighted_mean"].update(
+        library_ms=time_ms(lib(p)), library_graph_ms=graph_ms(lib(p)),
+        library_graph_cold_ms=graph_ms([lib(c) for c in copies]))
+    del copies
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_era(es):
+    """K1/K2 against their plain versions (phase 3): every K in (1, 3), N in
+    (1, 13, 100) (ragged tail tiles) and C in (10, 46, 151, 32768), f32 at
+    atol 1e-6 and bf16 at 5e-3 (C = 151 in bf16 takes 2-byte loads: its
+    rows are not 4-byte aligned); zero-weight clients of +-1e30 rows change
+    no bit of K2 or of its weighted mean, also spread over the client
+    slices at the round's shape; two launches on one input give the same
+    bits; the wrappers raise, launching nothing, on what the kernel does not
+    take."""
+    from repro_torch.kernels import _build
+    for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 5e-3)):
+        for C in (10, 46, 151, 32768):
+            worst = 0.0
+            for K in (1, 3):
+                for N in (1, 13, 100):
+                    p = _probs((K, N, C), K * N + C, dtype)
+                    for name, (kern, plain) in era_calls(
+                            es, p, _weights(K, N, zeros=())).items():
+                        out, exp = kern(), plain()
+                        torch.cuda.synchronize()
+                        err = max_err(out, exp)
+                        worst = max(worst, err)
+                        if out.shape != (N, C) or not close(out, exp, atol, 0):
+                            fail(f"{name} {(K, N, C)} {dtype}: max_abs_err "
+                                 f"{err:.3e} above {atol}")
+            plan = es.launch_plan(3, 100, C, dtype)
+            say(f"check K1/K2/weighted mean, K in (1, 3), N in (1, 13, 100),"
+                f" C={C} {dtype}: max_abs_err={worst:.3e} atol={atol} ok "
+                f"(plan at K=3, N=100: {plan})")
+    for shape, zeros in (((4, 9, 12), (0, 3)),
+                         ((100, 1000, 10), (0, 5, 6, 7, 50, 99))):
+        p = _probs(shape, 4)
+        garbage = p.clone()
+        for i, z in enumerate(zeros):
+            garbage[z] = 1e30 if i % 2 == 0 else -1e30
+        w = _weights(shape[0], 5, zeros)
+        for name in ("weighted_era_sharpen", "weighted_mean"):
+            a = era_calls(es, p, w)[name][0]()
+            b = era_calls(es, garbage, w)[name][0]()
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"{name} {shape}: a zero-weight client of +-1e30 rows "
+                     f"changed the output bits")
+        say(f"check K2 and weighted mean {shape}, clients {zeros} of weight "
+            f"0 holding +-1e30: output bitwise equal ok")
+    p, w = _probs((100, 1000, 10), 6), _weights(100, 7)
+    for name, (kern, _) in era_calls(es, p, w).items():
+        a, b = kern(), kern()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"{name}: two launches on one input differ")
+    say("check K1/K2/weighted mean (100,1000,10): two launches bitwise equal ok")
+    big = es.SMEM_BYTES // 4 + 1
+    before = dict(_build.LAUNCHES)
+    refused = (("float64", lambda: es.era_sharpen(p.double(), 0.1)),
+               ("not contiguous", lambda: es.era_sharpen(p.transpose(1, 2),
+                                                         0.1)),
+               (f"C={big}", lambda: es.era_sharpen(
+                   torch.ones((1, 1, big), device="cuda"), 0.1)),
+               ("weights (99,)", lambda: es.weighted_era_sharpen(p, w[:99])),
+               ("float64 weights", lambda: es.weighted_era_sharpen(
+                   p, w.double())))
+    for what, call in refused:
+        try:
+            call()
+        except ValueError:
+            continue
+        fail(f"K1/K2: the wrapper took {what} instead of raising")
+    if dict(_build.LAUNCHES) != before:
+        fail("K1/K2: a refused call launched a kernel")
+    say(f"check K1/K2 wrappers raise, launching nothing: "
+        f"{', '.join(w for w, _ in refused)} ok")
+
+
 def phase_kernels_and_timing():
     """Checks (phase 3) and timings (phase 4) of K1-K4.  Returns one record
     per kernel at the main path's shape, plus extra timing rows."""
@@ -256,62 +423,19 @@ def phase_kernels_and_timing():
     from repro_torch.kernels import era_sharpen as es
 
     recs, extra = {}, []
-    T = 0.1
 
     # K1 / K2 ---------------------------------------------------------------
-    K, N, C = 100, 1000, 10
-    p = _probs((K, N, C), 1)
-    w = torch.rand((K,), generator=torch.Generator(device="cuda").manual_seed(2),
-                   device="cuda")
-    w[0] = 0.0
-    w = w / w.sum()
-    e1 = check("K1 era_sharpen (100,1000,10) f32", es.era_sharpen(p, T),
-               es.era_sharpen_plain(p, T), 1e-6)
-    e2 = check("K2 weighted_era_sharpen (100,1000,10) f32",
-               es.weighted_era_sharpen(p, w, T),
-               es.weighted_era_sharpen_plain(p, w, T), 1e-6)
-    e2 = max(e2, check("K2 weighted mean (sharpen=False) (100,1000,10) f32",
-                       es.weighted_era_sharpen(p, w, sharpen=False),
-                       es.weighted_era_sharpen_plain(p, w, sharpen=False),
-                       1e-6))
-    pb = _probs((3, 13, 151), 3, torch.bfloat16)
-    wb = torch.tensor([0.2, 0.5, 0.3], device="cuda")
-    check("K1 era_sharpen (3,13,151) bf16", es.era_sharpen(pb, T),
-          es.era_sharpen_plain(pb, T), 5e-3)
-    check("K2 weighted_era_sharpen (3,13,151) bf16",
-          es.weighted_era_sharpen(pb, wb, T),
-          es.weighted_era_sharpen_plain(pb, wb, T), 5e-3)
-    pz = _probs((4, 9, 12), 4)
-    garbage = pz.clone()
-    garbage[0], garbage[3] = 1e30, -1e30
-    wz = torch.tensor([0.0, 0.5, 0.5, 0.0], device="cuda")
-    a = es.weighted_era_sharpen(pz, wz, T)
-    b = es.weighted_era_sharpen(garbage, wz, T)
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        fail("K2: a zero-weight client of +-1e30 rows changed the output bits")
-    say("check K2 zero-weight clients of +-1e30 rows: output bitwise equal ok")
-
-    in_bytes = K * N * C * 4
-    out_bytes = N * C * 4
-    b1, by1 = bound(in_bytes + out_bytes, K * N * C + 5 * N * C)
-    b2, by2 = bound(in_bytes + K * 4 + out_bytes, 2 * K * N * C + 5 * N * C)
-    recs["era_sharpen"] = dict(
-        source="src/repro_torch/csrc/era_sharpen.cu",
-        replaces="src/repro/kernels/era_sharpen.py:68", max_abs_err=e1,
-        ms=time_ms(lambda: es.era_sharpen(p, T)),
-        plain_ms=time_ms(lambda: es.era_sharpen_plain(p, T)),
-        graph_ms=graph_ms(lambda: es.era_sharpen(p, T)),
-        bound_ms=b1, bound_by=by1, library_ms=None, shape=[K, N, C],
-        dtype="float32")
-    recs["weighted_era_sharpen"] = dict(
-        source="src/repro_torch/csrc/era_sharpen.cu",
-        replaces="src/repro/kernels/era_sharpen.py:113", max_abs_err=e2,
-        ms=time_ms(lambda: es.weighted_era_sharpen(p, w, T)),
-        plain_ms=time_ms(lambda: es.weighted_era_sharpen_plain(p, w, T)),
-        graph_ms=graph_ms(lambda: es.weighted_era_sharpen(p, w, T)),
-        bound_ms=b2, bound_by=by2, library_ms=None, shape=[K, N, C],
-        dtype="float32")
+    check_era(es)
+    for i, shape in enumerate(ERA_SHAPES):
+        rows = era_timing(es, *shape, seed=1 + i)
+        if i == 0:
+            recs["era_sharpen"] = rows["era_sharpen"]
+            recs["weighted_era_sharpen"] = dict(
+                rows["weighted_era_sharpen"],
+                weighted_mean=rows["weighted_mean"])
+            extra.append(dict(name="weighted_mean", **rows["weighted_mean"]))
+        else:
+            extra += [dict(name=k, **r) for k, r in rows.items()]
 
     # K3 / K4 ---------------------------------------------------------------
     def k34(N, V, dtype, seed, atol_f, tol_b, label):
@@ -334,6 +458,7 @@ def phase_kernels_and_timing():
         bb, byb = bound(3 * nv * elt + 2 * N * 4 + 4, 5 * nv)
         fwd = dict(max_abs_err=ef,
                    ms=time_ms(lambda: dl.distill_loss_fwd(z, t)),
+                   graph_ms=graph_ms(lambda: dl.distill_loss_fwd(z, t)),
                    plain_ms=time_ms(lambda: dl.distill_loss_fwd_plain(z, t)),
                    bound_ms=bf, bound_by=byf,
                    library_ms=time_ms(lambda: F.cross_entropy(
@@ -342,6 +467,8 @@ def phase_kernels_and_timing():
         bwd = dict(max_abs_err=eb,
                    ms=time_ms(lambda: dl.distill_loss_bwd(z, t, plogz, tmass,
                                                           gscale)),
+                   graph_ms=graph_ms(lambda: dl.distill_loss_bwd(
+                       z, t, plogz, tmass, gscale)),
                    plain_ms=time_ms(lambda: dl.distill_loss_bwd_plain(
                        z, t, plogz, tmass, gscale)),
                    bound_ms=bb, bound_by=byb, library_ms=None,
@@ -368,11 +495,20 @@ def phase_kernels_and_timing():
         extra += [dict(name="distill_loss_fwd", **f_),
                   dict(name="distill_loss_bwd", **b_)]
     for name, r in list(recs.items()) + [(e["name"], e) for e in extra]:
-        graph = (f" graph_ms={r['graph_ms']:.5f} ({r['bound_ms'] / r['graph_ms']:.1%}"
-                 f" of the bound)" if "graph_ms" in r else "")
-        say(f"timing {name} {r['shape']} {r['dtype']}: ms={r['ms']:.5f}{graph} "
+        say(f"timing {name} {r['shape']} {r['dtype']}: ms={r['ms']:.5f} " +
+            "".join(f"{k}={r[k]:.5f} ({r['bound_ms'] / r[k]:.1%} of the "
+                    f"bound) " for k in ("graph_ms", "graph_cold_ms")
+                    if k in r) +
             f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}) library_ms={r['library_ms']}")
+            f"({r['bound_by']}) library_ms={r['library_ms']}" +
+            "".join(f" {k}={r[k]:.5f}" for k in ("library_graph_ms",
+                                                  "library_graph_cold_ms",
+                                                  "fill_graph_ms")
+                    if k in r))
+    # the yardsticks' cuBLAS calls leave a workspace on each stream they ran
+    # on; free them (where this torch exposes it), so the rounds' peak memory
+    # counts the port alone
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
     return recs, extra
 
 

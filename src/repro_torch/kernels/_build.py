@@ -15,6 +15,7 @@ launch and nowhere else).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -120,6 +121,13 @@ def ptr(t) -> ctypes.c_void_p:
 def stream_of(t) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda(t, what: str) -> None:

@@ -1,14 +1,23 @@
 """K1/K2: the fused ERA kernels (mean or weighted mean over the client axis,
 then a temperature softmax), with their plain PyTorch versions.
 
-The CUDA kernels are in ``csrc/era_sharpen.cu`` (one block per output row,
-the row's aggregate in shared memory, fp32 accumulation over k in order).
-A wrapper given a CPU tensor computes the plain version; given a CUDA
-tensor it launches the kernel or raises.
+The CUDA kernels are in ``csrc/era_sharpen.cu``: a block owns a tile of R
+consecutive output rows (one contiguous span of R*C values per client);
+threads own 16-byte vectors of that tile where it is aligned (narrower ones
+where it is not) and split the client axis into S contiguous slices where
+the tile has fewer vectors than threads, so every lane loads and the whole
+tile is in flight at once; the slices' fp32 partials are added in order,
+then each row is sharpened inside the block.  `launch_plan` picks R, the
+vector width, S and the threads from the shape.  The note in the source
+gives the bound and the summation order.  A wrapper given a CPU tensor
+computes the plain version; given a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -16,12 +25,89 @@ from . import _build
 
 F32 = torch.float32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SMEM_BYTES = 232_448 - 32 * 4      # the block's limit less the reduction scratch
+H100_SMS = 132
+SMEM_LIMIT = 232_448               # shared memory a block may use
+SMEM_BYTES = SMEM_LIMIT - 32 * 4   # less the reduction scratch
+SM_SMEM = 233_472                  # shared memory of one SM
+SM_THREADS = 2048
+MAX_THREADS = 512                  # csrc kMaxThreads
+THREADS = 256                      # at most, where two blocks fit an SM
+UNROLL = 4                         # loads a thread has in flight (csrc kUnroll)
+TILE_BYTES = 16 * 1024             # input a block aims to own
+VECTORS_PER_THREAD = 4             # loads per thread the thread count aims at
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PLAN = [_CI] * 5                  # rows, slices, group_threads, vec, threads
 _SIGNATURES = {
-    "era_sharpen": [_VP, _VP, _CI, _CI, _CI, _CI, _CF, _CF, _VP],
-    "weighted_era_sharpen": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CF, _CI, _VP],
+    "era_sharpen": [_VP, _VP, _CI, _CI, _CI, _CI, _CF, _CF, *_PLAN, _VP],
+    "weighted_era_sharpen": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CF, _CI,
+                             *_PLAN, _VP],
 }
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    rows: int                # R: consecutive output rows a block owns
+    vec: int                 # V: values a load reads (16 bytes where aligned)
+    slices: int              # S: contiguous slices of the client axis
+    group_threads: int       # threads of one slice
+    threads: int
+    blocks: int
+    smem_bytes: int          # the slices' partials, (S, R*C) floats
+    inflight_bytes_per_sm: int   # loads issued before any is used, per SM
+
+    def args(self):
+        return (self.rows, self.slices, self.group_threads, self.vec,
+                self.threads)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def launch_plan(K: int, N: int, C: int, dtype=torch.float32,
+                ptr_align: int = 256, n_sms: int = H100_SMS) -> LaunchPlan:
+    """The kernel's launch for a contiguous (K, N, C) input whose pointer is
+    a multiple of ``ptr_align`` bytes.
+
+    - The load width is the widest of 16, 8, 4 and 2 bytes (one element at
+      least) that divides the pointer and N*C*elt, with which rows of a
+      multiple of r0 = V/gcd(V, C) start every tile aligned.
+    - R is the multiple of r0 nearest below TILE_BYTES of input per block,
+      lowered while the grid would hold fewer than 1.5 blocks per SM.
+    - The threads aim at VECTORS_PER_THREAD loads each, from 32 up to
+      THREADS (MAX_THREADS where a row's aggregate leaves room for one
+      block per SM only); where the tile has fewer vectors than that, the
+      client axis splits into S slices, one group of threads each, as far
+      as K and the shared memory for the partials allow."""
+    elt = 4 if dtype == torch.float32 else 2
+    for vb in (16, 8, 4, 2, elt):    # one element always fits
+        V = vb // elt
+        r0 = V // math.gcd(V, C) if V else 0
+        if (V and ptr_align % vb == 0 and (N * C) % V == 0
+                and r0 * C * 4 <= SMEM_BYTES):
+            break
+    row_bytes = K * C * elt
+    R = r0 * max(1, TILE_BYTES // (row_bytes * r0))
+    R = min(R, _round_up(N, r0))
+    while R > r0 and 2 * -(-N // R) < 3 * n_sms:
+        R -= r0
+    W = R * C
+    G = W // V
+    cap = MAX_THREADS if W * 4 > SM_SMEM // 2 else THREADS
+    T = min(cap, max(32, _round_up(-(-K * G // VECTORS_PER_THREAD), 32)))
+    if G >= T:
+        S, Gt = 1, T
+    else:
+        S = max(1, min(K, T // G, SMEM_BYTES // (W * 4)))
+        Gt, T = G, _round_up(S * G, 32)
+    blocks = -(-N // R)
+    smem = S * W * 4
+    items = -(-G // Gt) * -(-K // S)       # (vector, client) loads a thread
+    loads = S * min(Gt, G) * min(UNROLL, items)   # each of V values
+    per_block = min(K * W, loads * V) * elt
+    resident = min(-(-blocks // n_sms), SM_THREADS // T,
+                   SM_SMEM // (smem + 1024 + 32 * 4))
+    return LaunchPlan(R, V, S, Gt, T, blocks, smem, per_block * resident)
 
 
 def _lib() -> ctypes.CDLL:
@@ -68,7 +154,9 @@ def _check_probs(p: torch.Tensor, what: str):
     if C * 4 > SMEM_BYTES:
         raise ValueError(f"{what}: C={C} classes need {C * 4} bytes of shared "
                          f"memory per row, above the block limit {SMEM_BYTES}")
-    return K, N, C
+    ptr = p.data_ptr()
+    return K, N, C, launch_plan(K, N, C, p.dtype, ptr & -ptr,
+                                _build.sm_count(p.device))
 
 
 def era_sharpen(local_probs: torch.Tensor, temperature: float) -> torch.Tensor:
@@ -76,12 +164,13 @@ def era_sharpen(local_probs: torch.Tensor, temperature: float) -> torch.Tensor:
     ``softmax((sum_k p_k) * (1/K) / T)``."""
     if local_probs.device.type == "cpu":
         return era_sharpen_plain(local_probs, temperature)
-    K, N, C = _check_probs(local_probs, "era_sharpen")
+    K, N, C, plan = _check_probs(local_probs, "era_sharpen")
     out = torch.empty((N, C), dtype=F32, device=local_probs.device)
     lib = _lib()
     err = lib.era_sharpen(_build.ptr(local_probs), _build.ptr(out), K, N, C,
                           _DTYPE_CODE[local_probs.dtype], 1.0 / K,
-                          1.0 / temperature, _build.stream_of(out))
+                          1.0 / temperature, *plan.args(),
+                          _build.stream_of(out))
     _build.check(lib, err, "era_sharpen")
     _build.LAUNCHES["era_sharpen"] += 1
     return out
@@ -96,7 +185,7 @@ def weighted_era_sharpen(local_probs: torch.Tensor, weights: torch.Tensor,
     if local_probs.device.type == "cpu":
         return weighted_era_sharpen_plain(local_probs, weights, temperature,
                                           sharpen)
-    K, N, C = _check_probs(local_probs, "weighted_era_sharpen")
+    K, N, C, plan = _check_probs(local_probs, "weighted_era_sharpen")
     if (weights.shape != (K,) or weights.dtype != F32
             or weights.device != local_probs.device
             or not weights.is_contiguous()):
@@ -109,7 +198,7 @@ def weighted_era_sharpen(local_probs: torch.Tensor, weights: torch.Tensor,
     err = lib.weighted_era_sharpen(
         _build.ptr(local_probs), _build.ptr(weights), _build.ptr(out), K, N, C,
         _DTYPE_CODE[local_probs.dtype], 1.0 / temperature, int(sharpen),
-        _build.stream_of(out))
+        *plan.args(), _build.stream_of(out))
     _build.check(lib, err, "weighted_era_sharpen")
     _build.LAUNCHES["weighted_era_sharpen"] += 1
     return out

@@ -48,7 +48,9 @@ def _weights(device, K, seed):
 @pytest.mark.parametrize("K,N,C,dtype", [(100, 1000, 10, torch.float32),
                                          (3, 13, 151, torch.bfloat16),
                                          (2, 1, 10, torch.float32),
-                                         (4, 7, 20_000, torch.float32)])
+                                         (4, 7, 20_000, torch.float32),
+                                         (100, 1000, 46, torch.float32),
+                                         (10, 256, 32768, torch.float32)])
 def test_era_kernels_match_plain(cuda_device, K, N, C, dtype):
     p = _probs(cuda_device, (K, N, C), K + N + C, dtype)
     w = _weights(cuda_device, K, K)
@@ -65,15 +67,98 @@ def test_era_kernels_match_plain(cuda_device, K, N, C, dtype):
 
 
 @pytest.mark.cuda
-def test_zero_weight_client_changes_no_bit(cuda_device):
-    p = _probs(cuda_device, (4, 9, 12), 3)
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("N", [1, 13, 100])
+@pytest.mark.parametrize("C", [10, 46, 151, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_era_kernels_ragged_tiles(cuda_device, K, N, C, dtype):
+    """Tail tiles of fewer rows than the plan's R, one client, and 16-, 8-,
+    4- and 2-byte loads ((3, 13, 151) bf16 is not 4-byte aligned)."""
+    p = _probs(cuda_device, (K, N, C), K * N + C, dtype)
+    w = torch.rand((K,), generator=_gen(cuda_device, N), device=cuda_device)
+    w = w / w.sum()
+    pairs = ((tes.era_sharpen(p, 0.1), tes.era_sharpen_plain(p, 0.1)),
+             (tes.weighted_era_sharpen(p, w, 0.1),
+              tes.weighted_era_sharpen_plain(p, w, 0.1)),
+             (tes.weighted_era_sharpen(p, w, sharpen=False),
+              tes.weighted_era_sharpen_plain(p, w, sharpen=False)))
+    torch.cuda.synchronize()
+    for out, exp in pairs:
+        assert out.shape == (N, C)
+        torch.testing.assert_close(out, exp, atol=ATOL_ERA[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,zeros", [((4, 9, 12), (0, 3)),
+                                         ((100, 1000, 10),
+                                          (0, 5, 6, 7, 50, 99))])
+@pytest.mark.parametrize("sharpen", [True, False])
+def test_zero_weight_client_changes_no_bit(cuda_device, shape, zeros,
+                                           sharpen):
+    p = _probs(cuda_device, shape, 3)
     garbage = p.clone()
-    garbage[0], garbage[3] = 1e30, -1e30
-    w = torch.tensor([0.0, 0.5, 0.5, 0.0], device=cuda_device)
-    a = tes.weighted_era_sharpen(p, w, 0.1)
-    b = tes.weighted_era_sharpen(garbage, w, 0.1)
+    for i, z in enumerate(zeros):
+        garbage[z] = 1e30 if i % 2 == 0 else -1e30
+    w = torch.rand((shape[0],), generator=_gen(cuda_device, 4),
+                   device=cuda_device)
+    w[list(zeros)] = 0.0
+    w = w / w.sum()
+    a = tes.weighted_era_sharpen(p, w, 0.1, sharpen)
+    b = tes.weighted_era_sharpen(garbage, w, 0.1, sharpen)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_era_kernels_repeat_bitwise(cuda_device):
+    p = _probs(cuda_device, (100, 1000, 10), 8)
+    w = _weights(cuda_device, 100, 9)
+    for call in (lambda: tes.era_sharpen(p, 0.1),
+                 lambda: tes.weighted_era_sharpen(p, w, 0.1),
+                 lambda: tes.weighted_era_sharpen(p, w, sharpen=False)):
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_era_wrappers_refuse_without_launching(cuda_device):
+    p = _probs(cuda_device, (4, 8, 10), 10)
+    w = _weights(cuda_device, 4, 11)
+    big = torch.ones((1, 1, tes.SMEM_BYTES // 4 + 1), device=cuda_device)
+    _build.reset_launches()
+    for call, match in ((lambda: tes.era_sharpen(big, 0.1), "shared memory"),
+                        (lambda: tes.era_sharpen(p.half(), 0.1), "dtype"),
+                        (lambda: tes.weighted_era_sharpen(p, w[:3]), "weights"),
+                        (lambda: tes.weighted_era_sharpen(p, w.double()),
+                         "weights"),
+                        (lambda: tes.weighted_era_sharpen(
+                            p.transpose(1, 2), w), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert _build.LAUNCHES["era_sharpen"] == 0
+    assert _build.LAUNCHES["weighted_era_sharpen"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,C,dtype", [(100, 1000, 10, torch.float32),
+                                         (3, 13, 151, torch.bfloat16),
+                                         (10, 256, 32768, torch.float32)])
+def test_era_kernel_refuses_a_misaligned_plan(cuda_device, K, N, C, dtype):
+    """The C entry checks the plan it is given: 16-byte loads on a pointer
+    one element off are refused before launch, not run."""
+    buf = _probs(cuda_device, (K * N * C + 1,), 12, dtype)
+    p = buf[1:].view(K, N, C)
+    out = torch.empty((N, C), device=cuda_device)
+    plan = tes.launch_plan(K, N, C, dtype)          # assumes an aligned pointer
+    lib = tes._lib()
+    err = lib.era_sharpen(_build.ptr(p), _build.ptr(out), K, N, C,
+                          tes._DTYPE_CODE[dtype], 1.0 / K, 10.0,
+                          *plan.args(), _build.stream_of(out))
+    assert err != 0 if plan.vec > 1 else err == 0
+    torch.testing.assert_close(tes.era_sharpen(p, 0.1),        # the wrapper's
+                               tes.era_sharpen_plain(p, 0.1),  # own plan
+                               atol=ATOL_ERA[dtype], rtol=0)
 
 
 @pytest.mark.cuda
