@@ -17,10 +17,16 @@ any failure exits non-zero and prints no result:
              shape, at K in (1, 3) x N in (1, 13, 100) x C in (10, 46, 151,
              32768) in f32 and bf16, zero-weight clients of +-1e30 rows
              (bitwise), two launches bitwise equal, and the wrappers' refusals;
-             K3/K4
-             (distillation loss and gradient) at the round's distillation
-             batch (100, 10) f32, at a ragged f32 shape and at (2048,
-             151936) bf16 (the vocabulary of configs/qwen1_5_4b.py); K5 (the
+             K3/K4 (distillation loss and gradient) at the round's
+             distillation batch (100, 10) f32, at (333, 50001) f32 (no row
+             16-byte aligned) and at (2048, 151936) bf16 (the vocabulary of
+             configs/qwen1_5_4b.py), K3 with its launch plan, two launches
+             bitwise equal, its float64 error within twice the plain
+             version's at those shapes and at one long row, views at row
+             offsets, bf16 rows of V = 8k + 1 and short rows, and a
+             misaligned plan refused without a launch; the autograd route's
+             peak memory at
+             (2048, 151936) bf16; K5 (the
              SSD within-chunk block) at the serving prefill's (M, Q, H, P, G,
              N) = (32, 256, 80, 64, 1, 128), at Q = 1, at a ragged Q = 100,
              at G > 1 shapes with ragged P and N, at a head slice that does
@@ -31,17 +37,19 @@ any failure exits non-zero and prints no result:
  4. timing   CUDA events over >= 100 launches after a warm-up, for each
              kernel and its plain version; for K1-K4 also the device time
              from a CUDA graph of 100 launches (the stream timing measures
-             the host's launch rate at small shapes), and for K1/K2 that
-             graph hot (one input, kept in the L2 cache) and cold (cycling
-             over copies larger together than the L2 cache), at the round's
-             (100, 1000, 10), (100, 1000, 46) and (10, 256, 32768) f32.  The bound is the larger of the
+             the host's launch rate at small shapes), hot (one input, kept
+             in the L2 cache where it fits) and cold (cycling over copies
+             larger together than the L2 cache), K1/K2 at the round's (100,
+             1000, 10), (100, 1000, 46) and (10, 256, 32768) f32, K3/K4 at
+             their three shapes.  The bound is the larger of the
              bytes moved over 3.35 TB/s and the operations over the card's
              rate for their type (H100 SXM data sheet): 67 TFLOP/s for fp32
              outside the tensor cores, 495 TFLOP/s for TF32 products, which
              K5 runs three of per fp32 product (3xTF32); K5 also prints its
              earlier bound with every operation at the fp32 rate.  For K3
              also the library call ``F.cross_entropy(z, t,
-             reduction="none")`` as a yardstick, and for K2's weighted mean
+             reduction="none")`` as a yardstick, timed the same three ways,
+             and for K2's weighted mean
              ``torch.mv(p.view(K, N*C).t(), w)`` (no single PyTorch call
              computes K1, K2 with its softmax, K4 or K5).
  5. slice    the DS-FL path: paper Algorithm 1 through ``FedEngine.run``
@@ -117,6 +125,10 @@ SERVE_KERNELS = ("ssd_chunk",)      # what the serving path launches
 # K1/K2 timing shapes (K, N, C) f32: the DS-FL round's, reuters_dnn's 46
 # classes, and the edge of the kernel's regime (C = 32k), beyond the L2 cache
 ERA_SHAPES = ((100, 1000, 10), (100, 1000, 46), (10, 256, 32768))
+# K3/K4 shapes (N, V, dtype): the round's distillation batch, a ragged f32
+# vocabulary (rows not 16-byte aligned), qwen1.5-4b's vocabulary in bf16
+K3_SHAPES = ((100, 10, torch.float32), (333, 50_001, torch.float32),
+             (2048, 151_936, torch.bfloat16))
 K5_TOL = 1e-4                       # the reference's (tests/test_kernels.py)
 K5_MAIN = (32, 256, 80, 64, 1, 128)  # (M, Q, H, P, G, N) of a (4, 2048) prefill
 K5_SHAPES = (("main path (4, 2048) prefill", K5_MAIN),
@@ -174,10 +186,11 @@ def graph_ms(fns, launches=TIMING_ITERS, replays=10) -> float:
     """Device time of one call: ``launches`` calls captured in a CUDA graph,
     replayed after a warm-up, timed with events, so the host's launch rate
     is out of the number.  ``fns`` is one callable, or a list whose calls
-    take turns (launch i calls ``fns[i % len(fns)]``): given calls on
-    distinct copies of an input larger together than the L2 cache, each
-    call finds its input cold in device memory."""
+    take turns (launch i calls ``fns[i % len(fns)]``, each at least once a
+    replay): given calls on distinct copies of an input larger together
+    than the L2 cache, each call finds its input cold in device memory."""
     fns = fns if isinstance(fns, (list, tuple)) else [fns]
+    launches = max(launches, len(fns))
     side = _capture_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -200,12 +213,13 @@ def graph_ms(fns, launches=TIMING_ITERS, replays=10) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
-def cold_copies(t: torch.Tensor) -> list:
-    """At least 13 distinct copies of ``t``, and more than twice the L2
-    cache (50 MB) together, so a call cycling over them reads each one from
-    device memory."""
-    n = max(13, -(-2 * L2_BYTES // (t.numel() * t.element_size())))
-    return [t.clone() for _ in range(n)]
+def cold_copies(*ts) -> list:
+    """At least 13 distinct copies of the tensors ``ts`` (a tuple a copy),
+    and more than twice the L2 cache (50 MB) together, so a call cycling
+    over them reads each one from device memory."""
+    nbytes = sum(t.numel() * t.element_size() for t in ts)
+    n = max(13, -(-2 * L2_BYTES // nbytes))
+    return [tuple(t.clone() for t in ts) for _ in range(n)]
 
 
 def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
@@ -310,7 +324,7 @@ def era_timing(es, K, N, C, seed):
     what the smallest kernel costs a launch in a graph)."""
     p = _probs((K, N, C), seed)
     w = _weights(K, seed + 1)
-    copies = cold_copies(p)
+    copies = [c for (c,) in cold_copies(p)]
     n_in, n_out = K * N * C * 4, N * C * 4
     bounds = {"era_sharpen": bound(n_in + n_out, K * N * C + 5 * N * C),
               "weighted_era_sharpen": bound(n_in + K * 4 + n_out,
@@ -415,12 +429,164 @@ def check_era(es):
         f"{', '.join(w for w, _ in refused)} ok")
 
 
+def k3_plan(dl, z, t):
+    """The launch plan K3's wrapper picks for (z, t), or None for a tree
+    whose K3 takes no plan."""
+    if not hasattr(dl, "launch_plan"):
+        return None
+    from repro_torch.kernels import _build
+    return dl.launch_plan(*z.shape, z.dtype, dl.pointer_align(z, t),
+                          _build.sm_count(z.device))
+
+
+def k3_timing(dl, N, V, dtype, seed, atol):
+    """K3 at (N, V) (``dl`` the module of ``kernels/distill_loss.py`` of the
+    tree under test): checked against its plain version at ``atol`` and
+    rtol 1e-3, its error against float64 measured beside the plain
+    version's (``float64_err``, ``plain_float64_err``; the caller holds
+    the one to twice the other), two launches bitwise equal, then timed by
+    stream events
+    (``ms``), by a CUDA graph on one input (``graph_ms``, hot where it fits
+    the L2 cache) and by a CUDA graph cycling over copies larger together
+    than the L2 cache (``graph_cold_ms``, what the bound is about); the
+    library call ``F.cross_entropy(z, t, reduction="none")`` the same three
+    ways.  Returns the record and (z, t, plain logZ, the cold copies)."""
+    import torch.nn.functional as F
+    z, t = _zt(N, V, seed, dtype)
+    label = f"({N},{V}) {str(dtype).replace('torch.', '')}"
+    plan = k3_plan(dl, z, t)
+    loss, logz = dl.distill_loss_fwd(z, t)
+    ploss, plogz = dl.distill_loss_fwd_plain(z, t)
+    err = max(check(f"K3 distill_loss_fwd {label}", loss, ploss, atol, 1e-3),
+              check(f"K3 logZ {label}", logz, plogz, atol, 1e-3))
+    del ploss
+    ek, ep = k3_float64_error(dl, z, t, label)
+    again = dl.distill_loss_fwd(z, t)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss, again[0]) and torch.equal(logz, again[1])):
+        fail(f"K3 {label}: two launches on one input differ")
+    say(f"check K3 {label}: two launches bitwise equal ok (plan {plan})")
+    pairs = cold_copies(z, t)
+    nv = N * V
+    b, by = bound(2 * nv * z.element_size() + 2 * N * 4, 6 * nv)
+    k3 = lambda z_, t_: (lambda: dl.distill_loss_fwd(z_, t_))
+    lib = lambda z_, t_: (lambda: F.cross_entropy(z_, t_, reduction="none"))
+    rec = dict(max_abs_err=err, ms=time_ms(k3(z, t)),
+               graph_ms=graph_ms(k3(z, t)),
+               graph_cold_ms=graph_ms([k3(*p) for p in pairs]),
+               plain_ms=time_ms(lambda: dl.distill_loss_fwd_plain(z, t)),
+               bound_ms=b, bound_by=by, library_ms=time_ms(lib(z, t)),
+               library_graph_ms=graph_ms(lib(z, t)),
+               library_graph_cold_ms=graph_ms([lib(*p) for p in pairs]),
+               shape=[N, V], dtype=label.split()[-1], cold_copies=len(pairs),
+               plan=None if plan is None else str(plan), float64_err=ek,
+               plain_float64_err=ep)
+    return rec, (z, t, plogz, pairs)
+
+
+def _loss_float64(z, t):
+    z, t = z.double(), t.double()
+    m = z.amax(dim=-1, keepdim=True)
+    lz = (m + torch.log(torch.exp(z - m).sum(dim=-1, keepdim=True)))[:, 0]
+    return t.sum(dim=-1) * lz - (t * z).sum(dim=-1), lz
+
+
+def k3_float64_error(dl, z, t, label):
+    """K3's and the plain version's largest error in loss and logZ against
+    float64, printed; K3's may be at most twice the plain version's.  That
+    catches an element left out of a row (a head, a tail, a vector: about
+    16/V on the loss), which atol 1e-4, rtol 1e-3 alone passes
+    (tests/test_torch_distill_plan.py)."""
+    exact = _loss_float64(z, t)
+    errs = []
+    for out in (dl.distill_loss_fwd(z, t), dl.distill_loss_fwd_plain(z, t)):
+        errs.append(max(float((o.double() - e).abs().max())
+                        for o, e in zip(out, exact)))
+    del exact
+    say(f"K3 {label} error against float64: kernel {errs[0]:.3e}, plain "
+        f"{errs[1]:.3e} (at most twice: "
+        f"{'ok' if errs[0] <= 2 * errs[1] else 'FAIL'})")
+    return errs
+
+
+def check_k3_edges(dl):
+    """K3 at rows the main shapes do not reach, each against its plain
+    version and against float64 (at most twice the plain version's error):
+    one row of 151,936 values; three of 50,001; views at row offsets (V
+    odd: no row starts on 16 bytes; t shares z's phase); bf16 rows of V =
+    8k + 1; short rows.  Then a plan whose 16-byte loads the pointers do
+    not allow, given to the C entry, is refused without a launch, and the
+    wrapper's own plan for those pointers is right."""
+    from repro_torch.kernels import _build
+    cases = []
+    for N, V, dtype, off in ((1, 151_936, torch.float32, 0),
+                             (3, 50_001, torch.float32, 0),
+                             (37, 4097, torch.float32, 1),
+                             (64, 50_001, torch.float32, 3),
+                             (16, 151_937, torch.bfloat16, 1),
+                             (40, 1025, torch.bfloat16, 5),
+                             (100, 64, torch.float32, 1),
+                             (9, 1, torch.float32, 1)):
+        zb, tb = _zt(N + off, V, 12, dtype)
+        z, t = zb[off:], tb[off:]
+        label = f"({N},{V}) {str(dtype).replace('torch.', '')} {off} rows in"
+        loss, logz = dl.distill_loss_fwd(z, t)
+        ploss, plogz = dl.distill_loss_fwd_plain(z, t)
+        atol = 1e-4 if dtype == torch.float32 else 2e-2
+        check(f"K3 {label}, plan {k3_plan(dl, z, t)}",
+              torch.stack([loss, logz]), torch.stack([ploss, plogz]), atol,
+              1e-3)
+        ek, ep = k3_float64_error(dl, z, t, label)
+        if ek > 2 * ep:
+            fail(f"K3 {label}: float64 error above twice the plain version's")
+        cases.append((N, V))
+    z, _ = _zt(64, 4097, 13, torch.float32)
+    tb = torch.softmax(torch.randn(64 * 4097 + 1, device="cuda"), 0)
+    t = tb[1:].view(64, 4097)                # 4 bytes off z's phase
+    plan = dl.launch_plan(64, 4097)          # 16-byte loads
+    loss = torch.full((64,), 7.0, device="cuda")
+    logz = torch.full((64,), 7.0, device="cuda")
+    before = dict(_build.LAUNCHES)
+    err = dl._lib().distill_loss_fwd(
+        _build.ptr(z), _build.ptr(t), _build.ptr(loss), _build.ptr(logz), 64,
+        4097, 0, *plan.args(), _build.stream_of(z))
+    torch.cuda.synchronize()
+    if err == 0:
+        fail("K3: a plan of 16-byte loads on pointers 4 bytes apart ran")
+    if not (bool((loss == 7.0).all()) and bool((logz == 7.0).all())):
+        fail("K3: a refused plan wrote its outputs")
+    if dict(_build.LAUNCHES) != before:
+        fail("K3: a refused plan counted a launch")
+    label = f"(64,4097) t 4 bytes off, plan {k3_plan(dl, z, t)}"
+    check(f"K3 {label}", dl.distill_loss_fwd(z, t)[0],
+          dl.distill_loss_fwd_plain(z, t)[0], 1e-4, 1e-3)
+    ek, ep = k3_float64_error(dl, z, t, label)
+    if ek > 2 * ep:
+        fail(f"K3 {label}: float64 error above twice the plain version's")
+    say(f"check K3 edges: {cases} and views at row offsets, against the "
+        "plain version and float64; a misaligned plan refused without a "
+        "launch ok")
+
+
+def distill_autograd_peak(ops, z, t) -> int:
+    """Device memory the autograd route (K3 forward, K4 backward, through
+    ``ops.distill_loss_2d``) takes above its inputs, the gradient
+    included."""
+    zr = z.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.distill_loss_2d.apply(zr, t).backward()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def phase_kernels_and_timing():
     """Checks (phase 3) and timings (phase 4) of K1-K4.  Returns one record
     per kernel at the main path's shape, plus extra timing rows."""
-    import torch.nn.functional as F
     from repro_torch.kernels import distill_loss as dl
     from repro_torch.kernels import era_sharpen as es
+    from repro_torch.kernels import ops
 
     recs, extra = {}, []
 
@@ -438,12 +604,11 @@ def phase_kernels_and_timing():
             extra += [dict(name=k, **r) for k, r in rows.items()]
 
     # K3 / K4 ---------------------------------------------------------------
-    def k34(N, V, dtype, seed, atol_f, tol_b, label):
-        z, t = _zt(N, V, seed, dtype)
-        loss, logz = dl.distill_loss_fwd(z, t)
-        ploss, plogz = dl.distill_loss_fwd_plain(z, t)
-        ef = check(f"K3 distill_loss_fwd {label}", loss, ploss, atol_f, 1e-3)
-        ef = max(ef, check(f"K3 logZ {label}", logz, plogz, atol_f, 1e-3))
+    def k34(N, V, dtype, seed, atol_f, tol_b):
+        fwd, (z, t, plogz, pairs) = k3_timing(dl, N, V, dtype, seed, atol_f)
+        label = f"({N},{V}) {fwd['dtype']}"
+        if fwd["float64_err"] > 2 * fwd["plain_float64_err"]:
+            fail(f"K3 {label}: float64 error above twice the plain version's")
         tmass = t.float().sum(-1)
         gscale = torch.full((1,), 1.0 / N, device="cuda")
         dz_plain = dl.distill_loss_bwd_plain(z, t, plogz, tmass, gscale)
@@ -452,48 +617,46 @@ def phase_kernels_and_timing():
                    *tol_b)
         if close(torch.zeros_like(dz_plain), dz_plain, *tol_b):
             fail(f"K4 {label}: the tolerance would pass a zeroed dz")
-        elt = z.element_size()
-        nv = N * V
-        bf, byf = bound(2 * nv * elt + 2 * N * 4, 6 * nv)
-        bb, byb = bound(3 * nv * elt + 2 * N * 4 + 4, 5 * nv)
-        fwd = dict(max_abs_err=ef,
-                   ms=time_ms(lambda: dl.distill_loss_fwd(z, t)),
-                   graph_ms=graph_ms(lambda: dl.distill_loss_fwd(z, t)),
-                   plain_ms=time_ms(lambda: dl.distill_loss_fwd_plain(z, t)),
-                   bound_ms=bf, bound_by=byf,
-                   library_ms=time_ms(lambda: F.cross_entropy(
-                       z, t, reduction="none")),
-                   shape=[N, V], dtype=str(dtype).replace("torch.", ""))
-        bwd = dict(max_abs_err=eb,
-                   ms=time_ms(lambda: dl.distill_loss_bwd(z, t, plogz, tmass,
-                                                          gscale)),
-                   graph_ms=graph_ms(lambda: dl.distill_loss_bwd(
-                       z, t, plogz, tmass, gscale)),
+        del dz_plain
+        bb, byb = bound(3 * N * V * z.element_size() + 2 * N * 4 + 4, 5 * N * V)
+        k4 = lambda z_, t_: (lambda: dl.distill_loss_bwd(z_, t_, plogz, tmass,
+                                                         gscale))
+        bwd = dict(max_abs_err=eb, ms=time_ms(k4(z, t)),
+                   graph_ms=graph_ms(k4(z, t)),
+                   graph_cold_ms=graph_ms([k4(*p) for p in pairs]),
                    plain_ms=time_ms(lambda: dl.distill_loss_bwd_plain(
                        z, t, plogz, tmass, gscale)),
                    bound_ms=bb, bound_by=byb, library_ms=None,
-                   shape=[N, V], dtype=str(dtype).replace("torch.", ""))
+                   shape=[N, V], dtype=fwd["dtype"], cold_copies=len(pairs))
+        del pairs
+        torch.cuda.empty_cache()
         return fwd, bwd
 
     # K4's f32 tolerance is the reference's 1e-6.  In bf16 every |dz| is at
     # most gscale = 1/N, so the tolerance scales with it: atol 1e-6/N, and
     # rtol 1e-2 for one bf16 rounding step (2^-7) of the value.
-    fwd, bwd = k34(100, 10, torch.float32, 5, 1e-4, (1e-6, 0.0),
-                   "(100,10) f32")
-    recs["distill_loss_fwd"] = dict(
-        source="src/repro_torch/csrc/distill_loss.cu",
-        replaces="src/repro/kernels/distill_loss.py:74", **fwd)
-    recs["distill_loss_bwd"] = dict(
-        source="src/repro_torch/csrc/distill_loss.cu",
-        replaces="src/repro/kernels/distill_loss.py:98", **bwd)
-    for N_, V_, dt, label, af, ab in (
-            (333, 50_001, torch.float32, "(333,50001) f32 ragged", 1e-4,
-             (1e-6, 0.0)),
-            (2048, 151_936, torch.bfloat16, "(2048,151936) bf16", 2e-2,
-             (1e-6 / 2048, 1e-2))):
-        f_, b_ = k34(N_, V_, dt, 6, af, ab, label)
-        extra += [dict(name="distill_loss_fwd", **f_),
-                  dict(name="distill_loss_bwd", **b_)]
+    tols = {torch.float32: (1e-4, (1e-6, 0.0))}
+    for i, (N_, V_, dt) in enumerate(K3_SHAPES):
+        atol_f, tol_b = tols.get(dt, (2e-2, (1e-6 / N_, 1e-2)))
+        f_, b_ = k34(N_, V_, dt, 5 + i, atol_f, tol_b)
+        if i == 0:
+            recs["distill_loss_fwd"] = dict(
+                source="src/repro_torch/csrc/distill_loss.cu",
+                replaces="src/repro/kernels/distill_loss.py:74", **f_)
+            recs["distill_loss_bwd"] = dict(
+                source="src/repro_torch/csrc/distill_loss.cu",
+                replaces="src/repro/kernels/distill_loss.py:98", **b_)
+        else:
+            extra += [dict(name="distill_loss_fwd", **f_),
+                      dict(name="distill_loss_bwd", **b_)]
+    check_k3_edges(dl)
+    z, t = _zt(*K3_SHAPES[2][:2], 9, K3_SHAPES[2][2])
+    peak = distill_autograd_peak(ops, z, t)
+    say(f"K3/K4 autograd route (ops.distill_loss_2d) {tuple(z.shape)} "
+        f"{t.dtype}: peak {peak} B above its inputs")
+    recs["distill_loss_fwd"]["autograd_peak_bytes"] = peak
+    del z, t
+    torch.cuda.empty_cache()
     for name, r in list(recs.items()) + [(e["name"], e) for e in extra]:
         say(f"timing {name} {r['shape']} {r['dtype']}: ms={r['ms']:.5f} " +
             "".join(f"{k}={r[k]:.5f} ({r['bound_ms'] / r[k]:.1%} of the "

@@ -1,15 +1,20 @@
 """K3/K4: the fused distillation cross-entropy CE(t || softmax(z)) per row
 and its gradient, with their plain PyTorch versions.
 
-The CUDA kernels are in ``csrc/distill_loss.cu`` (K3: one block per row,
-an online logsumexp over the vocabulary in registers; K4: one elementwise
-pass).  Any N and V: the tails are masked, nothing is padded.  A wrapper
-given CPU tensors computes the plain version; given CUDA tensors it
-launches the kernel or raises.
+The CUDA kernels are in ``csrc/distill_loss.cu``.  K3: one block a long
+row, where a thread loads four 16-byte vectors of z and four of t (where
+the pointers allow) before it uses any; a row that does not start on a
+vector boundary takes a scalar head and tail around its vector body;
+short rows share a warp, L lanes a row.  `launch_plan` picks all of that
+from the shape.  K4: one
+elementwise pass.  Any N and V: nothing is padded.  A wrapper given CPU
+tensors computes the plain version; given CUDA tensors it launches the
+kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -17,11 +22,64 @@ from . import _build
 
 F32 = torch.float32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMS = 132
+THREADS = 256          # at most (csrc kMaxThreads)
+BATCH_BYTES = 64       # bytes of z, and of t, a thread loads at once (csrc kBatchBytes)
+SHORT_BATCH = 4        # elements a lane of a short row loads at once (csrc kShortBatch)
+SHORT_V = 16 * SHORT_BATCH   # rows up to this many elements share a warp
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
+_PLAN = [_CI] * 3      # vec, lanes, threads
 _SIGNATURES = {
-    "distill_loss_fwd": [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP],
+    "distill_loss_fwd": [_VP, _VP, _VP, _VP, _CI, _CI, _CI, *_PLAN, _VP],
     "distill_loss_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP],
 }
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    vec: int             # elements a load of the row's body reads (1 for short rows)
+    lanes: int           # threads of a row in a block: L < 32 for short rows, else all
+    threads: int
+
+    def args(self):
+        return (self.vec, self.lanes, self.threads)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pointer_align(z: torch.Tensor, t: torch.Tensor) -> int:
+    """The largest power of two (at most 256) that divides the distance
+    between the two pointers: a load that wide keeps both aligned once a
+    row's head has brought z to a boundary."""
+    d = abs(z.data_ptr() - t.data_ptr())
+    return min(256, d & -d) if d else 256
+
+
+def launch_plan(N: int, V: int, dtype=torch.float32, ptr_align: int = 256,
+                n_sms: int = H100_SMS) -> LaunchPlan:
+    """The kernel's launch for contiguous (N, V) z and t whose pointers lie
+    a multiple of ``ptr_align`` bytes apart (`pointer_align`).
+
+    - Short rows (V <= SHORT_V): L lanes a row, the power of two that gives
+      each lane at most SHORT_BATCH elements, scalar loads; the threads
+      spread the rows over the SMs, 32 to THREADS.
+    - Long rows: one block a row; the load width is the widest of 16, 8, 4
+      and 2 bytes (one element at least) that divides ``ptr_align``; the
+      threads aim at one batch of BATCH_BYTES of z each, 32 to THREADS."""
+    elt = 4 if dtype == torch.float32 else 2
+    if V <= SHORT_V:
+        L = 1
+        while L * SHORT_BATCH < V:
+            L *= 2
+        T = min(THREADS, max(32, _round_up(-(-N * L // n_sms), 32)))
+        return LaunchPlan(1, L, T)
+    vb = next(b for b in (16, 8, 4, 2, elt) if b >= elt and ptr_align % b == 0)
+    vec = vb // elt
+    per_batch = BATCH_BYTES // vb          # vectors a thread loads at once
+    T = min(THREADS, max(32, _round_up(-(-(V // vec) // per_batch), 32)))
+    return LaunchPlan(vec, T, T)
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,12 +129,14 @@ def distill_loss_fwd(z: torch.Tensor, t: torch.Tensor):
     if z.device.type == "cpu":
         return distill_loss_fwd_plain(z, t)
     N, V = _check_pair(z, t, "distill_loss_fwd")
+    plan = launch_plan(N, V, z.dtype, pointer_align(z, t),
+                       _build.sm_count(z.device))
     loss = torch.empty((N,), dtype=F32, device=z.device)
     logz = torch.empty((N,), dtype=F32, device=z.device)
     lib = _lib()
     err = lib.distill_loss_fwd(_build.ptr(z), _build.ptr(t), _build.ptr(loss),
                                _build.ptr(logz), N, V, _DTYPE_CODE[z.dtype],
-                               _build.stream_of(z))
+                               *plan.args(), _build.stream_of(z))
     _build.check(lib, err, "distill_loss_fwd")
     _build.LAUNCHES["distill_loss_fwd"] += 1
     return loss, logz

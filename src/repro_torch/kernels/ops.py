@@ -47,7 +47,7 @@ class distill_loss_2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, t):
         losses, logz = distill_loss_fwd(z, t)
-        tmass = t.to(F32).sum(dim=-1)
+        tmass = t.sum(dim=-1, dtype=F32)   # bf16 t is not copied to f32
         ctx.save_for_backward(z, t, logz, tmass)
         return losses.mean()
 

@@ -204,6 +204,94 @@ def test_distill_loss_autograd_on_the_card(cuda_device):
     torch.testing.assert_close(zk.grad, zp.grad, atol=1e-5, rtol=0)
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+ATOL_K3 = {F32: 1e-4, BF16: 2e-2}
+
+
+def _zt(device, N, V, seed, dtype, off=0):
+    """Logits and teacher probabilities (N, V), as views ``off`` rows into
+    buffers of N + off rows (z and t then share their pointers' phase)."""
+    g = _gen(device, seed)
+    z = (torch.randn((N + off, V), generator=g, device=device) * 4).to(dtype)
+    t = _probs(device, (N + off, V), seed + 1, dtype, scale=1.0)
+    return z[off:], t[off:]
+
+
+def _error_vs_float64(out, z, t):
+    """The largest error in (loss, logZ) against float64 values of z, t."""
+    zd, td = z.double(), t.double()
+    m = zd.amax(dim=-1, keepdim=True)
+    lz = (m + torch.log(torch.exp(zd - m).sum(dim=-1, keepdim=True)))[:, 0]
+    exact = (td.sum(dim=-1) * lz - (td * zd).sum(dim=-1), lz)
+    return max(float((o.double() - e).abs().max()) for o, e in zip(out, exact))
+
+
+def _k3_matches_plain(z, t):
+    """K3 against its plain version at atol 1e-4 f32, 2e-2 bf16, rtol 1e-3,
+    and its error against float64 at most twice the plain version's: that
+    catches an element left out of a row (a head, a tail, a vector), which
+    the tolerance alone passes (tests/test_torch_distill_plan.py)."""
+    loss, logz = tdl.distill_loss_fwd(z, t)
+    ploss, plogz = tdl.distill_loss_fwd_plain(z, t)
+    torch.cuda.synchronize()
+    atol = ATOL_K3[z.dtype]
+    torch.testing.assert_close(loss, ploss, atol=atol, rtol=1e-3)
+    torch.testing.assert_close(logz, plogz, atol=atol, rtol=1e-3)
+    assert _error_vs_float64((loss, logz), z, t) <= 2 * _error_vs_float64(
+        (ploss, plogz), z, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V,dtype,off", [
+    (333, 50_001, F32, 0),      # V odd: only every 4th row starts on 16 bytes
+    (64, 50_001, F32, 3),       # and a view three rows in
+    (37, 4097, F32, 1),
+    (16, 151_937, BF16, 0),     # V = 8k + 1 in bf16
+    (40, 1025, BF16, 5),
+    (1, 151_936, BF16, 0),      # one row
+    (100, 10, F32, 0),          # short rows, 4 lanes each
+    (100, 64, F32, 1),
+    (5, 65, F32, 1),            # the first long rows
+    (9, 1, F32, 1)])
+def test_distill_fwd_ragged_and_misaligned_rows(cuda_device, N, V, dtype, off):
+    """K3 where rows start off a 16-byte boundary (a scalar head, a vector
+    body, a scalar tail), against its plain version and float64."""
+    _k3_matches_plain(*_zt(cuda_device, N, V, N + V, dtype, off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V,dtype", [(333, 50_001, F32),
+                                       (64, 151_936, BF16), (100, 10, F32)])
+def test_distill_fwd_repeats_bitwise(cuda_device, N, V, dtype):
+    z, t = _zt(cuda_device, N, V, 3, dtype)
+    a, b = tdl.distill_loss_fwd(z, t), tdl.distill_loss_fwd(z, t)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_distill_fwd_refuses_a_misaligned_plan(cuda_device):
+    """The C entry checks the plan it is given: 16-byte loads on pointers 4
+    bytes apart are refused before launch; the wrapper's own plan (4-byte
+    loads) is right."""
+    z, _ = _zt(cuda_device, 64, 4097, 4, F32)
+    t = _probs(cuda_device, (64 * 4097 + 1,), 5, scale=1.0)[1:].view(64, 4097)
+    plan = tdl.launch_plan(64, 4097)                   # 16-byte loads
+    assert plan.vec == 4 and tdl.pointer_align(z, t) == 4
+    loss = torch.full((64,), 7.0, device=cuda_device)
+    logz = torch.full((64,), 7.0, device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    lib = tdl._lib()
+    err = lib.distill_loss_fwd(_build.ptr(z), _build.ptr(t), _build.ptr(loss),
+                               _build.ptr(logz), 64, 4097, 0, *plan.args(),
+                               _build.stream_of(z))
+    torch.cuda.synchronize()
+    assert err != 0
+    assert bool((loss == 7.0).all()) and bool((logz == 7.0).all())
+    assert dict(_build.LAUNCHES) == before
+    _k3_matches_plain(z, t)
+
+
 @pytest.mark.cuda
 def test_aggregation_routes_to_kernels_and_counts(cuda_device):
     p = _probs(cuda_device, (4, 8, 10), 9)
