@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
-Two paths: the DS-FL round (slice 1) and serving mamba2-2.7b at full width
-(slice 2; its SSD kernel K5 runs on the tensor cores).  Phases, in order;
+Two paths: the federated rounds (DS-FL dense, masked, participation-sparse
+and two-level, FD and FedAvg) and serving mamba2-2.7b at full width (its
+SSD kernel K5 runs on the tensor cores).  Phases, in order;
 any failure exits non-zero and prints no result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
@@ -16,7 +17,9 @@ any failure exits non-zero and prints no result:
              K1/K2 (ERA, weighted ERA and its weighted mean) at every timed
              shape, at K in (1, 3) x N in (1, 13, 100) x C in (10, 46, 151,
              32768) in f32 and bf16, zero-weight clients of +-1e30 rows
-             (bitwise), two launches bitwise equal, and the wrappers' refusals;
+             (bitwise), two launches bitwise equal, the wrappers' refusals,
+             and K2's weighted mean on the edge shards of (7, 13, 10) in 3
+             edges, two of them not 16-byte aligned;
              K3/K4 (distillation loss and gradient) at the round's
              distillation batch (100, 10) f32, at (333, 50001) f32 (no row
              16-byte aligned) and at (2048, 151936) bf16 (the vocabulary of
@@ -52,23 +55,40 @@ any failure exits non-zero and prints no result:
              and for K2's weighted mean
              ``torch.mv(p.view(K, N*C).t(), w)`` (no single PyTorch call
              computes K1, K2 with its softmax, K4 or K5).
- 5. slice    the DS-FL path: paper Algorithm 1 through ``FedEngine.run``
-             with ``DSFLAlgorithm(use_kernel=True)``, the paper's MNIST CNN
-             at full width (582,218 trainable parameters, 582,410 with
-             BatchNorm state), K=100 clients, DSFLConfig defaults: 2 ERA
-             rounds, 1 weighted-ERA round, 1 masked round with half the
-             clients present.  Launch counts are zeroed just before the
-             rounds and read just after.  The round never reaches K3/K4 (its
-             distillation calls the plain loss, as the JAX reference's
-             does), so a side check then zeroes the counts again and runs
-             the distillation loss of the final state through
-             ``losses.distill_xent(use_kernel=True)``; its counts are
-             ``side_check_launches``.  Then one more round, timed in the
-             two halves the algorithm splits it into.
- 6. card vs CPU  one ERA round (K=4, full-width CNN, 1 local and 1
-             distillation epoch) from the same weights and draws on the card
+ 5. slice    the federated round plane at full width: the paper's MNIST
+             CNN (582,218 trainable parameters, 582,410 with BatchNorm
+             state), K=100 clients, ``build_image_task(0, K=100,
+             n_private=20_000, n_open=10_000, n_test=2_000, "non_iid")``,
+             each config's defaults, every round through ``FedEngine.run``:
+             with ``DSFLAlgorithm(use_kernel=True)`` 2 ERA rounds, 1
+             weighted-ERA round, 1 masked round with half the clients
+             present (injected draws), the same round from the same state
+             and draws participation-sparse (``active_budget=50``) twice
+             (the first call at 50 lanes, then warm; the two runs are also
+             compared with each other), 1 two-level ERA round
+             (``agg_edges=4``); then 2 rounds each of ``FedAvgAlgorithm``
+             and ``FDAlgorithm``.  Launch counts are zeroed just before the
+             rounds and read just after; each round's own launches are held
+             to what its path takes (K1 once a dense ERA round, K2 once a
+             weighted, masked or sparse round and 4 times the two-level
+             round, FD and FedAvg none).  The sparse rounds are held to the
+             masked one: the aggregation weights and the 50 absent clients'
+             leaves bitwise, the rest within CARD_VS_CPU_ATOL/RTOL.  The
+             round never reaches K3/K4 (its distillation calls the plain
+             loss, as the JAX reference's does), so a side check then zeroes
+             the counts again and runs the distillation loss of the final
+             state through ``losses.distill_xent(use_kernel=True)``; its
+             counts are ``side_check_launches``.  Then the two-level teacher
+             against the flat weighted-ERA teacher on the same uploads
+             (atol 1e-6), and ``FedEngine.measured_round_bytes`` of DS-FL,
+             FD and FedAvg, which must equal ``CommModel``'s.  Then one more
+             ERA round, timed in the two halves the algorithm splits it
+             into.
+ 6. card vs CPU  rounds from the same weights and draws on the card
              (kernels) and on the CPU (plain versions), compared leaf by
-             leaf.
+             leaf: K=4, full-width CNN, 1 local and 1 distillation epoch; an
+             ERA round, a sparse ERA round (2 of 4 clients, budget 2) and a
+             FedAvg round.
  7. serve    the serving path: mamba2-2.7b at the config's widths and its 64
              layers in bf16 (2,702,579,200 values from the port's seeded
              init on the card) through ``ServeEngine(slots=8,
@@ -427,6 +447,23 @@ def check_era(es):
         fail("K1/K2: a refused call launched a kernel")
     say(f"check K1/K2 wrappers raise, launching nothing: "
         f"{', '.join(w for w, _ in refused)} ok")
+    # two-level ERA's edge partials are K2's weighted mean on row-offset
+    # views: at (7, 13, 10) in 3 edges the shards 3 and 5 clients in start
+    # 8 bytes past a 16-byte boundary and must take narrower loads
+    from repro_torch.core.hierarchy import edge_shards
+    p, w = _probs((7, 13, 10), 14), _weights(7, 15)
+    aligns = []
+    for start, end in edge_shards(7, 3):
+        shard, ws = p[start:end], w[start:end].contiguous()
+        ptr = shard.data_ptr()
+        aligns.append(min(ptr & -ptr, 256))
+        check(f"weighted mean on edge shard [{start}, {end}) of (7, 13, 10) "
+              f"f32, pointer {aligns[-1]}-byte aligned, plan "
+              f"{es.launch_plan(end - start, 13, 10, torch.float32, aligns[-1])}",
+              es.weighted_era_sharpen(shard, ws, sharpen=False),
+              es.weighted_era_sharpen_plain(shard, ws, sharpen=False), 1e-6)
+    if min(aligns) >= 16:
+        fail("K2 edge shards: no shard started off a 16-byte boundary")
 
 
 def k3_plan(dl, z, t):
@@ -1092,78 +1129,204 @@ def _paper_cnn(device):
                              fc=512, device=device)
 
 
-def phase_slice():
+def _round_draws(gen, K, hp, n_k, n_open):
+    """One DS-FL round's randomness, drawn on the card, to hand two runs of
+    the same round."""
+    from repro_torch.core.algorithms import RoundDraws
+    from repro_torch.core.client import epoch_perms
+    bs_d = min(hp.batch_size, hp.open_batch)
+    return RoundDraws(
+        o_idx=torch.randperm(n_open, generator=gen, device="cuda")[
+            :hp.open_batch],
+        update_perms=epoch_perms(gen, K, hp.local_epochs, n_k, hp.batch_size),
+        distill_perms=epoch_perms(gen, K, hp.distill_epochs, hp.open_batch,
+                                  bs_d),
+        server_perms=epoch_perms(gen, 1, hp.distill_epochs, hp.open_batch,
+                                 bs_d)[0])
+
+
+def timed_round(eng, state, task, kind, **run_kw):
+    """One round through ``eng.run``, on the host clock around a
+    synchronize: its history record with the seconds, the peak device
+    memory and each kernel's launches in the round.  Fails on a metric
+    that is not finite."""
+    from repro_torch.kernels import _build
+    before = dict(_build.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = eng.run(state, task, rounds=1, **run_kw)
+    torch.cuda.synchronize()
+    rec = dict(eng.history[-1], kind=kind, seconds=time.perf_counter() - t0,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches={k: _build.LAUNCHES[k] - before[k]
+                         for k in _build.LAUNCHES})
+    say("round " + json.dumps(rec))
+    for key, v in rec.items():
+        if isinstance(v, float) and not torch.isfinite(torch.tensor(v)):
+            fail(f"round {rec['round']} ({kind}): {key} is not finite")
+    return state, rec
+
+
+def _leaves(state):
+    return {f"{part}.{f}.{k}": v for part in ("clients", "server")
+            for f, tree in vars(getattr(state, part)).items()
+            for k, v in tree.items()}
+
+
+def compare_sparse(pre, masked, sparse, mask):
+    """The sparse round against the dense masked round from the same state
+    ``pre`` and draws.  Bitwise: the aggregation weights and every leaf of
+    the absent clients (their state before the round).  Within
+    CARD_VS_CPU_ATOL/RTOL: every other leaf and the scalar metrics (the
+    m-lane convolutions may run other cuDNN algorithms than the K-lane
+    ones).  Returns the largest difference and whether all was bitwise."""
+    (ms, mm), (ss, sm) = masked, sparse
+    if not torch.equal(mm["agg_weights"], sm["agg_weights"]):
+        fail("sparse round: the aggregation weights differ from the masked "
+             "round's")
+    absent = (mask[0] == 0).nonzero()[:, 0]
+    a, b, p0 = _leaves(ms), _leaves(ss), _leaves(pre)
+    worst, bitwise = 0.0, True
+    for k, v in a.items():
+        if k.startswith("clients.") and not (
+                torch.equal(b[k][absent], p0[k][absent])
+                and torch.equal(v[absent], p0[k][absent])):
+            fail(f"sparse round: an absent client's {k} changed")
+        worst = max(worst, max_err(b[k], v))
+        bitwise &= torch.equal(b[k], v)
+        if not close(b[k], v, CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL):
+            fail(f"sparse round: {k} differs from the masked round's by "
+                 f"{max_err(b[k], v):.3e}")
+    for key, v in mm.items():
+        if v.ndim == 0:
+            d = abs(float(sm[key]) - float(v))
+            worst = max(worst, d)
+            bitwise &= float(sm[key]) == float(v)
+            if d > CARD_VS_CPU_ATOL + CARD_VS_CPU_RTOL * abs(float(v)):
+                fail(f"sparse round: metric {key} {float(sm[key])} vs "
+                     f"{float(v)}")
+    return worst, bitwise
+
+
+def phase_slice(smi):
+    """The DS-FL path at full width (phase 5).  Returns the engine, the
+    final DS-FL state, the task, the main path's launches and the side
+    check's."""
     from torch.func import vmap
 
     from repro_torch.core import aggregation
-    from repro_torch.core.algorithms import DSFLAlgorithm
+    from repro_torch.core.algorithms import (DSFLAlgorithm, FDAlgorithm,
+                                             FDConfig, FedAvgAlgorithm,
+                                             FedAvgConfig)
     from repro_torch.core.client import predict_probs
     from repro_torch.core.comm import CommModel
     from repro_torch.core.engine import FedEngine, make_eval_fn
+    from repro_torch.core.hierarchy import hierarchical_weighted_era
     from repro_torch.core.losses import distill_xent
     from repro_torch.core.protocol import DSFLConfig
     from repro_torch.data.pipeline import build_image_task
     from repro_torch.kernels import _build
     from repro_torch.models.smallnets import apply_mnist_cnn, param_count
 
-    K = 100
+    K, EDGES, BUDGET = 100, 4, 50
     hp = DSFLConfig(rounds=2)
     say(f"slice: mnist_cnn 28x28 widths (32, 64) fc 512, K={K}, {hp}")
     task = build_image_task(0, K=K, n_private=20_000, n_open=10_000,
                             n_test=2_000, distribution="non_iid", hw=28,
                             device="cuda")
+    eval_fn = make_eval_fn(apply_mnist_cnn, task.x_test, task.y_test)
     algo_era = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True)
     algo_w = DSFLAlgorithm(apply_mnist_cnn,
                            dataclasses.replace(hp, aggregation="weighted_era"),
                            use_kernel=True)
-    eng = FedEngine(algo_era, make_eval_fn(apply_mnist_cnn, task.x_test,
-                                           task.y_test))
+    algo_tree = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True,
+                              agg_edges=EDGES)
+    eng = FedEngine(algo_era, eval_fn)
     state = eng.init(_paper_cnn("cuda"), task)
     wg, sg = state.server.params, state.server.model_state
     n_train, n_all = param_count(wg), param_count(wg, sg)
     say(f"parameters: {n_train} trainable, {n_all} with BatchNorm state")
     if (n_train, n_all) != (582_218, 582_410):
         fail(f"mnist_cnn parameter count {n_train}/{n_all}")
-    cm = CommModel(K, task.n_classes, n_all, hp.open_batch)
     half = torch.zeros((1, K), device="cuda")
     half[0, ::2] = 1.0
-    plan = (("era", algo_era, None), ("era", algo_era, None),
-            ("weighted_era", algo_w, None), ("era masked 50/100", algo_era, half))
+    masked_kw = dict(ctx_plan={"mask": half}, draws=[_round_draws(
+        torch.Generator(device="cuda").manual_seed(11), K, hp,
+        task.x_clients.shape[1], task.open_x.shape[0])])
+    recs = []
+
+    def dsfl_round(algo, st, kind, **kw):
+        eng.algo = algo
+        st, rec = timed_round(eng, st, task, kind, **kw)
+        recs.append(rec)
+        return st, dict(eng.last_metrics)
 
     torch.cuda.synchronize()
     _build.reset_launches()                       # the main path's window
-    for label, algo, mask in plan:
-        eng.algo = algo
-        before = dict(_build.LAUNCHES)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = eng.run(state, task, rounds=1,
-                        ctx_plan=None if mask is None else {"mask": mask})
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        rec = dict(eng.history[-1], aggregation=label, seconds=secs,
-                   max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   launches={k: _build.LAUNCHES[k] - before[k]
-                             for k in ON_MAIN_PATH},
-                   dsfl_round_bytes=cm.dsfl_round(),
-                   fedavg_round_bytes=cm.fl_round())
-        say("round " + json.dumps(rec))
-        for key in ("update_loss", "distill_loss", "server_distill_loss",
-                    "global_entropy", "sa_entropy"):
-            if not torch.isfinite(torch.tensor(rec[key])):
-                fail(f"round {rec['round']}: {key} is not finite")
-        need = "era_sharpen" if mask is None and label == "era" \
-            else "weighted_era_sharpen"
-        if rec["launches"][need] == 0:
-            fail(f"round {rec['round']} ({label}) never launched {need}")
-
+    for kind, algo in (("era", algo_era), ("era", algo_era),
+                       ("weighted_era", algo_w)):
+        state, _ = dsfl_round(algo, state, kind)
+    pre = state
+    masked = dsfl_round(algo_era, pre, "era masked 50/100", **masked_kw)
+    sparse = [dsfl_round(algo_era, pre, f"era sparse 50/100, budget {BUDGET}"
+                         f" ({tag})", active_budget=BUDGET, **masked_kw)
+              for tag in ("first call at 50 lanes", "warm")]
+    state, _ = dsfl_round(algo_tree, masked[0],
+                          f"era two-level, {EDGES} edges")
+    baselines = {}
+    for kind, algo in (("fedavg", FedAvgAlgorithm(apply_mnist_cnn,
+                                                  FedAvgConfig())),
+                       ("fd", FDAlgorithm(apply_mnist_cnn, FDConfig()))):
+        b_eng = FedEngine(algo, eval_fn)
+        st = b_eng.init(_paper_cnn("cuda"), task)
+        for _ in range(2):
+            st, rec = timed_round(b_eng, st, task, kind)
+            recs.append(rec)
+        baselines[kind] = (b_eng, st)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)              # end of the main path's window
     say(f"launches in the main path's window: {json.dumps(launches)}")
+    eng.algo = algo_era
+
+    for rec in recs:
+        kind = rec["kind"]
+        want = ({} if kind in ("fedavg", "fd") else
+                {"weighted_era_sharpen": EDGES}
+                if kind.startswith("era two-level") else
+                {"era_sharpen": 1} if kind == "era" else
+                {"weighted_era_sharpen": 1})
+        for name, count in rec["launches"].items():
+            if count != want.get(name, 0):
+                fail(f"round {rec['round']} ({kind}) launched {name} {count} "
+                     f"times, expected {want.get(name, 0)}")
     for name in ON_MAIN_PATH:
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
+
+    # the sparse round against the masked one: same state, same draws
+    for (st, m), rec in zip(sparse, recs[4:6]):
+        worst, bitwise = compare_sparse(pre, masked, (st, m), half)
+        say(f"sparse vs masked [{smi}] ({rec['kind']}): agg_weights and the "
+            f"{K - BUDGET} absent clients' leaves bitwise; largest difference "
+            f"{worst:.3e} ({'bitwise' if bitwise else 'not bitwise'}; atol "
+            f"{CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL}); "
+            f"{rec['seconds']:.3f} s, peak {rec['max_memory_allocated']} B against the masked "
+            f"round's {recs[3]['seconds']:.3f} s, peak "
+            f"{recs[3]['max_memory_allocated']} B")
+    a, b = _leaves(sparse[0][0]), _leaves(sparse[1][0])
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    say(f"sparse round run twice [{smi}]: largest difference between the two "
+        f"runs {max(max_err(a[k], b[k]) for k in a):.3e} "
+        f"({'bitwise' if same else 'not bitwise'}; the round's own "
+        f"run-to-run spread on the card at {BUDGET} lanes)")
+    for kind in ("fedavg", "fd"):
+        rs = [r for r in recs if r["kind"] == kind]
+        say(f"{kind} [{smi}]: " + "; ".join(
+            f"round {r['round']} {r['seconds']:.3f} s, peak "
+            f"{r['max_memory_allocated']} B, update_loss "
+            f"{r['update_loss']:.4f}, test_acc {r['test_acc']:.4f}"
+            for r in rs) + "; no kernel launched")
 
     # side check, its own window: the distillation loss of the final state on
     # the kernel path (K3/K4), the server model's logits on one distillation
@@ -1192,6 +1355,32 @@ def phase_slice():
     for name in ("distill_loss_fwd", "distill_loss_bwd"):
         if side[name] == 0:
             fail(f"kernel {name} was not launched by the side check")
+
+    # the two-level teacher (K2's weighted mean on each edge's view, the
+    # server's sum and sharpen) against the flat weighted ERA teacher (K2
+    # fused), on the same full-width uploads
+    xo = task.open_x[masked_kw["draws"][0].o_idx]
+    up = vmap(lambda w, s: predict_probs(apply_mnist_cnn, w, s, xo))(
+        state.clients.params, state.clients.model_state)
+    ones = torch.ones((K,), device="cuda")
+    check(f"two-level ERA teacher, {EDGES} edges, uploads {tuple(up.shape)}",
+          hierarchical_weighted_era(up, ones, hp.temperature, EDGES, True),
+          aggregation.weighted_era(up, ones, hp.temperature, True), 1e-6)
+
+    # measured wire bytes against the analytic CommModel
+    cm = CommModel(K, task.n_classes, n_all, hp.open_batch)
+    measured = {"dsfl": FedEngine(algo_era).measured_round_bytes(state, task)}
+    for kind, (b_eng, st) in baselines.items():
+        measured[kind] = b_eng.measured_round_bytes(st, task)
+    analytic = {"dsfl": cm.dsfl_round(), "fd": cm.fd_round(),
+                "fedavg": cm.fl_round()}
+    say(f"wire bytes per round at K={K}, measured (analytic): " + ", ".join(
+        f"{k} {measured[k]} ({analytic[k]})" for k in analytic) +
+        f"; DS-FL / FedAvg = {measured['dsfl'] / measured['fedavg']:.5f}, a "
+        f"{1 - measured['dsfl'] / measured['fedavg']:.2%} cut")
+    if measured != analytic:
+        fail(f"measured wire bytes {measured} differ from CommModel's "
+             f"{analytic}")
     return eng, state, task, launches, side
 
 
@@ -1226,9 +1415,14 @@ def phase_legs(eng, state, task):
                               for k, v in legs.items()}))
 
 
-def phase_card_vs_cpu():
+def phase_card_vs_cpu(smi):
+    """Rounds from the same weights and draws on the card (kernels) and on
+    the CPU (plain versions), compared leaf by leaf (phase 6): K=4 at full
+    width, 1 local (and 1 distillation) epoch; an ERA round, a sparse ERA
+    round (clients 0 and 3 of 4, budget 2) and a FedAvg round."""
     from repro_torch import convert
-    from repro_torch.core.algorithms import DSFLAlgorithm, RoundDraws
+    from repro_torch.core.algorithms import (DSFLAlgorithm, FedAvgAlgorithm,
+                                             FedAvgConfig, RoundDraws)
     from repro_torch.core.client import epoch_perms
     from repro_torch.core.engine import FedEngine, make_eval_fn
     from repro_torch.core.protocol import DSFLConfig
@@ -1249,47 +1443,61 @@ def phase_card_vs_cpu():
         update_perms=epoch_perms(gen, K, 1, n_k, 100),
         distill_perms=epoch_perms(gen, K, 1, 200, 100),
         server_perms=epoch_perms(gen, 1, 1, 200, 100)[0])]
-    results = {}
-    for device in ("cuda", "cpu"):
-        task = FederatedImageTask(*(t.to(device) for t in (
-            cpu_task.x_clients, cpu_task.y_clients, cpu_task.open_x,
-            cpu_task.x_test, cpu_task.y_test)), cpu_task.n_classes)
-        mv = lambda d: {k: v.to(device) for k, v in d.items()}
-        stack = lambda i: {k: torch.stack([m[i][k] for m in models[1:]]
-                                          ).to(device) for k in models[0][i]}
-        algo = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True,
-                             device=device)
-        eng = FedEngine(algo, make_eval_fn(apply_mnist_cnn, task.x_test,
-                                           task.y_test))
-        t0 = time.perf_counter()
-        state = eng.run(algo.init_from(stack(0), stack(1), mv(models[0][0]),
-                                       mv(models[0][1])), task, draws=draws)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        say(f"card vs cpu: {device} round in {time.perf_counter() - t0:.2f} s")
-        results[device] = (convert.round_state_to_numpy(state), eng.history[-1])
-    (sc, hc), (sp, h_cpu) = results["cuda"], results["cpu"]
-    worst = 0.0
-    for part in sc:
-        for field in sc[part]:
-            a = convert.flatten_tree(sc[part][field])
-            b = convert.flatten_tree(sp[part][field])
-            for k in b:
-                d = float(abs(a[k] - b[k]).max()) if b[k].size else 0.0
-                worst = max(worst, d)
-                if not torch.allclose(torch.from_numpy(a[k]),
-                                      torch.from_numpy(b[k]),
-                                      atol=CARD_VS_CPU_ATOL,
-                                      rtol=CARD_VS_CPU_RTOL):
-                    fail(f"card vs cpu: {part}.{field}.{k} differs by {d:.3e}")
-    for key, v in h_cpu.items():
-        tol = (1.0 / 200 + 1e-6) if key == "test_acc" else \
-            CARD_VS_CPU_ATOL + CARD_VS_CPU_RTOL * abs(v)
-        if abs(hc[key] - v) > tol:
-            fail(f"card vs cpu: metric {key} {hc[key]} vs {v}")
-    say(f"card vs cpu: state leaves and metrics agree (max leaf diff "
-        f"{worst:.3e}; atol {CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL}; "
-        f"test_acc within 1/200): cuda {json.dumps(hc)}")
+    sparse_kw = dict(ctx_plan={"mask": torch.tensor([[1.0, 0.0, 0.0, 1.0]])},
+                     active_budget=2)
+    for case, kw in (("era", {}), ("sparse 2/4, budget 2", sparse_kw),
+                     ("fedavg", {})):
+        results = {}
+        for device in ("cuda", "cpu"):
+            task = FederatedImageTask(*(t.to(device) for t in (
+                cpu_task.x_clients, cpu_task.y_clients, cpu_task.open_x,
+                cpu_task.x_test, cpu_task.y_test)), cpu_task.n_classes)
+            mv = lambda d: {k: v.to(device) for k, v in d.items()}
+            stack = lambda i: {k: torch.stack([m[i][k] for m in models[1:]]
+                                              ).to(device) for k in models[0][i]}
+            if case == "fedavg":
+                algo = FedAvgAlgorithm(apply_mnist_cnn, FedAvgConfig(
+                    rounds=1, local_epochs=1, batch_size=100), device=device)
+                start = algo.init_from(mv(models[0][0]), mv(models[0][1]))
+            else:
+                algo = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True,
+                                     device=device)
+                start = algo.init_from(stack(0), stack(1), mv(models[0][0]),
+                                       mv(models[0][1]))
+            eng = FedEngine(algo, make_eval_fn(apply_mnist_cnn, task.x_test,
+                                               task.y_test))
+            t0 = time.perf_counter()
+            state = eng.run(start, task, draws=draws, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            say(f"card vs cpu ({case}): {device} round in "
+                f"{time.perf_counter() - t0:.2f} s")
+            results[device] = (convert.round_state_to_numpy(state),
+                               eng.history[-1])
+        (sc, hc), (sp, h_cpu) = results["cuda"], results["cpu"]
+        worst = 0.0
+        for part in sc:
+            for field in sc[part]:
+                a = convert.flatten_tree(sc[part][field])
+                b = convert.flatten_tree(sp[part][field])
+                for k in b:
+                    d = float(abs(a[k] - b[k]).max()) if b[k].size else 0.0
+                    worst = max(worst, d)
+                    if not torch.allclose(torch.from_numpy(a[k]),
+                                          torch.from_numpy(b[k]),
+                                          atol=CARD_VS_CPU_ATOL,
+                                          rtol=CARD_VS_CPU_RTOL):
+                        fail(f"card vs cpu ({case}): {part}.{field}.{k} "
+                             f"differs by {d:.3e}")
+        for key, v in h_cpu.items():
+            tol = (1.0 / 200 + 1e-6) if key == "test_acc" else \
+                CARD_VS_CPU_ATOL + CARD_VS_CPU_RTOL * abs(v)
+            if abs(hc[key] - v) > tol:
+                fail(f"card vs cpu ({case}): metric {key} {hc[key]} vs {v}")
+        say(f"card vs cpu [{smi}] ({case}): state leaves and metrics agree "
+            f"(max leaf diff {worst:.3e}; atol {CARD_VS_CPU_ATOL}, rtol "
+            f"{CARD_VS_CPU_RTOL}; test_acc within 1/200): cuda "
+            f"{json.dumps(hc)}")
 
 
 def main():
@@ -1300,10 +1508,10 @@ def main():
     phase_build()
     recs, _ = phase_kernels_and_timing()
     recs["ssd_chunk"] = phase_k5()
-    eng, state, task, launches, side = phase_slice()
+    eng, state, task, launches, side = phase_slice(smi)
     phase_legs(eng, state, task)
     del eng, state, task
-    phase_card_vs_cpu()
+    phase_card_vs_cpu(smi)
     torch.cuda.empty_cache()
     cfg, params = _serving_model()
     serve_launches, prompts = phase_serve(smi, cfg, params,
@@ -1322,7 +1530,7 @@ def main():
         kernels.append(dict(
             name=name, route="cuda",
             launches=(serve_launches if serving else launches)[name],
-            path="serve mamba2-2.7b" if serving else "DS-FL round",
+            path="serve mamba2-2.7b" if serving else "federated rounds",
             on_main_path=serving or name in ON_MAIN_PATH,
             side_check_launches=side[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")

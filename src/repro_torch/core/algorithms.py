@@ -1,5 +1,5 @@
-"""DS-FL (paper Algorithm 1) on the `FedAlgorithm` surface, in PyTorch
-(mirrors ``repro/core/algorithms.py``):
+"""DS-FL (paper Algorithm 1) and its baselines FD and FedAvg on the
+`FedAlgorithm` surface, in PyTorch (mirrors ``repro/core/algorithms.py``):
 
     state          = algo.init(gen, model_init, data)       # -> RoundState
     state, metrics = algo.round(state, ctx, gen, draws)     # one round
@@ -15,9 +15,19 @@ one ``torch.Generator`` feeds the legs in that order, and `RoundDraws`
 injects any of them as tensors, so a parity test can hand in exactly the
 permutations the reference drew.
 
-Not ported yet: the participation-sparse plane (``active_budget``) and
-the two-level edge aggregation (``agg_edges > 1``), ROADMAP Queue 1; FD and
-FedAvg, ROADMAP Queue 1.
+The participation-sparse plane: with ``BatchCtx.active_budget = m`` below
+K and a mask, a round gathers the m lanes `active_indices` picks
+(participants first), computes on those alone and scatters the results
+back.  Per-client randomness is the dense round's: injected (K, ...)
+permutations, or K rows drawn from the generator, gathered at those lanes;
+absent clients' state and the aggregation weights come out bitwise as the
+dense masked round's.  The participants' leaves do too where the
+per-client arithmetic does not depend on the lane count; convolutions may
+not (cuDNN and oneDNN pick algorithms per batch), so there they agree to
+rounding (`tests/test_torch_sparse.py`).
+
+FD and FedAvg (the paper's two baselines) draw only the update leg's
+permutations: one per client, no four-way split.
 """
 from __future__ import annotations
 
@@ -29,10 +39,15 @@ from torch.func import vmap
 
 from ..device import resolve_device
 from ..optim import optimizers as opt_lib
+from . import fd as fd_lib
 from .aggregation import aggregate, participation_weights, weighted_era, weighted_sa
-from .client import LocalSpec, local_distill, local_update, predict_probs
+from .client import (LocalSpec, local_distill, local_update, perms_for,
+                     predict_probs)
+from .fedavg import weighted_average
+from .hierarchy import hierarchical_weighted_era, hierarchical_weighted_sa
 from .losses import entropy, pinned_mean, pinned_sum
 from .protocol import DSFLConfig  # noqa: F401  (re-exported as part of the API)
+from .trees import tree_map
 
 F32 = torch.float32
 
@@ -49,7 +64,7 @@ class ClientState:
 
 @dataclass(frozen=True)
 class ServerState:
-    """Global-model state held by the server."""
+    """Global-model state held by the server (empty for FD)."""
     params: dict = field(default_factory=dict)
     model_state: dict = field(default_factory=dict)
     opt_distill: dict = field(default_factory=dict)
@@ -66,7 +81,9 @@ class BatchCtx:
     """Per-round data.  ``mask``/``stale`` are the partial-participation
     fields: absent clients (mask 0) neither train nor contribute to the
     aggregate, and stale contributions are discounted by
-    ``staleness_decay ** stale``."""
+    ``staleness_decay ** stale``.  ``active_budget`` m below K, with a
+    mask, makes the round participation-sparse; the caller guarantees
+    ``1 <= popcount(mask) <= m`` (`FedEngine.run` checks its plan)."""
     x: Any = None           # (K, I_k, ...) private inputs
     y: Any = None           # (K, I_k) private labels
     open_x: Any = None      # (I_o, ...) the full shared open set
@@ -74,12 +91,13 @@ class BatchCtx:
     weights: Any = None     # (K,) client dataset sizes (FedAvg Eq. 3)
     mask: Any = None        # (K,) 0/1 participation this round
     stale: Any = None       # (K,) rounds since each client last synced
+    active_budget: Optional[int] = None   # at most m participants a round
 
 
 @dataclass(frozen=True)
 class RoundDraws:
     """Injected randomness of one round; a ``None`` field is drawn from the
-    round's generator instead."""
+    round's generator instead.  FD and FedAvg read ``update_perms`` only."""
     o_idx: Any = None           # (n,) open-batch indices (drawn by the engine)
     update_perms: Any = None    # (K, local_epochs, nb, bs)    leg r1
     distill_perms: Any = None   # (K, distill_epochs, nb, bs)  leg r2
@@ -93,20 +111,45 @@ def present(slot) -> bool:
 
 def select_clients(mask, new_tree, old_tree):
     """Per-leaf ``where`` over the leading client axis: participants take
-    the fresh leaves, absent clients keep their previous state.  Trees are
-    dicts of tensors or tuples of them."""
-    if isinstance(new_tree, tuple):
-        return tuple(select_clients(mask, n, o)
-                     for n, o in zip(new_tree, old_tree))
+    the fresh leaves, absent clients keep their previous state."""
     m = mask.to(torch.bool)
-    return {k: torch.where(m.reshape((m.shape[0],) + (1,) * (n.ndim - 1)),
-                           n, old_tree[k])
-            for k, n in new_tree.items()}
+    return tree_map(lambda n, o: torch.where(
+        m.reshape((m.shape[0],) + (1,) * (n.ndim - 1)), n, o),
+        new_tree, old_tree)
 
 
 def masked_mean(values, mask):
     """Mean of ``values`` over the mask-1 lanes."""
     return pinned_mean(values, mask.to(F32))
+
+
+# --------------------------------------------- participation-sparse plane ----
+def active_indices(mask, budget: int):
+    """(K,) mask -> (budget,) client indices: a stable argsort of the 0/1
+    activity key puts participants first in ascending client order and
+    pads with distinct non-participants, so a scatter back never collides.
+    Needs ``budget >= popcount(mask)``."""
+    key = (mask <= 0).to(torch.int32)
+    return torch.argsort(key, stable=True)[:budget]
+
+
+def gather_clients(tree, idx):
+    """The (m, ...) ``idx`` lanes of every leaf of a (K, ...) client stack."""
+    return tree_map(lambda a: a.index_select(0, idx), tree)
+
+
+def scatter_clients(new_tree, old_tree, idx):
+    """The (m, ...) computed lanes written back into the (K, ...) stack at
+    ``idx``; every other client keeps its previous state."""
+    return tree_map(lambda n, o: o.index_copy(0, idx, n), new_tree, old_tree)
+
+
+def scatter_zeros(values_m, K: int, idx):
+    """(m, ...) per-lane results scattered into a (K, ...) buffer of exact
+    zeros: a lane not in ``idx`` stays exactly 0 (False for bool), so a
+    reduction that gives it zero weight matches the dense masked one."""
+    return torch.zeros((K,) + tuple(values_m.shape[1:]), dtype=values_m.dtype,
+                       device=values_m.device).index_copy(0, idx, values_m)
 
 
 def _stack(trees: list[dict]) -> dict:
@@ -126,6 +169,16 @@ def _draw(draws: Optional[RoundDraws], name: str):
     return None if draws is None else getattr(draws, name)
 
 
+def _sparse_ctx(ctx: BatchCtx) -> bool:
+    return (present(ctx.mask) and ctx.active_budget is not None
+            and ctx.active_budget < ctx.x.shape[0])
+
+
+def _init_stack(gen: torch.Generator, model_init: Callable, K: int):
+    inits = [model_init(gen) for _ in range(K)]
+    return _stack([p for p, _ in inits]), _stack([s for _, s in inits])
+
+
 # ---------------------------------------------------------------- DS-FL ------
 @dataclass(frozen=True)
 class DSFLAlgorithm:
@@ -136,8 +189,10 @@ class DSFLAlgorithm:
     ``agg_weights=None`` with ``aggregation="weighted_era"`` re-estimates
     each client's reliability every round as the inverse mean entropy of its
     uploaded soft labels.  ``use_kernel=True`` routes "4. Aggregation"
-    through the CUDA kernels K1/K2 (dense ERA, weighted ERA, weighted SA and
-    every masked round).  ``device`` (default: the card) is where the
+    through the CUDA kernels K1/K2 (dense ERA, weighted ERA, weighted SA,
+    every masked or sparse round, and each edge's partial of a two-level
+    round).  ``agg_edges > 1`` aggregates through the edge -> server tree
+    of `core.hierarchy`.  ``device`` (default: the card) is where the
     engine that drives the algorithm draws and places each round's data."""
     apply_fn: Callable
     hp: DSFLConfig
@@ -151,10 +206,8 @@ class DSFLAlgorithm:
     uses_open = True
 
     def __post_init__(self):
-        if self.agg_edges != 1:
-            raise NotImplementedError(
-                "agg_edges > 1 (two-level ERA, repro/core/hierarchy.py) is "
-                "not ported yet: ROADMAP Queue 1, hierarchy")
+        if self.agg_edges < 1:
+            raise ValueError(f"agg_edges must be >= 1, got {self.agg_edges}")
         object.__setattr__(self, "device", resolve_device(self.device))
 
     def _specs(self):
@@ -169,11 +222,9 @@ class DSFLAlgorithm:
     def init(self, gen: torch.Generator, model_init: Callable,
              data) -> RoundState:
         """The server model, then K client models, drawn from ``gen``."""
-        K = data.x_clients.shape[0]
         wg, sg = model_init(gen)
-        inits = [model_init(gen) for _ in range(K)]
-        return self.init_from(_stack([p for p, _ in inits]),
-                              _stack([s for _, s in inits]), wg, sg)
+        wk, sk = _init_stack(gen, model_init, data.x_clients.shape[0])
+        return self.init_from(wk, sk, wg, sg)
 
     def init_from(self, wk, sk, wg, sg) -> RoundState:
         """Build a RoundState around externally initialized models."""
@@ -185,10 +236,27 @@ class DSFLAlgorithm:
             server=ServerState(params=wg, model_state=sg,
                                opt_distill=spec_d.opt.init(wg)))
 
+    def _teacher(self, probs, weights):
+        """"4. Aggregation" of a (K, n, C) stack under (K,) weights: flat, or
+        through the edge tree when ``agg_edges > 1``."""
+        hp = self.hp
+        if self.agg_edges > 1:
+            if hp.aggregation == "sa":
+                return hierarchical_weighted_sa(probs, weights, self.agg_edges,
+                                                use_kernel=self.use_kernel)
+            return hierarchical_weighted_era(probs, weights, hp.temperature,
+                                             self.agg_edges,
+                                             use_kernel=self.use_kernel)
+        if hp.aggregation == "sa":
+            return weighted_sa(probs, weights, use_kernel=self.use_kernel)
+        return weighted_era(probs, weights, hp.temperature,
+                            use_kernel=self.use_kernel)
+
     def _masked_teacher(self, probs, ctx: BatchCtx):
         """"3-5. Upload / Aggregation / Broadcast" of a masked round over the
-        full (K, n, C) upload stack.  Absent clients carry exactly zero
-        weight."""
+        full (K, n, C) upload stack, shared by the dense masked and the
+        sparse rounds (whose absent lanes are exact zeros).  Absent clients
+        carry exactly zero weight."""
         hp = self.hp
         agg_w = self.agg_weights
         if agg_w is None and hp.aggregation == "weighted_era":
@@ -196,14 +264,16 @@ class DSFLAlgorithm:
         pw = participation_weights(
             ctx.mask, ctx.stale if present(ctx.stale) else None,
             hp.staleness_decay, base=agg_w)
-        global_logit = (
-            weighted_sa(probs, pw, use_kernel=self.use_kernel)
-            if hp.aggregation == "sa"
-            else weighted_era(probs, pw, hp.temperature,
-                              use_kernel=self.use_kernel))
+        global_logit = self._teacher(probs, pw)
         # the unsharpened SA diagnostic over the uploads that happened
         sa_entropy = entropy(weighted_sa(probs, ctx.mask)).mean()
         return pw, global_logit, sa_entropy
+
+    def _is_sparse(self, ctx: BatchCtx) -> bool:
+        """Whether the round takes the participation-sparse plane.  Not with
+        ``corrupt``: it sees the full upload stack, so it keeps the dense
+        path.  Both halves of a round ask, so they cannot disagree."""
+        return _sparse_ctx(ctx) and self.corrupt is None
 
     def round(self, state: RoundState, ctx: BatchCtx, gen: torch.Generator,
               draws: Optional[RoundDraws] = None):
@@ -214,7 +284,10 @@ class DSFLAlgorithm:
     def round_start(self, state: RoundState, ctx: BatchCtx,
                     gen: torch.Generator, draws: Optional[RoundDraws] = None):
         """"1. Update" + "2. Prediction".  Returns the in-flight
-        ``(wk, sk, ouk, up_loss, probs)`` that `round_finish` consumes."""
+        ``(wk, sk, ouk, up_loss, probs)`` that `round_finish` consumes
+        (m lanes on the sparse plane)."""
+        if self._is_sparse(ctx):
+            return self._sparse_start(state, ctx, gen, draws)
         spec_u, _ = self._specs()
         wk, sk = state.clients.params, state.clients.model_state
         ouk = state.clients.opt_update
@@ -241,11 +314,11 @@ class DSFLAlgorithm:
                      gen: torch.Generator,
                      draws: Optional[RoundDraws] = None):
         """"3-6'. Upload / Aggregation / Broadcast / Distillation"."""
+        if self._is_sparse(ctx):
+            return self._sparse_finish(state, ctx, inflight, gen, draws)
         hp = self.hp
         _, spec_d = self._specs()
         odk = state.clients.opt_distill
-        wg, sg = state.server.params, state.server.model_state
-        odg = state.server.opt_distill
         masked = present(ctx.mask)
         xo = ctx.open_x[ctx.o_idx]
         wk, sk, ouk, up_loss, probs = inflight
@@ -260,10 +333,16 @@ class DSFLAlgorithm:
                 # client's uploaded soft labels, re-estimated every round
                 agg_w = 1.0 / (entropy(probs).mean(dim=-1) + 1e-3)
             pw = agg_w
-            global_logit = aggregate(probs, hp.aggregation, hp.temperature,
-                                     weights=agg_w, use_kernel=self.use_kernel)
+            if self.agg_edges > 1:
+                global_logit = self._teacher(
+                    probs, torch.ones((probs.shape[0],), dtype=F32,
+                                      device=probs.device)
+                    if agg_w is None else agg_w)
+            else:
+                global_logit = aggregate(probs, hp.aggregation,
+                                         hp.temperature, weights=agg_w,
+                                         use_kernel=self.use_kernel)
             sa_entropy = entropy(probs.mean(dim=0)).mean()
-        g_entropy = entropy(global_logit).mean()
 
         # 6. Distillation (clients, Eq. 10; absent clients keep their state)
         wk_n, sk_n, odk_n, d_loss = local_distill(
@@ -275,21 +354,14 @@ class DSFLAlgorithm:
         else:
             wk, sk, odk = wk_n, sk_n, odk_n
 
-        # 6'. the server's global model (Eq. 11), on its own permutations
-        server_perms = _draw(draws, "server_perms")
-        wg, sg, odg, gd_loss = local_distill(
-            spec_d, _lift(wg), _lift(sg), _lift(odg), xo, global_logit,
-            perms=None if server_perms is None else server_perms[None],
-            gen=gen)
-        wg, sg, odg = _first(wg), _first(sg), _first(odg)
-
-        metrics = {"update_loss": (masked_mean(up_loss, ctx.mask) if masked
-                                   else up_loss.mean()),
-                   "distill_loss": (masked_mean(d_loss, ctx.mask) if masked
-                                    else d_loss.mean()),
-                   "server_distill_loss": gd_loss[0],
-                   "global_entropy": g_entropy,
-                   "sa_entropy": sa_entropy}
+        server, metrics = self._server_distill(state, xo, global_logit, gen,
+                                               draws)
+        metrics.update(
+            update_loss=(masked_mean(up_loss, ctx.mask) if masked
+                         else up_loss.mean()),
+            distill_loss=(masked_mean(d_loss, ctx.mask) if masked
+                          else d_loss.mean()),
+            sa_entropy=sa_entropy)
         if pw is not None:
             # normalized per-client aggregation weights (non-scalar: kept on
             # `FedEngine.last_metrics`, out of the scalar history)
@@ -297,7 +369,92 @@ class DSFLAlgorithm:
         if masked:
             metrics["participants"] = ctx.mask.to(F32).sum()
         return RoundState(clients=ClientState(wk, sk, ouk, odk),
-                          server=ServerState(wg, sg, odg)), metrics
+                          server=server), metrics
+
+    def _server_distill(self, state: RoundState, xo, global_logit,
+                        gen: torch.Generator, draws: Optional[RoundDraws]):
+        """6'. the server's global model (Eq. 11) on its own permutations.
+        Returns the new `ServerState` and the round's server metrics."""
+        _, spec_d = self._specs()
+        srv = state.server
+        server_perms = _draw(draws, "server_perms")
+        wg, sg, odg, gd_loss = local_distill(
+            spec_d, _lift(srv.params), _lift(srv.model_state),
+            _lift(srv.opt_distill), xo, global_logit,
+            perms=None if server_perms is None else server_perms[None],
+            gen=gen)
+        return (ServerState(_first(wg), _first(sg), _first(odg)),
+                {"server_distill_loss": gd_loss[0],
+                 "global_entropy": entropy(global_logit).mean()})
+
+    def _sparse_start(self, state: RoundState, ctx: BatchCtx,
+                      gen: torch.Generator, draws: Optional[RoundDraws]):
+        """The sparse plane's start leg: gather the m active lanes of the
+        client stack, their data and their rows of the dense round's
+        permutations, then "1. Update" and "2. Prediction" on those lanes
+        alone.  Returns the m-lane in-flight buffers."""
+        spec_u, _ = self._specs()
+        c = state.clients
+        K, n = ctx.y.shape[:2]
+        xo = ctx.open_x[ctx.o_idx]
+        idx = active_indices(ctx.mask, ctx.active_budget)
+        mask_m = ctx.mask[idx]
+        x_m, y_m = gather_clients((ctx.x, ctx.y), idx)
+        wk_m, sk_m, ouk_m = gather_clients(
+            (c.params, c.model_state, c.opt_update), idx)
+        perms = perms_for(spec_u, K, n, _draw(draws, "update_perms"), gen,
+                          ctx.x.device)[idx]
+
+        # 1. Update on the gathered lanes (padding lanes keep their state)
+        wk_n, sk_n, ouk_n, up_loss = local_update(
+            spec_u, wk_m, sk_m, ouk_m, x_m, y_m, perms=perms)
+        wk_m, sk_m, ouk_m = select_clients(mask_m, (wk_n, sk_n, ouk_n),
+                                           (wk_m, sk_m, ouk_m))
+
+        # 2. Prediction on the active lanes (the finish leg scatters them
+        # into exact zeros, so the masked aggregation sees its (K, n, C))
+        probs_m = vmap(lambda w, s: predict_probs(self.apply_fn, w, s, xo))(
+            wk_m, sk_m)
+        return (wk_m, sk_m, ouk_m, up_loss, probs_m)
+
+    def _sparse_finish(self, state: RoundState, ctx: BatchCtx, inflight,
+                       gen: torch.Generator, draws: Optional[RoundDraws]):
+        """The sparse plane's finish leg: the dense masked aggregation on the
+        uploads scattered into exact zeros, distillation of the gathered
+        lanes, and the results scattered back into the (K, ...) stacks."""
+        _, spec_d = self._specs()
+        c = state.clients
+        K = ctx.x.shape[0]
+        xo = ctx.open_x[ctx.o_idx]
+        idx = active_indices(ctx.mask, ctx.active_budget)
+        mask_m = ctx.mask[idx]
+        odk_m = gather_clients(c.opt_distill, idx)
+        wk_m, sk_m, ouk_m, up_loss, probs_m = inflight
+
+        # 3-5. the dense masked aggregation, verbatim
+        pw, global_logit, sa_entropy = self._masked_teacher(
+            scatter_zeros(probs_m, K, idx), ctx)
+
+        # 6. Distillation (clients) on the gathered lanes
+        perms = perms_for(spec_d, K, xo.shape[0],
+                          _draw(draws, "distill_perms"), gen, xo.device)[idx]
+        wk_n, sk_n, odk_n, d_loss = local_distill(
+            spec_d, wk_m, sk_m, odk_m, xo, global_logit, perms=perms)
+        wk_m, sk_m, odk_m = select_clients(mask_m, (wk_n, sk_n, odk_n),
+                                           (wk_m, sk_m, odk_m))
+
+        server, metrics = self._server_distill(state, xo, global_logit, gen,
+                                               draws)
+        clients = ClientState(*scatter_clients(
+            (wk_m, sk_m, ouk_m, odk_m),
+            (c.params, c.model_state, c.opt_update, c.opt_distill), idx))
+        metrics.update(
+            update_loss=masked_mean(scatter_zeros(up_loss, K, idx), ctx.mask),
+            distill_loss=masked_mean(scatter_zeros(d_loss, K, idx), ctx.mask),
+            sa_entropy=sa_entropy,
+            agg_weights=pw / torch.clamp(pinned_sum(pw), min=1e-9),
+            participants=ctx.mask.to(F32).sum())
+        return RoundState(clients=clients, server=server), metrics
 
     def upload_payload(self, state: RoundState, ctx: BatchCtx):
         """One client's upload: per-sample probability vectors on o_r."""
@@ -308,3 +465,207 @@ class DSFLAlgorithm:
     def eval_params(self, state: RoundState):
         return state.server.params, state.server.model_state
 
+
+# ------------------------------------------------------------------- FD ------
+@dataclass(frozen=True)
+class FDConfig:
+    rounds: int = 30
+    local_epochs: int = 5
+    batch_size: int = 100
+    lr: float = 0.1
+    optimizer: str = "sgd"
+    gamma: float = 1.0          # Eq. 7 distill regularizer weight
+    n_classes: int = 10
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class FDAlgorithm:
+    """Federated Distillation benchmark (paper §2.2).  Each round every
+    client uploads its per-class mean probabilities (Eq. 4); the Eq. 5 mean
+    over the classes' owners, debiased per client (Eq. 6), is the soft
+    target of the next local update (Eq. 7).  There is no server model."""
+    apply_fn: Callable
+    hp: FDConfig
+    device: Any = "cuda"
+
+    name = "fd"
+    uses_open = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def _spec(self):
+        hp = self.hp
+        return LocalSpec(self.apply_fn, opt_lib.make(hp.optimizer, hp.lr),
+                         hp.local_epochs, hp.batch_size)
+
+    def init(self, gen: torch.Generator, model_init: Callable,
+             data) -> RoundState:
+        """K client models drawn from ``gen``."""
+        return self.init_from(*_init_stack(gen, model_init,
+                                           data.x_clients.shape[0]))
+
+    def init_from(self, wk, sk) -> RoundState:
+        return RoundState(clients=ClientState(
+            params=wk, model_state=sk, opt_update=self._spec().opt.init(wk)))
+
+    def _tables(self, wk, sk, x, y):
+        """Eq. 4 of every lane: (tk (L, C, C), owns (L, C))."""
+        C = self.hp.n_classes
+        return vmap(lambda w, s, xk, yk: fd_lib.per_label_logits(
+            self.apply_fn, w, s, xk, yk, C))(wk, sk, x, y)
+
+    def _update(self, lanes, x, y, tk, tg, n_own, perms):
+        """Eq. 6-7 on the lanes ``(params, state, opt_state)``."""
+        tgt = vmap(lambda tkk, yk: fd_lib.distill_targets(tg, tkk, n_own, yk)
+                   )(tk, y)
+        return local_update(self._spec(), *lanes, x, y, perms=perms,
+                            distill_extra=tgt, gamma=self.hp.gamma)
+
+    def round(self, state: RoundState, ctx: BatchCtx, gen: torch.Generator,
+              draws: Optional[RoundDraws] = None):
+        c = state.clients
+        lanes = (c.params, c.model_state, c.opt_update)
+        K, n = ctx.y.shape[:2]
+        perms = perms_for(self._spec(), K, n, _draw(draws, "update_perms"),
+                          gen, ctx.x.device)
+        masked = present(ctx.mask)
+        if _sparse_ctx(ctx):
+            return self._sparse_round(lanes, ctx, perms)
+        tk, owns = self._tables(c.params, c.model_state, ctx.x, ctx.y)
+        if masked:
+            # absent clients' per-class tables leave the Eq. 5 mean entirely
+            owns = owns & ctx.mask.to(torch.bool)[:, None]
+        tg, n_own = fd_lib.aggregate_fd(tk, owns)
+        *new, losses = self._update(lanes, ctx.x, ctx.y, tk, tg, n_own, perms)
+        if masked:
+            new = select_clients(ctx.mask, tuple(new), lanes)
+        metrics = {"update_loss": (masked_mean(losses, ctx.mask) if masked
+                                   else losses.mean()),
+                   "global_logit": tg}        # (C, C), for Fig. 2 analysis
+        return RoundState(clients=ClientState(*new)), metrics
+
+    def _sparse_round(self, lanes, ctx: BatchCtx, perms):
+        """Tables and the Eq. 7 update on the <= m gathered lanes only; the
+        Eq. 5 mean sees scattered zero tables whose ``owns`` are False,
+        exactly the lanes the dense masked round gives zero weight."""
+        K = ctx.x.shape[0]
+        idx = active_indices(ctx.mask, ctx.active_budget)
+        mask_m = ctx.mask[idx]
+        x_m, y_m = gather_clients((ctx.x, ctx.y), idx)
+        lanes_m = gather_clients(lanes, idx)
+        tk_m, owns_m = self._tables(lanes_m[0], lanes_m[1], x_m, y_m)
+        owns_m = owns_m & mask_m.to(torch.bool)[:, None]
+        tg, n_own = fd_lib.aggregate_fd(scatter_zeros(tk_m, K, idx),
+                                        scatter_zeros(owns_m, K, idx))
+        *new, losses = self._update(lanes_m, x_m, y_m, tk_m, tg, n_own,
+                                    perms[idx])
+        new = scatter_clients(select_clients(mask_m, tuple(new), lanes_m),
+                              lanes, idx)
+        metrics = {"update_loss": masked_mean(scatter_zeros(losses, K, idx),
+                                              ctx.mask),
+                   "global_logit": tg}
+        return RoundState(clients=ClientState(*new)), metrics
+
+    def upload_payload(self, state: RoundState, ctx: BatchCtx):
+        """One client's upload: its per-class mean probability table (C, C)."""
+        t, _ = fd_lib.per_label_logits(
+            self.apply_fn, _first(state.clients.params),
+            _first(state.clients.model_state), ctx.x[0], ctx.y[0],
+            self.hp.n_classes)
+        return t
+
+    def eval_params(self, state: RoundState):
+        # no server model: score the mean client model
+        mean = lambda t: {k: v.mean(dim=0) for k, v in t.items()}
+        return mean(state.clients.params), mean(state.clients.model_state)
+
+
+# --------------------------------------------------------------- FedAvg ------
+@dataclass(frozen=True)
+class FedAvgConfig:
+    rounds: int = 30
+    local_epochs: int = 5
+    batch_size: int = 100
+    lr: float = 0.1
+    optimizer: str = "sgd"
+    staleness_decay: float = 0.5    # async: weight factor per round of lag
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class FedAvgAlgorithm:
+    """FedAvg benchmark (paper §2.1).  Client state is ephemeral: every
+    round each client starts from the server's model with a fresh optimizer
+    state; only the server model persists."""
+    apply_fn: Callable
+    hp: FedAvgConfig
+    device: Any = "cuda"
+
+    name = "fedavg"
+    uses_open = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def _spec(self):
+        hp = self.hp
+        return LocalSpec(self.apply_fn, opt_lib.make(hp.optimizer, hp.lr),
+                         hp.local_epochs, hp.batch_size)
+
+    def init(self, gen: torch.Generator, model_init: Callable,
+             data) -> RoundState:
+        return self.init_from(*model_init(gen))
+
+    def init_from(self, w0, s0) -> RoundState:
+        return RoundState(server=ServerState(params=w0, model_state=s0))
+
+    def round(self, state: RoundState, ctx: BatchCtx, gen: torch.Generator,
+              draws: Optional[RoundDraws] = None):
+        spec = self._spec()
+        K, n = ctx.y.shape[:2]
+        masked = present(ctx.mask)
+        perms = perms_for(spec, K, n, _draw(draws, "update_perms"), gen,
+                          ctx.x.device)
+
+        def train(x, y, perms):
+            # the server's model broadcast to every lane as a stride-0 view
+            L = x.shape[0]
+            w0, s0 = (tree_map(lambda a: a.expand((L,) + a.shape), t)
+                      for t in (state.server.params, state.server.model_state))
+            return local_update(spec, w0, s0, spec.opt.init(w0), x, y,
+                                perms=perms)
+
+        if _sparse_ctx(ctx):
+            # only the <= m active lanes train; their results scatter into
+            # exact zeros, which the Eq. 3 average gives zero weight anyway
+            idx = active_indices(ctx.mask, ctx.active_budget)
+            x_m, y_m = gather_clients((ctx.x, ctx.y), idx)
+            wk, sk, _, losses = tree_map(lambda a: scatter_zeros(a, K, idx),
+                                         train(x_m, y_m, perms[idx]))
+        else:
+            wk, sk, _, losses = train(ctx.x, ctx.y, perms)
+        weights = (torch.ones((K,), dtype=F32, device=ctx.x.device)
+                   if ctx.weights is None else ctx.weights)
+        if masked:
+            # absent clients carry exactly zero weight in the Eq. 3 average;
+            # stale contributions are discounted FedAsync-style
+            weights = participation_weights(
+                ctx.mask, ctx.stale if present(ctx.stale) else None,
+                self.hp.staleness_decay, base=weights)
+        metrics = {"update_loss": (masked_mean(losses, ctx.mask) if masked
+                                   else losses.mean())}
+        if masked:
+            metrics["participants"] = ctx.mask.to(F32).sum()
+        return RoundState(server=ServerState(weighted_average(wk, weights),
+                                             weighted_average(sk, weights))
+                          ), metrics
+
+    def upload_payload(self, state: RoundState, ctx: BatchCtx):
+        """One client's upload: the full parameter vector (+ model state)."""
+        return {"params": state.server.params,
+                "model_state": state.server.model_state}
+
+    def eval_params(self, state: RoundState):
+        return state.server.params, state.server.model_state

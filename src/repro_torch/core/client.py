@@ -23,7 +23,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from ..optim.optimizers import Optimizer
-from .losses import distill_xent, xent_int_labels
+from .losses import distill_xent, softmax_xent, xent_int_labels
 
 
 @dataclass(frozen=True)
@@ -45,7 +45,9 @@ def epoch_perms(gen: torch.Generator, K: int, epochs: int, n_items: int,
         K, epochs, nb, batch_size)
 
 
-def _perms_for(spec: LocalSpec, K: int, n: int, perms, gen, device):
+def perms_for(spec: LocalSpec, K: int, n: int, perms, gen, device):
+    """The (K, epochs, nb, bs) permutations of one loop over n items:
+    ``perms`` checked and moved to ``device``, or drawn from ``gen``."""
     bs = min(spec.batch_size, n)     # clamp: batch_size > n gives zero batches
     if perms is None:
         if gen is None:
@@ -80,20 +82,29 @@ def _train(spec: LocalSpec, params, state, opt_state, perms, loss_fn, batch):
 
 
 def local_update(spec: LocalSpec, params, state, opt_state, x, y, perms=None,
-                 gen=None):
+                 gen=None, distill_extra=None, gamma: float = 0.0):
     """"1. Update": E epochs of minibatch supervised training of K clients
-    on their private data x: (K, n, ...), y: (K, n).  Returns the new
-    (params, state, opt_state) stacks and each client's mean loss (K,)."""
+    on their private data x: (K, n, ...), y: (K, n).  ``distill_extra``
+    (K, n, C), per-sample soft targets aligned with x and gathered per batch
+    like the labels, adds FD's regularizer (Eq. 7): gamma * CE(targets) on
+    the private inputs.  Returns the new (params, state, opt_state) stacks
+    and each client's mean loss (K,)."""
     K, n = y.shape[:2]
-    perms = _perms_for(spec, K, n, perms, gen, x.device)
+    perms = perms_for(spec, K, n, perms, gen, x.device)
     rows = torch.arange(K, device=x.device)[:, None]
 
     def batch(idx):
-        return x[rows, idx], y[rows, idx]
+        if distill_extra is None:
+            return x[rows, idx], y[rows, idx]
+        return x[rows, idx], (y[rows, idx], distill_extra[rows, idx])
 
-    def loss_fn(p, s, xb, yb):
+    def loss_fn(p, s, xb, tb):
         logits, ns = spec.apply_fn(p, s, xb, True)
-        return xent_int_labels(logits, yb), ns
+        if distill_extra is None:
+            return xent_int_labels(logits, tb), ns
+        yb, tgt = tb
+        return (xent_int_labels(logits, yb)
+                + gamma * softmax_xent(logits, tgt)), ns
 
     return _train(spec, params, state, opt_state, perms, loss_fn, batch)
 
@@ -104,7 +115,7 @@ def local_distill(spec: LocalSpec, params, state, opt_state, x_open,
     x_open: (n, ...) against the broadcast global logit (n, C)."""
     K = next(iter(params.values())).shape[0]
     n = x_open.shape[0]
-    perms = _perms_for(spec, K, n, perms, gen, x_open.device)
+    perms = perms_for(spec, K, n, perms, gen, x_open.device)
 
     def batch(idx):
         return x_open[idx], teacher_probs[idx]

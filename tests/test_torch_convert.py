@@ -65,37 +65,78 @@ def _perm_stack(key, epochs, n, bs):
     return np.asarray(_perm_stack_jit(key, epochs, n, bs))
 
 
-def reference_round_draws(rng, K, hp, n_k, n_open):
+def reference_round_draws(rng, K, hp, n_k, n_open, local_only=False):
     """The randomness of one reference round, rebuilt from the engine's key
     chain: ``rng, rk, ri = split(rng, 3)``; o_r from ``ri``; the round's
     legs ``r1, r2, r3, r4 = split(rk, 4)``, each client's epoch keys
     ``split(split(r, K)[k], epochs)`` and each epoch's permutation from
     ``repro.core.client._epoch_perm``.  Returns the next chain key and the
-    round's draws as a port `RoundDraws`."""
+    round's draws as a port `RoundDraws`.
+
+    ``local_only=True`` is the FD / FedAvg form: no o_r and no four-way
+    split; client k's update permutations come from ``split(rk, K)[k]``."""
     rng, rk, ri = jax.random.split(rng, 3)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int64))
+    bs_u = min(hp.batch_size, n_k)
+    if local_only:
+        return rng, RoundDraws(update_perms=t(np.stack([
+            _perm_stack(k, hp.local_epochs, n_k, bs_u)
+            for k in jax.random.split(rk, K)])))
     n_r = min(hp.open_batch, n_open)
     o_idx = jax.random.choice(ri, n_open, (n_r,), replace=False)
     r1, r2, _r3, r4 = jax.random.split(rk, 4)
-    bs_u = min(hp.batch_size, n_k)
     bs_d = min(hp.batch_size, hp.open_batch, n_r)
     upd = np.stack([_perm_stack(k, hp.local_epochs, n_k, bs_u)
                     for k in jax.random.split(r1, K)])
     dis = np.stack([_perm_stack(k, hp.distill_epochs, n_r, bs_d)
                     for k in jax.random.split(r2, K)])
     srv = _perm_stack(r4, hp.distill_epochs, n_r, bs_d)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.int64))
     return rng, RoundDraws(o_idx=t(o_idx), update_perms=t(upd),
                            distill_perms=t(dis), server_perms=t(srv))
 
 
-def reference_run_draws(hp, K, n_k, n_open, rounds):
+def reference_run_draws(hp, K, n_k, n_open, rounds, local_only=False):
     """`reference_round_draws` for the first ``rounds`` rounds of a run."""
     rng = jax.random.PRNGKey(hp.seed)
     out = []
     for _ in range(rounds):
-        rng, d = reference_round_draws(rng, K, hp, n_k, n_open)
+        rng, d = reference_round_draws(rng, K, hp, n_k, n_open, local_only)
         out.append(d)
     return out
+
+
+def numpy_task(seed, K, n_k, n_open, n_test, hw=16, n_classes=10):
+    """One federated image task drawn with numpy, as the reference's
+    ``FederatedImageTask`` (jnp arrays) and the port's (CPU tensors).
+    Client k holds labels k, k+1 and k+2 (mod C), so some classes have one
+    owner and some several (both branches of FD's Eq. 6)."""
+    from repro.data.pipeline import FederatedImageTask as JTask
+    from repro_torch.data.pipeline import FederatedImageTask
+    rng = np.random.default_rng(seed)
+    img = lambda *lead: rng.random(lead + (hw, hw, 1), np.float32)
+    yc = (np.arange(K)[:, None] + rng.integers(0, 3, (K, n_k))) % n_classes
+    arrays = (img(K, n_k), yc.astype(np.int32), img(n_open), img(n_test),
+              rng.integers(0, n_classes, n_test).astype(np.int32))
+    return (JTask(*(jax.numpy.asarray(a) for a in arrays), n_classes),
+            FederatedImageTask(*(torch.as_tensor(a).long()
+                                 if a.dtype == np.int32 else
+                                 torch.as_tensor(a) for a in arrays),
+                               n_classes))
+
+
+def numpy_models(init, K, seed):
+    """A server model and K client models from the port's ``init`` on the
+    CPU: the port's ``(wk, sk, wg, sg)`` flat dicts, and the same values as
+    the reference's nested jnp trees."""
+    gen = torch.Generator().manual_seed(seed)
+    wg, sg = init(gen)
+    inits = [init(gen) for _ in range(K)]
+    wk, sk = ({k: torch.stack([m[i][k] for m in inits]) for k in inits[0][i]}
+              for i in (0, 1))
+    port = (wk, sk, wg, sg)
+    ref = tuple(jax.tree.map(jax.numpy.asarray, convert.to_numpy_tree(t))
+                for t in port)
+    return port, ref
 
 
 # --------------------------------------------------------------------- tests --
@@ -201,8 +242,12 @@ def test_cuda_request_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        DSFLAlgorithm(apply_tiny_mlp, DSFLConfig())
+    from repro_torch.core.algorithms import (FDAlgorithm, FDConfig,
+                                             FedAvgAlgorithm, FedAvgConfig)
+    for algo, hp in ((DSFLAlgorithm, DSFLConfig()), (FDAlgorithm, FDConfig()),
+                     (FedAvgAlgorithm, FedAvgConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            algo(apply_tiny_mlp, hp)
     # the engine has no device of its own: it runs where its algorithm does
     assert FedEngine(DSFLAlgorithm(apply_tiny_mlp, DSFLConfig(), device=CPU)
                      ).gen.device.type == "cpu"
@@ -218,10 +263,8 @@ def test_unported_options_raise():
     from repro_torch.core.engine import FedEngine
     from repro_torch.core.protocol import DSFLConfig
     from repro_torch.models.smallnets import apply_tiny_mlp, make_smallnet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DSFLAlgorithm(apply_tiny_mlp, DSFLConfig(), agg_edges=2, device=CPU)
     eng = FedEngine(DSFLAlgorithm(apply_tiny_mlp, DSFLConfig(), device=CPU))
-    for kw in ({"chunk_rounds": 2}, {"overlap": True}, {"active_budget": 2}):
+    for kw in ({"chunk_rounds": 2}, {"overlap": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.run(None, None, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

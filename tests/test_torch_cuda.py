@@ -310,6 +310,117 @@ def test_aggregation_routes_to_kernels_and_counts(cuda_device):
     assert np.isfinite(aggregation.era(p, 0.1, True).cpu().numpy()).all()
 
 
+@pytest.mark.cuda
+def test_weighted_mean_on_misaligned_edge_shards(cuda_device):
+    """K2's weighted mean on the row-offset views of a two-level round:
+    K=7, N=13, C=10 in 3 edges puts shards at 3 and 5 clients in, 8 bytes
+    off a 16-byte boundary; they take narrower loads, not a refusal."""
+    from repro_torch.core.hierarchy import edge_shards
+    p = _probs(cuda_device, (7, 13, 10), 21)
+    w = _weights(cuda_device, 7, 22)
+    aligns = []
+    for start, end in edge_shards(7, 3):
+        shard, ws = p[start:end], w[start:end].contiguous()
+        ptr = shard.data_ptr()
+        aligns.append(ptr & -ptr)
+        torch.testing.assert_close(
+            tes.weighted_era_sharpen(shard, ws, sharpen=False),
+            tes.weighted_era_sharpen_plain(shard, ws, sharpen=False),
+            atol=ATOL_ERA[torch.float32], rtol=0)
+    assert min(aligns) < 16
+
+
+def _image_task(device, K, seed):
+    from repro_torch.data.pipeline import FederatedImageTask, build_image_task
+    t = build_image_task(seed, K, 40 * K, 160, 80, device="cpu")
+    return FederatedImageTask(t.x_clients.to(device), t.y_clients.to(device),
+                              t.open_x.to(device), t.x_test.to(device),
+                              t.y_test.to(device), t.n_classes)
+
+
+def _narrow_cnn(device):
+    import functools
+    from repro_torch.models.smallnets import init_mnist_cnn
+    return functools.partial(init_mnist_cnn, image_hw=16, widths=(8, 16),
+                             fc=32, device=device)
+
+
+@pytest.mark.cuda
+def test_sparse_round_against_masked_on_the_card(cuda_device):
+    """K=8, 4 participants, ``active_budget=4`` against the dense masked
+    round from the same state and draws: absent clients' leaves and the
+    aggregation weights bitwise, the rest within 2e-4 + 1e-3 |x| (the
+    m-lane convolutions may run other cuDNN algorithms); K2 once a round."""
+    from repro_torch.core.algorithms import DSFLAlgorithm, RoundDraws
+    from repro_torch.core.client import epoch_perms
+    from repro_torch.core.engine import FedEngine
+    from repro_torch.core.protocol import DSFLConfig
+    from repro_torch.models.smallnets import apply_mnist_cnn
+    K = 8
+    task = _image_task(cuda_device, K, 0)
+    hp = DSFLConfig(rounds=1, local_epochs=1, distill_epochs=1,
+                    batch_size=20, open_batch=80)
+    g = _gen(cuda_device, 1)
+    draws = [RoundDraws(o_idx=torch.randperm(160, generator=g,
+                                             device=cuda_device)[:80],
+                        update_perms=epoch_perms(g, K, 1, 40, 20),
+                        distill_perms=epoch_perms(g, K, 1, 80, 20),
+                        server_perms=epoch_perms(g, 1, 1, 80, 20)[0])]
+    mask = torch.tensor([[0, 1, 1, 0, 1, 0, 0, 1]], dtype=torch.float32,
+                        device=cuda_device)
+    algo = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True,
+                         device=cuda_device)
+    start = FedEngine(algo).init(_narrow_cnn(cuda_device), task)
+    out = []
+    for budget in (None, 4):
+        eng = FedEngine(algo)
+        _build.reset_launches()
+        state = eng.run(start, task, draws=draws, ctx_plan={"mask": mask},
+                        active_budget=budget)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["weighted_era_sharpen"] == 1
+        out.append((state, eng.last_metrics))
+    (dense, dm), (sparse, sm) = out
+    assert torch.equal(dm["agg_weights"], sm["agg_weights"])
+    absent = (mask[0] == 0).nonzero()[:, 0]
+    for f in ("params", "model_state"):
+        for k, v in getattr(dense.clients, f).items():
+            got = getattr(sparse.clients, f)[k]
+            before = getattr(start.clients, f)[k]
+            assert torch.equal(got[absent], before[absent])
+            torch.testing.assert_close(got, v, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_fedavg_round_card_against_cpu(cuda_device):
+    """One FedAvg round (K=4, the narrow CNN) from the same weights and
+    draws on the card and on the CPU: the server's leaves within 2e-4 +
+    1e-3 |x|.  FedAvg launches no kernel."""
+    from repro_torch.core.algorithms import (FedAvgAlgorithm, FedAvgConfig,
+                                             RoundDraws)
+    from repro_torch.core.client import epoch_perms
+    from repro_torch.core.engine import FedEngine
+    from repro_torch.models.smallnets import apply_mnist_cnn
+    K = 4
+    hp = FedAvgConfig(rounds=1, local_epochs=1, batch_size=20)
+    w0, s0 = _narrow_cnn("cpu")(torch.Generator().manual_seed(2))
+    draws = [RoundDraws(update_perms=epoch_perms(
+        torch.Generator().manual_seed(3), K, 1, 40, 20))]
+    got = {}
+    _build.reset_launches()
+    for device in (cuda_device, torch.device("cpu")):
+        algo = FedAvgAlgorithm(apply_mnist_cnn, hp, device=device)
+        mv = lambda t: {k: v.to(device) for k, v in t.items()}
+        state = FedEngine(algo).run(algo.init_from(mv(w0), mv(s0)),
+                                    _image_task(device, K, 4), draws=draws)
+        got[device.type] = state.server
+    assert not any(_build.LAUNCHES.values())
+    for f in ("params", "model_state"):
+        for k, v in getattr(got["cpu"], f).items():
+            torch.testing.assert_close(getattr(got["cuda"], f)[k].cpu(), v,
+                                       atol=2e-4, rtol=1e-3)
+
+
 # ---------------------------------------------------------------------- K5 --
 def _ssd_inputs(device, M, Q, H, P, G, N, seed):
     """As chip_smoke.py draws them: B and C scaled by N^-1/4, so the scores

@@ -113,11 +113,15 @@ def test_fedengine_matches_reference(setup, aggregation, use_kernel):
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
-def test_masked_round_matches_reference(setup, use_kernel):
+@pytest.mark.parametrize("aggregation", ["sa", "era", "weighted_era"])
+def test_masked_round_matches_reference(setup, aggregation, use_kernel):
     """Client 1 sits out both rounds: it keeps its state and its
-    aggregation weight is exactly 0.0 in both packages."""
+    aggregation weight is exactly 0.0 in both packages.  ``sa`` takes K2's
+    weighted mean (``sharpen=False``) on the kernel route; ``weighted_era``
+    re-estimates the reliabilities over the masked stack."""
     mask = np.tile(np.array([1, 0, 1, 1], np.float32), (ROUNDS, 1))
-    ref, port = _run_both(setup, "era", use_kernel, ctx_plan={"mask": mask})
+    ref, port = _run_both(setup, aggregation, use_kernel,
+                          ctx_plan={"mask": mask})
     _assert_same_run(ref, port)
     eng, state = port
     assert float(eng.last_metrics["agg_weights"][1]) == 0.0
