@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
-Two paths: the federated rounds (DS-FL dense, masked, participation-sparse
-and two-level, FD and FedAvg) and serving mamba2-2.7b at full width (its
-SSD kernel K5 runs on the tensor cores).  Phases, in order;
+Three paths: the federated rounds (DS-FL dense, masked,
+participation-sparse and two-level, FD and FedAvg), the federation
+simulator and the million-client cohort plane, and serving mamba2-2.7b at
+full width (its SSD kernel K5 runs on the tensor cores).  Phases, in order;
 any failure exits non-zero and prints no result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
@@ -89,6 +90,39 @@ any failure exits non-zero and prints no result:
              leaf: K=4, full-width CNN, 1 local and 1 distillation epoch; an
              ERA round, a sparse ERA round (2 of 4 clients, budget 2) and a
              FedAvg round.
+    sim      the simulator at full width (``mnist_cnn`` at paper width,
+             examples/sim_stragglers.py's lognormal fleet, ``SyncScheduler(
+             fraction, deadline=20, straggler="admit", sampler="available")``),
+             launch counts zeroed before each 8-round run and read after it
+             (K2 8, nothing else): (a) ``SimRunner`` at K=100 on
+             ``build_image_task(0, K=100, n_private=20_000, n_open=10_000,
+             n_test=2_000, "non_iid")``, ``DSFLConfig()`` with 8 rounds,
+             fraction 0.1 (budget 20), ``active_budget="auto"``, chunks of 4
+             with ``log_every=4``, under deterministic algorithms: fused,
+             one round at a time and pipelined (``overlap=True``), and
+             resumed after chunk 1 from a checkpoint into a fresh engine and
+             runner; plans, virtual clock and bytes equal exactly, leaves
+             within CARD_VS_CPU_ATOL/RTOL; seconds a round and a chunk, peak
+             memory. (c) at K=100, ``CohortRunner`` over ``ArrayProvider``
+             and ``SimRunner`` given the same plans, 4 rounds (one slab of
+             80 lanes), leaves within the tolerance through the plain
+             aggregation; K2 on each round's slab stack and on its dense
+             stack, each within 1e-6 of its plain version and the two
+             teachers within 1e-6. (b) ``CohortRunner`` at K=1,000,000 and
+             fraction 1e-4 (budget 200, slabs of 800 lanes) over
+             ``SyntheticProvider(n_per_client=20, n_open=200, n_test=300,
+             hw=28)``, 1 + 1 epochs, batch 20, open batch 200, 8 rounds in
+             chunks of 4, saved after chunk 1 and loaded into a fresh
+             engine, runner and store; resident and slab bytes, touched
+             clients and the host seconds of each span (plan, gather with
+             its lazy inits, provider, scatter, engine chunk); K2 on round
+             0's (800, 200, 10) slab against its participants' stack, as in
+             (c). (d) keyed
+             permutations and open batches bitwise equal on the card and
+             the CPU; a K=4 cohort round card vs CPU. (e) ``torch.profiler``
+             over the second chunk of (a)'s resumed run and of (b): host
+             time, the card's busy time (the union of its activities) and
+             idle share, top ops.
  7. serve    the serving path: mamba2-2.7b at the config's widths and its 64
              layers in bf16 (2,702,579,200 values from the port's seeded
              init on the card) through ``ServeEngine(slots=8,
@@ -119,14 +153,19 @@ any failure exits non-zero and prints no result:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -381,8 +420,10 @@ def check_era(es):
     atol 1e-6 and bf16 at 5e-3 (C = 151 in bf16 takes 2-byte loads: its
     rows are not 4-byte aligned); zero-weight clients of +-1e30 rows change
     no bit of K2 or of its weighted mean, also spread over the client
-    slices at the round's shape; two launches on one input give the same
-    bits; the wrappers raise, launching nothing, on what the kernel does not
+    slices at the round's shape; K2 and its weighted mean at the cohort
+    plane's slab shapes, (80, 1000, 10) with 60 lanes of weight 0 and (800,
+    200, 10) with 600, at atol 1e-6; two launches on one input give the
+    same bits; the wrappers raise, launching nothing, on what the kernel does not
     take."""
     from repro_torch.kernels import _build
     for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 5e-3)):
@@ -420,6 +461,16 @@ def check_era(es):
                      f"changed the output bits")
         say(f"check K2 and weighted mean {shape}, clients {zeros} of weight "
             f"0 holding +-1e30: output bitwise equal ok")
+    # the cohort plane's K2 shapes: slabs whose absent lanes carry weight 0,
+    # sim (c)'s 80 lanes with 20 live and sim (b)'s 800 with 200 live
+    for (K, N, C), live in (((80, 1000, 10), 20), ((800, 200, 10), 200)):
+        p = _probs((K, N, C), K)
+        zeros = [k for k in range(K) if k % (K // live)]
+        w = _weights(K, K + 1, zeros)
+        for name in ("weighted_era_sharpen", "weighted_mean"):
+            kern, plain = era_calls(es, p, w)[name]
+            check(f"{name} {(K, N, C)} f32, {len(zeros)} lanes of weight 0 "
+                  f"(plan {es.launch_plan(K, N, C)})", kern(), plain(), 1e-6)
     p, w = _probs((100, 1000, 10), 6), _weights(100, 7)
     for name, (kern, _) in era_calls(es, p, w).items():
         a, b = kern(), kern()
@@ -1129,20 +1180,23 @@ def _paper_cnn(device):
                              fc=512, device=device)
 
 
-def _round_draws(gen, K, hp, n_k, n_open):
-    """One DS-FL round's randomness, drawn on the card, to hand two runs of
-    the same round."""
+def _round_draws(seed, K, hp, n_k, n_open, device="cuda"):
+    """One DS-FL round's randomness, keyed on ``seed`` (`core.prng`), to
+    hand two runs of the same round."""
+    from repro_torch.core import prng
     from repro_torch.core.algorithms import RoundDraws
-    from repro_torch.core.client import epoch_perms
     bs_d = min(hp.batch_size, hp.open_batch)
+    ids = torch.arange(K, device=device)
     return RoundDraws(
-        o_idx=torch.randperm(n_open, generator=gen, device="cuda")[
+        o_idx=prng.permutation(seed, 0, "open", 0, n_open, device)[
             :hp.open_batch],
-        update_perms=epoch_perms(gen, K, hp.local_epochs, n_k, hp.batch_size),
-        distill_perms=epoch_perms(gen, K, hp.distill_epochs, hp.open_batch,
-                                  bs_d),
-        server_perms=epoch_perms(gen, 1, hp.distill_epochs, hp.open_batch,
-                                 bs_d)[0])
+        update_perms=prng.epoch_perms(seed, 0, "update", ids, hp.local_epochs,
+                                      n_k, hp.batch_size),
+        distill_perms=prng.epoch_perms(seed, 0, "distill", ids,
+                                       hp.distill_epochs, hp.open_batch, bs_d),
+        server_perms=prng.epoch_perms(seed, 0, "server", ids[:1],
+                                      hp.distill_epochs, hp.open_batch,
+                                      bs_d)[0])
 
 
 def timed_round(eng, state, task, kind, **run_kw):
@@ -1252,8 +1306,7 @@ def phase_slice(smi):
     half = torch.zeros((1, K), device="cuda")
     half[0, ::2] = 1.0
     masked_kw = dict(ctx_plan={"mask": half}, draws=[_round_draws(
-        torch.Generator(device="cuda").manual_seed(11), K, hp,
-        task.x_clients.shape[1], task.open_x.shape[0])])
+        11, K, hp, task.x_clients.shape[1], task.open_x.shape[0])])
     recs = []
 
     def dsfl_round(algo, st, kind, **kw):
@@ -1390,12 +1443,13 @@ def phase_legs(eng, state, task):
     (3-5. aggregation through K1, 6/6'. client and server distillation),
     each on the host clock around a synchronize.  Runs after the launch-count
     windows closed."""
+    from repro_torch.core.engine import open_batch
     algo = eng.algo
     if algo.hp.aggregation != "era":
         fail(f"legs: expected the ERA algorithm, got {algo.hp.aggregation}")
-    o_idx = torch.randperm(task.open_x.shape[0], generator=eng.gen,
-                           device="cuda")[:algo.hp.open_batch]
-    ctx = eng.make_ctx(task, o_idx=o_idx)
+    r = eng.rounds_done
+    ctx = eng.make_ctx(task, o_idx=open_batch(
+        algo.hp.seed, r, task.open_x.shape[0], algo.hp.open_batch, "cuda"))
     legs = {}
 
     def timed(name, fn):
@@ -1407,9 +1461,9 @@ def phase_legs(eng, state, task):
         return out
 
     inflight = timed("round_start (update, predict)",
-                     lambda: algo.round_start(state, ctx, eng.gen))
+                     lambda: algo.round_start(state, ctx, r))
     timed("round_finish (aggregate, distill clients and server)",
-          lambda: algo.round_finish(state, ctx, inflight, eng.gen))
+          lambda: algo.round_finish(state, ctx, inflight, r))
     total = sum(legs.values())
     say("legs " + json.dumps({k: {"seconds": v, "share": v / total}
                               for k, v in legs.items()}))
@@ -1422,8 +1476,7 @@ def phase_card_vs_cpu(smi):
     round (clients 0 and 3 of 4, budget 2) and a FedAvg round."""
     from repro_torch import convert
     from repro_torch.core.algorithms import (DSFLAlgorithm, FedAvgAlgorithm,
-                                             FedAvgConfig, RoundDraws)
-    from repro_torch.core.client import epoch_perms
+                                             FedAvgConfig)
     from repro_torch.core.engine import FedEngine, make_eval_fn
     from repro_torch.core.protocol import DSFLConfig
     from repro_torch.data.pipeline import FederatedImageTask, build_image_task
@@ -1438,11 +1491,7 @@ def phase_card_vs_cpu(smi):
     init = _paper_cnn("cpu")
     models = [init(gen) for _ in range(K + 1)]
     n_k = cpu_task.x_clients.shape[1]
-    draws = [RoundDraws(
-        o_idx=torch.randperm(400, generator=gen)[:200],
-        update_perms=epoch_perms(gen, K, 1, n_k, 100),
-        distill_perms=epoch_perms(gen, K, 1, 200, 100),
-        server_perms=epoch_perms(gen, 1, 1, 200, 100)[0])]
+    draws = [_round_draws(7, K, hp, n_k, 400, "cpu")]
     sparse_kw = dict(ctx_plan={"mask": torch.tensor([[1.0, 0.0, 0.0, 1.0]])},
                      active_budget=2)
     for case, kw in (("era", {}), ("sparse 2/4, budget 2", sparse_kw),
@@ -1500,6 +1549,550 @@ def phase_card_vs_cpu(smi):
             f"{json.dumps(hc)}")
 
 
+# ------------------------------------------------------------- phase "sim" --
+SIM_K, SIM_ROUNDS, SIM_CHUNK = 100, 8, 4
+# (c) holds the cohort plane's leaves to the dense rounds' with the plain
+# aggregation: K2's launch plan (its client slices) depends on the lane
+# count, so a slab of 80 lanes and the dense stack of 100 sum in other
+# orders, and training carries that last-bit difference past
+# CARD_VS_CPU_ATOL/RTOL within 2 rounds (8.3e-4 on a BatchNorm mean;
+# PERF.md §6).  `check_k2_slab` measures that difference on the
+# rounds' own K2 inputs.
+C_ROUNDS = 4
+COHORT_K, COHORT_FRACTION = 1_000_000, 1e-4
+
+
+def _fleet(K):
+    """examples/sim_stragglers.py's fleet and its sync scheduler."""
+    from repro_torch.sim import ClientPopulation, SyncScheduler
+    pop = ClientPopulation.lognormal(seed=0, K=K, compute_median=5.0,
+                                     compute_sigma=0.8, uplink_median=2e4,
+                                     uplink_sigma=1.0, availability=(0.6, 1.0))
+    return pop
+
+
+def _recording(sched, name):
+    """``sched`` with each plan it makes appended to ``sched.<name>``."""
+    setattr(sched, name, [])
+    inner = getattr(sched, "next_round" if name == "plans" else "next_cohort")
+
+    def wrapped(*a, **kw):
+        plan = inner(*a, **kw)
+        getattr(sched, name).append(plan)
+        return plan
+
+    setattr(sched, "next_round" if name == "plans" else "next_cohort",
+            wrapped)
+    return sched
+
+
+class _Replay:
+    """A plannable sync scheduler that hands `SimRunner` the dense form of
+    recorded cohort plans, so the dense rounds get exactly the plans the
+    cohort rounds ran (cohort draws differ from ``next_round``'s)."""
+    plannable, idealized = True, False
+
+    def __init__(self, cohorts, population, active_budget):
+        from repro_torch.sim import VirtualClock
+        self.cohorts, self.population = list(cohorts), population
+        self.active_budget, self.clock = active_budget, VirtualClock()
+
+    def next_round(self, rng, up_bytes, down_bytes):
+        from repro_torch.sim import RoundPlan
+        p, K = self.cohorts.pop(0), self.population.n_clients
+        dropped = np.zeros(K, bool)
+        dropped[p.dropped_ids] = True
+        self.clock.now = p.t_end
+        return RoundPlan(p.dense_mask(K), p.dense_staleness(K), p.t_start,
+                         p.t_end, dropped)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (cuDNN's, and the index ops'
+    sorted scatter in place of atomics) for runs held to each other: with
+    the default ones a round differs from itself from run to run, and 8
+    rounds of training carried that past CARD_VS_CPU_ATOL/RTOL (4.5e-4 on
+    a BatchNorm bias; PERF.md §6)."""
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev[:2]
+        torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+
+
+def _busy_ms(prof) -> float:
+    """The card's busy time in a profile: the union of its activities'
+    intervals (kernels, and copies, which a pageable transfer runs beside
+    the kernels), without the profiler's own buffer events."""
+    from torch.autograd import DeviceType
+    own = ("Command Buffer Full", "Activity Buffer Request", "Buffer Flush")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name not in own)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def _spans(path) -> dict:
+    """Each span name's host seconds, one entry a span, in a JSONL trace."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("type") == "span":
+                out.setdefault(rec["name"], []).append(rec["dur_us"] / 1e6)
+    return dict(sorted(out.items()))
+
+
+def _largest(a, b) -> float:
+    """The largest leaf difference between two states."""
+    from repro_torch.checkpoint import named_leaves
+    return max((max_err(x, y) for (_, x), (_, y) in
+                zip(named_leaves(a), named_leaves(b)) if x.numel()),
+               default=0.0)
+
+
+def _compare_leaves(what, a, b, atol=CARD_VS_CPU_ATOL, rtol=CARD_VS_CPU_RTOL):
+    """Every leaf of two states (or two leaf lists) on the host within
+    atol + rtol |b|; returns the largest difference."""
+    from repro_torch.checkpoint import named_leaves
+    la = a if isinstance(a, list) else named_leaves(a)
+    lb = b if isinstance(b, list) else named_leaves(b)
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        fail(f"{what}: the two states hold different leaves")
+    worst = 0.0
+    for (name, x), (_, y) in zip(la, lb):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if x.numel():
+            worst = max(worst, max_err(x, y))
+        if not close(x, y, atol, rtol):
+            fail(f"{what}: {name} differs by {max_err(x, y):.3e}")
+    return worst
+
+
+def _books(runner, sched) -> dict:
+    """What a simulation must reproduce exactly: the plans, the virtual
+    clock and the byte ledger."""
+    recs = [{k: r[k] for k in ("round", "t_round", "t_cum", "participants",
+                               "dropped", "mean_staleness", "cum_bytes")}
+            for r in runner.history]
+    masks = [p.mask.tolist() if hasattr(p, "mask") else p.ids.tolist()
+             for p in getattr(sched, "plans", getattr(sched, "cohorts", []))]
+    return {"records": recs, "plans": masks, "clock": sched.clock.now,
+            "cum_bytes": runner.cum_bytes}
+
+
+class _TeacherInputs:
+    """Keeps copies of the (probs, weights) the rounds of ``algo`` hand
+    their "4. Aggregation" (`DSFLAlgorithm._teacher`), ``limit`` calls at
+    most: K2's inputs on the path, for `check_k2_slab`."""
+
+    def __init__(self, algo, limit):
+        self.calls, inner = [], algo._teacher
+
+        def wrapped(probs, weights):
+            if len(self.calls) < limit:
+                self.calls.append((probs.detach().clone(),
+                                   weights.detach().clone()))
+            return inner(probs, weights)
+
+        object.__setattr__(algo, "_teacher", wrapped)   # a frozen dataclass
+
+
+def check_k2_slab(what, slab, dense, temperature):
+    """K2 on a round's slab stack (a cohort's lanes, the absent ones of
+    weight 0) against K2 on the same round's dense stack: each against its
+    plain version at atol 1e-6, and the two teachers within 1e-6 of each
+    other (the launch plans differ with the lane count, so the fp32 sums
+    run in other orders).  Returns the teachers' largest difference."""
+    from repro_torch.core.aggregation import _normalize_weights
+    from repro_torch.kernels import era_sharpen as es
+    outs = []
+    for name, (p, w) in (("slab", slab), ("dense", dense)):
+        wn = _normalize_weights(w).contiguous()
+        K, N, C = p.shape
+        out = es.weighted_era_sharpen(p, wn, temperature)
+        check(f"K2 {what}, {name} stack {(K, N, C)} ({int((w > 0).sum())} "
+              f"lanes of weight > 0, plan {es.launch_plan(K, N, C)})", out,
+              es.weighted_era_sharpen_plain(p, wn, temperature), 1e-6)
+        outs.append(out)
+    err = max_err(*outs)
+    if not close(outs[0], outs[1], 1e-6, 0.0):
+        fail(f"K2 {what}: the slab's teacher is {err:.3e} from the dense "
+             f"stack's, above 1e-6")
+    return err
+
+
+def _profiled(label, fn, smi, out):
+    """``fn()`` under ``torch.profiler`` (phase "sim" (e)): host time, the
+    card's summed and busy time, idle share and top ops into
+    ``out[label]``.  Returns ``fn()`` and the host seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, n_kernels, n_full, tops = _trace_summary(prof)
+    busy = _busy_ms(prof)
+    rec = out[label] = dict(
+        host_ms=host_ms, device_ms=dev_ms, busy_ms=busy,
+        device_kernels=n_kernels, launch_queue_full_markers=n_full,
+        idle_share=1 - busy / host_ms if host_ms else None,
+        top=[(k[:60], c, t) for k, c, t in tops])
+    say(f"sim (e) trace [{smi}]: {label}: host {host_ms:.3f} ms; device "
+        f"activities {dev_ms:.3f} ms summed in {n_kernels} (copies "
+        f"included), busy {busy:.3f} ms as their union (profiled; idle "
+        f"share {rec['idle_share']:.1%}); top by device ms: " +
+        "; ".join(f"{k} x{c} {t:.3f}" for k, c, t in rec["top"]))
+    return res, host_ms / 1e3
+
+
+def phase_sim(smi, tmp):
+    """The simulator and the cohort plane at full width (phase "sim"):
+    (a) `SimRunner` at K=100 on the paper's data, 8 rounds in chunks of 4,
+    against the loop, the pipelined schedule and a save/resume; (c) the
+    cohort plane against the dense rounds at K=100, and K2 on its slab
+    stacks against K2 on the dense ones; (b) `CohortRunner` at K=1,000,000
+    and 0.01% participation, with a save and a load after its first chunk,
+    and K2 on its slab stack against the participants' stack; (d) keyed
+    draws and a K=4 cohort round card vs CPU; (e) the profiler over the
+    second chunk of (a)'s resumed run and of (b).  Returns the kernels'
+    launches in the 8-round runs."""
+    from repro_torch.core import prng
+    from repro_torch.core.algorithms import DSFLAlgorithm
+    from repro_torch.core.cohort import ClientStore
+    from repro_torch.core.engine import FedEngine, make_eval_fn, open_batch
+    from repro_torch.core.protocol import DSFLConfig
+    from repro_torch.data.pipeline import (ArrayProvider, SyntheticProvider,
+                                           build_image_task)
+    from repro_torch.kernels import _build
+    from repro_torch.models.smallnets import apply_mnist_cnn
+    from repro_torch.obs import trace as obs
+    from repro_torch.sim import CohortRunner, SimRunner, SyncScheduler
+
+    init = _paper_cnn("cuda")
+    sim_launches, profiles, t_part = {}, {}, time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        say(f"sim: {name} took {time.perf_counter() - t_part:.1f} s")
+        t_part = time.perf_counter()
+
+    # (a) SimRunner, K=100, the paper's data
+    task = build_image_task(0, K=SIM_K, n_private=20_000, n_open=10_000,
+                            n_test=2_000, distribution="non_iid", hw=28,
+                            device="cuda")
+    hp = DSFLConfig(rounds=SIM_ROUNDS)
+    eval_fn = make_eval_fn(apply_mnist_cnn, task.x_test, task.y_test)
+    algo = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True)
+    pop = _fleet(SIM_K)
+
+    def sim_runner():
+        sched = _recording(SyncScheduler(pop, fraction=0.1, deadline=20.0,
+                                         straggler="admit",
+                                         sampler="available"), "plans")
+        return SimRunner(FedEngine(algo, eval_fn), sched, seed=0), sched
+
+    state0 = FedEngine(algo).init(init, task)
+    say(f"sim (a): SimRunner, mnist_cnn at paper width, K={SIM_K}, "
+        f"fraction 0.1, deadline 20 s, stragglers admitted, budget "
+        f"{sim_runner()[1].active_budget}, {SIM_ROUNDS} rounds, {hp}")
+    part_done("(a) set-up")
+    runs = {}
+    for name, kw in (("fused", dict(chunk_rounds=SIM_CHUNK)),
+                     ("loop", dict(chunk_rounds=1)),
+                     ("overlap", dict(chunk_rounds=SIM_CHUNK, overlap=True))):
+        runner, sched = sim_runner()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()                   # this run's window
+        t0 = time.perf_counter()
+        trace = tmp / f"sim_a_{len(runs)}.jsonl"
+        with deterministic(), obs.trace_to(str(trace)):
+            st = runner.run(state0, task, rounds=SIM_ROUNDS,
+                            log_every=SIM_CHUNK, active_budget="auto", **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        spans = _spans(trace)
+        steps = spans.get("engine.chunk", spans.get("engine.round", []))
+        launches = dict(_build.LAUNCHES)
+        runs[name] = (st, runner, sched)
+        sim_launches[f"(a) {name}"] = launches
+        accs = [r.get("test_acc") for r in runner.history if "test_acc" in r]
+        say(f"sim (a) {name} [{smi}] (deterministic algorithms): "
+            f"{SIM_ROUNDS} rounds in {secs:.3f} s "
+            f"({secs / SIM_ROUNDS:.3f} s a round); engine "
+            f"{'chunks' if 'engine.chunk' in spans else 'rounds'} "
+            f"{[round(x, 4) for x in steps]} s; "
+            f"peak {torch.cuda.max_memory_allocated()} B; participants "
+            f"{[r['participants'] for r in runner.history]}; virtual clock "
+            f"{sched.clock.now:.3f} s; cum_bytes {runner.cum_bytes}; test_acc "
+            f"{accs}; launches {json.dumps(launches)}")
+        if launches["weighted_era_sharpen"] != SIM_ROUNDS or \
+                launches["era_sharpen"] != 0 or \
+                any(v for k, v in launches.items()
+                    if k not in ("weighted_era_sharpen", "era_sharpen")):
+            fail(f"sim (a) {name}: launches {launches}, expected K2 "
+                 f"{SIM_ROUNDS} and nothing else")
+    want = _books(runs["fused"][1], runs["fused"][2])
+    for name in ("loop", "overlap"):
+        if _books(runs[name][1], runs[name][2]) != want:
+            fail(f"sim (a): the {name} run's plans, clock or bytes differ from "
+                 f"the fused run's")
+        worst = _compare_leaves(f"sim (a) {name} vs fused", runs[name][0],
+                                runs["fused"][0])
+        say(f"sim (a) {name} vs fused [{smi}] (deterministic algorithms): "
+            f"plans, virtual clock and cum_bytes equal; largest leaf "
+            f"difference {worst:.3e} (atol {CARD_VS_CPU_ATOL}, rtol "
+            f"{CARD_VS_CPU_RTOL})")
+    part_done("(a) fused, loop and overlap runs")
+
+    # (a) resumed: chunk 1, save, a fresh engine and runner load, chunk 2
+    # under the profiler (e)
+    path = str(tmp / "sim_a.ckpt")
+    runner, sched = sim_runner()
+    with deterministic():
+        half = runner.run(state0, task, rounds=SIM_CHUNK,
+                          chunk_rounds=SIM_CHUNK, log_every=SIM_CHUNK)
+        runner.save_state(path, half)
+        runner2, sched2 = sim_runner()
+        sched2.plans = list(sched.plans)
+        st = runner2.load_state(path, state0)
+        if runner2.engine.rounds_done != SIM_CHUNK:
+            fail(f"sim (a) resume: rounds_done {runner2.engine.rounds_done}")
+        st, _ = _profiled(
+            f"(a) chunk 2 of the resumed run, 4 rounds, K={SIM_K}",
+            lambda: runner2.run(st, task, rounds=SIM_ROUNDS - SIM_CHUNK,
+                                chunk_rounds=SIM_CHUNK, log_every=SIM_CHUNK),
+            smi, profiles)
+    if _books(runner2, sched2) != want:
+        fail("sim (a) resume: plans, clock or bytes differ from the "
+             "uninterrupted run's")
+    worst = _compare_leaves("sim (a) resumed vs fused", st, runs["fused"][0])
+    say(f"sim (a) resumed after chunk 1 [{smi}]: plans, virtual clock and "
+        f"cum_bytes equal to the uninterrupted run; largest leaf difference "
+        f"{worst:.3e}; checkpoint {os.path.getsize(path)} B")
+    del runs, half, st
+    part_done("(a) resumed run")
+
+    # (c) the cohort plane against the dense rounds, the same plans, through
+    # the plain aggregation; then K2 on each round's slab and dense stacks
+    from repro_torch.checkpoint import named_leaves
+    c_algo, d_algo = (DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=False)
+                      for _ in range(2))
+    c_in, d_in = _TeacherInputs(c_algo, C_ROUNDS), _TeacherInputs(d_algo,
+                                                                  C_ROUNDS)
+    c_sched = _recording(SyncScheduler(pop, fraction=0.1, deadline=20.0,
+                                       straggler="admit",
+                                       sampler="available"), "cohorts")
+    store = ClientStore(lambda ids: c_algo.init_cohort(
+        hp.seed, init, ids, SIM_K), device="cuda")
+    c_runner = CohortRunner(FedEngine(c_algo, eval_fn), c_sched,
+                            ArrayProvider(task), store=store)
+    d_sched = _Replay([], pop, c_sched.active_budget)
+    d_runner = SimRunner(FedEngine(d_algo, eval_fn), d_sched)
+    with deterministic():
+        c_st = c_runner.run(c_algo.init_server(hp.seed, init),
+                            rounds=C_ROUNDS, chunk_rounds=C_ROUNDS,
+                            log_every=C_ROUNDS)
+        d_sched.cohorts = list(c_sched.cohorts)
+        d_st = d_runner.run(state0, task, rounds=C_ROUNDS,
+                            chunk_rounds=C_ROUNDS, log_every=C_ROUNDS)
+    if d_sched.clock.now != c_sched.clock.now or \
+            d_runner.cum_bytes != c_runner.cum_bytes or \
+            [r["participants"] for r in d_runner.history] != \
+            [r["participants"] for r in c_runner.history]:
+        fail("sim (c): the dense run's clock, bytes or participants "
+             "differ from the cohort run's")
+    ids = store.ids()
+    rows = named_leaves(c_st.server) + [
+        (n, torch.stack([store._rows[int(i)][j] for i in ids]))
+        for j, (n, _) in enumerate(named_leaves(d_st.clients))]
+    dense_rows = named_leaves(d_st.server) + [
+        (n, v[torch.as_tensor(ids, device=v.device)].cpu())
+        for n, v in named_leaves(d_st.clients)]
+    worst = _compare_leaves("sim (c) cohort vs dense", rows, dense_rows)
+    say(f"sim (c) cohort vs dense at K={SIM_K} through the plain "
+        f"aggregation [{smi}] (deterministic algorithms): the same "
+        f"{C_ROUNDS} plans (one slab of {C_ROUNDS * c_sched.active_budget} "
+        f"lanes), clock and bytes; the server and the {len(ids)} stored "
+        f"clients within atol {CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL} "
+        f"(largest difference {worst:.3e}"
+        f"{', bitwise' if worst == 0.0 else ''})")
+    if len(c_in.calls) != C_ROUNDS or len(d_in.calls) != C_ROUNDS:
+        fail(f"sim (c): {len(c_in.calls)} and {len(d_in.calls)} aggregations "
+             f"recorded, expected {C_ROUNDS} each")
+    k2_slab = [check_k2_slab(f"sim (c) round {r}", c, d, hp.temperature)
+               for r, (c, d) in enumerate(zip(c_in.calls, d_in.calls))]
+    say(f"sim (c) K2 on the slab stacks against K2 on the dense stacks of "
+        f"the same {C_ROUNDS} rounds [{smi}]: teachers within 1e-6 (largest "
+        f"differences {[f'{e:.3e}' for e in k2_slab]})")
+    del c_st, d_st, store, state0, c_in, d_in
+    torch.cuda.empty_cache()
+    part_done("(c)")
+
+    # (b) CohortRunner, K=1,000,000 at 0.01% participation; chunk 2 under
+    # the profiler (e)
+    hp_b = DSFLConfig(rounds=SIM_ROUNDS, local_epochs=1, distill_epochs=1,
+                      batch_size=20, open_batch=200, aggregation="era")
+    algo_b = DSFLAlgorithm(apply_mnist_cnn, hp_b, use_kernel=True)
+    b_in = _TeacherInputs(algo_b, 1)
+    pop_b = _fleet(COHORT_K)
+    prov = SyntheticProvider(0, COHORT_K, n_per_client=20, n_open=200,
+                             n_test=300, hw=28)
+    eval_b = make_eval_fn(apply_mnist_cnn, prov.x_test, prov.y_test)
+
+    def cohort_runner():
+        sched = SyncScheduler(pop_b, fraction=COHORT_FRACTION, deadline=20.0,
+                              straggler="admit", sampler="available")
+        store = ClientStore(lambda ids: algo_b.init_cohort(
+            hp_b.seed, init, ids, COHORT_K), device="cuda")
+        return CohortRunner(FedEngine(algo_b, eval_b), sched, prov,
+                            store=store), sched
+
+    b_runner, b_sched = cohort_runner()
+    S = min(COHORT_K, SIM_CHUNK * b_sched.active_budget)
+    say(f"sim (b): CohortRunner, mnist_cnn at paper width, K={COHORT_K}, "
+        f"fraction {COHORT_FRACTION}, budget {b_sched.active_budget}, slabs "
+        f"of {S} lanes, SyntheticProvider(n_per_client=20, n_open=200, "
+        f"n_test=300, hw=28), {hp_b}")
+    part_done("(b) set-up")
+    trace_path = tmp / "sim_b.jsonl"
+    b_path = str(tmp / "sim_b.ckpt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()                       # this run's window
+    t0 = time.perf_counter()
+    with obs.trace_to(str(trace_path)):
+        st_b = b_runner.run(algo_b.init_server(hp_b.seed, init),
+                            rounds=SIM_CHUNK, chunk_rounds=SIM_CHUNK,
+                            log_every=SIM_CHUNK)
+        torch.cuda.synchronize()
+        t_chunk1 = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        b_runner.save_state(b_path, st_b)
+        b_runner2, b_sched2 = cohort_runner()
+        st_b2 = b_runner2.load_state(b_path, algo_b.init_server(hp_b.seed,
+                                                                init))
+        t_ckpt = time.perf_counter() - t1
+        if (b_sched2.clock.now != b_sched.clock.now
+                or b_runner2.engine.rounds_done != SIM_CHUNK
+                or b_runner2.cum_bytes != b_runner.cum_bytes
+                or b_runner2.resident_bytes() != b_runner.resident_bytes()
+                or not all(torch.equal(x, y) for i in b_runner.store.ids()
+                           for x, y in zip(b_runner.store._rows[int(i)],
+                                           b_runner2.store._rows[int(i)]))):
+            fail("sim (b): the loaded runner's clock, rounds, bytes or "
+                 "store differ from the saved one's")
+        st_b2, t_chunk2 = _profiled(
+            f"(b) chunk 2, 4 rounds, K={COHORT_K:,}",
+            lambda: b_runner2.run(st_b2, rounds=SIM_ROUNDS - SIM_CHUNK,
+                                  chunk_rounds=SIM_CHUNK,
+                                  log_every=SIM_CHUNK), smi, profiles)
+    launches = dict(_build.LAUNCHES)
+    sim_launches["(b) cohort"] = launches
+    spans = _spans(trace_path)
+    if launches["weighted_era_sharpen"] != SIM_ROUNDS or \
+            launches["era_sharpen"] != 0:
+        fail(f"sim (b): launches {launches}, expected K2 {SIM_ROUNDS}, K1 0")
+    recs = b_runner2.history.records
+    if len(recs) != SIM_ROUNDS or any(
+            not all(torch.isfinite(torch.tensor(float(v))).item()
+                    for v in r.values() if isinstance(v, (int, float)))
+            for r in recs):
+        fail(f"sim (b): {len(recs)} records or a value that is not finite")
+    t = [r["t_cum"] for r in recs]
+    if not all(b > a for a, b in zip(t, t[1:])):
+        fail(f"sim (b): the virtual clock does not advance: {t}")
+    say(f"sim (b) [{smi}]: chunk 1 {t_chunk1:.3f} s, save + load "
+        f"{t_ckpt:.3f} s (store file {os.path.getsize(b_path + '.store')} B), "
+        f"chunk 2 {t_chunk2:.3f} s (under the profiler); peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B; resident_bytes "
+        f"{b_runner2.resident_bytes()} for {len(b_runner2.store)} touched "
+        f"clients of {COHORT_K}; peak_slab_bytes {b_runner2.peak_slab_bytes}; "
+        f"participants {[r['participants'] for r in recs]}; test_acc "
+        f"{[r['test_acc'] for r in recs if 'test_acc' in r]}; virtual clock "
+        f"{b_sched2.clock.now:.3f} s; cum_bytes {b_runner2.cum_bytes}; "
+        f"launches {json.dumps(launches)}")
+    say("sim (b) host spans " + json.dumps(
+        {k: {"seconds": sum(v), "count": len(v), "each": v}
+         for k, v in spans.items()}))
+    # K2 on round 0's slab against the participants' lanes alone
+    (p, w), = b_in.calls
+    live = w > 0
+    err = check_k2_slab("sim (b) round 0", (p, w),
+                        (p[live].contiguous(), w[live]), hp_b.temperature)
+    say(f"sim (b) K2 on the {tuple(p.shape)} slab stack against K2 on its "
+        f"{int(live.sum())} participants' stack [{smi}]: teachers within "
+        f"1e-6 (largest difference {err:.3e})")
+    del b_in, p, w
+    part_done("(b)")
+
+    # (d) card against CPU: keyed draws bitwise, a K=4 cohort round
+    for r in (0, 7):
+        ids = torch.arange(SIM_K)
+        for dev_ids in (ids, ids.cuda()):
+            p = prng.epoch_perms(0, r, "update", dev_ids, 5, 200, 100)
+            o = open_batch(0, r, 10_000, 1_000, dev_ids.device)
+            if dev_ids.is_cuda:
+                pc, oc = p.cpu(), o.cpu()
+            else:
+                pp, op = p, o
+        if not (torch.equal(pc, pp) and torch.equal(oc, op)):
+            fail(f"sim (d): keyed draws of round {r} differ on the card")
+    say("sim (d): keyed update permutations (100 clients x 5 epochs x 200) "
+        "and the open batch (1000 of 10000) bitwise equal on the card and "
+        "the CPU, rounds 0 and 7")
+    hp_d = DSFLConfig(rounds=1, local_epochs=1, distill_epochs=1,
+                      batch_size=100, open_batch=200)
+    cpu_task = build_image_task(1, K=4, n_private=800, n_open=400, n_test=200,
+                                distribution="non_iid", hw=28, device="cpu")
+    cohort = [0, 2, 3]
+    cpu_algo = DSFLAlgorithm(apply_mnist_cnn, hp_d, device="cpu")
+    server = cpu_algo.init_server(0, _paper_cnn("cpu")).server
+    clients = cpu_algo.init_cohort(0, _paper_cnn("cpu"), cohort, 4)
+    results = {}
+    for device in ("cuda", "cpu"):
+        a = DSFLAlgorithm(apply_mnist_cnn, hp_d, use_kernel=True,
+                          device=device)
+        prov_d = ArrayProvider(type(cpu_task)(*(
+            x.to(device) for x in (cpu_task.x_clients, cpu_task.y_clients,
+                                   cpu_task.open_x, cpu_task.x_test,
+                                   cpu_task.y_test)), cpu_task.n_classes))
+        mv = lambda t: {k: v.to(device) for k, v in t.items()}
+        start = a.init_from(mv(clients.params), mv(clients.model_state),
+                            mv(server.params), mv(server.model_state))
+        eng = FedEngine(a)
+        st = eng.run(start, prov_d.slab(cohort), rounds=1,
+                     ctx_plan={"mask": torch.tensor([[1.0, 0.0, 1.0]])},
+                     cohort=torch.tensor(cohort, device=device), population=4)
+        results[device] = (st, eng.history[-1])
+    worst = _compare_leaves("sim (d) cohort round card vs cpu",
+                            results["cuda"][0], results["cpu"][0])
+    say(f"sim (d) K=4 cohort round (ids {cohort}, one absent) card vs cpu "
+        f"[{smi}]: every leaf within atol {CARD_VS_CPU_ATOL}, rtol "
+        f"{CARD_VS_CPU_RTOL} (largest difference {worst:.3e}), keyed draws")
+    part_done("(d)")
+    say("sim trace " + json.dumps(profiles))
+    return sim_launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script needs one NVIDIA GPU")
@@ -1512,6 +2105,12 @@ def main():
     phase_legs(eng, state, task)
     del eng, state, task
     phase_card_vs_cpu(smi)
+    torch.cuda.empty_cache()
+    t_sim = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        sim_launches = phase_sim(smi, Path(tmp))
+    say(f"sim: phase took {time.perf_counter() - t_sim:.1f} s")
     torch.cuda.empty_cache()
     cfg, params = _serving_model()
     serve_launches, prompts = phase_serve(smi, cfg, params,
@@ -1532,7 +2131,9 @@ def main():
             launches=(serve_launches if serving else launches)[name],
             path="serve mamba2-2.7b" if serving else "federated rounds",
             on_main_path=serving or name in ON_MAIN_PATH,
-            side_check_launches=side[name], check="pass", **r))
+            side_check_launches=side[name],
+            sim_launches={run: v[name] for run, v in sim_launches.items()},
+            check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {smi}")
     say(json.dumps({"kernels": kernels}))

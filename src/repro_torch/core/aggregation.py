@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .losses import pinned_sum
+from ..lanes import lane_sum, weighted_lane_sum
 
 F32 = torch.float32
 
@@ -39,7 +39,7 @@ def era(local_probs: torch.Tensor, temperature: float = 0.1,
 def _normalize_weights(weights: torch.Tensor) -> torch.Tensor:
     """(K,) nonneg -> normalized; an all-zero vector falls back to uniform."""
     w = weights.to(F32)
-    total = pinned_sum(w)
+    total = lane_sum(w)
     uniform = torch.full_like(w, 1.0 / w.shape[0])
     return torch.where(total > 0, w / torch.clamp(total, min=1e-9), uniform)
 
@@ -58,7 +58,7 @@ def weighted_sa(local_probs: torch.Tensor, weights: torch.Tensor,
     if use_kernel and _kernel_eligible(local_probs):
         from ..kernels import ops as kops
         return kops.weighted_mean(local_probs, w)
-    return torch.einsum("k,k...->...", w, local_probs.to(F32))
+    return weighted_lane_sum(w, local_probs)
 
 
 def weighted_era(local_probs: torch.Tensor, weights: torch.Tensor,

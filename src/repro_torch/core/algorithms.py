@@ -1,33 +1,43 @@
 """DS-FL (paper Algorithm 1) and its baselines FD and FedAvg on the
 `FedAlgorithm` surface, in PyTorch (mirrors ``repro/core/algorithms.py``):
 
-    state          = algo.init(gen, model_init, data)       # -> RoundState
-    state, metrics = algo.round(state, ctx, gen, draws)     # one round
+    state          = algo.init(seed, model_init, data)      # -> RoundState
+    state, metrics = algo.round(state, ctx, rnd, draws)     # round rnd
 
 States are frozen dataclasses of flat tensor dicts, client leaves stacked
 over a leading (K,) axis.  `BatchCtx` carries the round's data; an absent
 optional slot is ``None``.
 
-Randomness.  The reference splits each round's key into four legs: r1 for
-the update permutations, r2 for the clients' distillation permutations, r3
-for ``corrupt`` and r4 for the server's distillation permutations.  Here
-one ``torch.Generator`` feeds the legs in that order, and `RoundDraws`
-injects any of them as tensors, so a parity test can hand in exactly the
-permutations the reference drew.
+Randomness is keyed (`core.prng`): every draw of round ``rnd`` is a pure
+function of (hp.seed, rnd, leg, global client id).  The reference's four
+legs keep their names: "update" for the update permutations, "distill" for
+the clients' distillation permutations, "corrupt" for ``corrupt``'s
+generator and "server" for the server's distillation permutations; a model
+init takes a generator keyed on ("init", id) (the server's on
+"init_server").  A lane's global id is ``BatchCtx.cohort[lane]`` on a
+cohort slab and the lane index otherwise, so a client draws the same rows
+in a dense stack, a sparse gather or any slab.  `RoundDraws` injects any
+leg as tensors, so a parity test can hand in exactly the permutations the
+reference drew.
 
 The participation-sparse plane: with ``BatchCtx.active_budget = m`` below
-K and a mask, a round gathers the m lanes `active_indices` picks
-(participants first), computes on those alone and scatters the results
-back.  Per-client randomness is the dense round's: injected (K, ...)
-permutations, or K rows drawn from the generator, gathered at those lanes;
-absent clients' state and the aggregation weights come out bitwise as the
-dense masked round's.  The participants' leaves do too where the
-per-client arithmetic does not depend on the lane count; convolutions may
-not (cuDNN and oneDNN pick algorithms per batch), so there they agree to
-rounding (`tests/test_torch_sparse.py`).
+the lane count and a mask, a round gathers the m lanes `active_indices`
+picks (participants first), draws their rows alone, computes on those
+lanes and scatters the results back; absent clients' state and the
+aggregation weights come out bitwise as the dense masked round's.  The
+participants' leaves do too where the per-client arithmetic does not
+depend on the lane count; convolutions may not (cuDNN and oneDNN pick
+algorithms per batch), so there they agree to rounding
+(`tests/test_torch_sparse.py`).
 
-FD and FedAvg (the paper's two baselines) draw only the update leg's
-permutations: one per client, no four-way split.
+The cohort plane: with ``BatchCtx.cohort`` (S,) global ids, the client
+axis of the data, the mask and the client stack is a slab of S lanes out
+of a fleet of ``population`` (`core.cohort`, `sim.runner.CohortRunner`).
+Every cross-client sum runs lane after lane (`lanes.lane_sum`), so the
+exact-zero lanes of absent clients change no bit wherever they sit and a
+slab round equals the dense masked round.
+
+FD and FedAvg draw only the update leg's permutations.
 """
 from __future__ import annotations
 
@@ -38,14 +48,16 @@ import torch
 from torch.func import vmap
 
 from ..device import resolve_device
+from ..lanes import lane_sum
 from ..optim import optimizers as opt_lib
 from . import fd as fd_lib
+from . import prng
 from .aggregation import aggregate, participation_weights, weighted_era, weighted_sa
 from .client import (LocalSpec, local_distill, local_update, perms_for,
                      predict_probs)
 from .fedavg import weighted_average
 from .hierarchy import hierarchical_weighted_era, hierarchical_weighted_sa
-from .losses import entropy, pinned_mean, pinned_sum
+from .losses import entropy
 from .protocol import DSFLConfig  # noqa: F401  (re-exported as part of the API)
 from .trees import tree_map
 
@@ -91,13 +103,15 @@ class BatchCtx:
     weights: Any = None     # (K,) client dataset sizes (FedAvg Eq. 3)
     mask: Any = None        # (K,) 0/1 participation this round
     stale: Any = None       # (K,) rounds since each client last synced
+    cohort: Any = None      # (S,) global client id of each slab lane
     active_budget: Optional[int] = None   # at most m participants a round
+    population: Optional[int] = None      # fleet size K on the cohort plane
 
 
 @dataclass(frozen=True)
 class RoundDraws:
-    """Injected randomness of one round; a ``None`` field is drawn from the
-    round's generator instead.  FD and FedAvg read ``update_perms`` only."""
+    """Injected randomness of one round, one row per lane; a ``None`` field
+    is drawn keyed instead.  FD and FedAvg read ``update_perms`` only."""
     o_idx: Any = None           # (n,) open-batch indices (drawn by the engine)
     update_perms: Any = None    # (K, local_epochs, nb, bs)    leg r1
     distill_perms: Any = None   # (K, distill_epochs, nb, bs)  leg r2
@@ -119,8 +133,36 @@ def select_clients(mask, new_tree, old_tree):
 
 
 def masked_mean(values, mask):
-    """Mean of ``values`` over the mask-1 lanes."""
-    return pinned_mean(values, mask.to(F32))
+    """Mean of ``values`` over the mask-1 lanes, both sums lane after lane
+    (`lanes.lane_sum`)."""
+    m = mask.to(F32)
+    return lane_sum(values * m) / torch.clamp(lane_sum(m), min=1.0)
+
+
+def lane_ids(ctx: BatchCtx):
+    """(L,) global client id of each lane: ``ctx.cohort`` on a slab, the
+    lane index on a dense stack."""
+    if present(ctx.cohort):
+        return ctx.cohort
+    return torch.arange(ctx.x.shape[0], device=ctx.x.device)
+
+
+def lane_perms(spec: LocalSpec, n: int, ctx: BatchCtx, injected, seed: int,
+               rnd: int, leg: str, idx=None):
+    """One leg's (L, epochs, nb, bs) permutations of the round's lanes, or
+    of the lanes ``idx`` only: injected rows (one per lane) gathered at
+    ``idx``, else drawn for those lanes' global ids alone."""
+    ids = lane_ids(ctx)
+    if injected is not None:
+        p = perms_for(spec, n, ids, injected)
+        return p if idx is None else p[idx]
+    return perms_for(spec, n, ids if idx is None else ids[idx], seed=seed,
+                     rnd=rnd, leg=leg)
+
+
+def normalized(pw):
+    """Per-client aggregation weights over their lane-order total."""
+    return pw / torch.clamp(lane_sum(pw), min=1e-9)
 
 
 # --------------------------------------------- participation-sparse plane ----
@@ -174,8 +216,23 @@ def _sparse_ctx(ctx: BatchCtx) -> bool:
             and ctx.active_budget < ctx.x.shape[0])
 
 
-def _init_stack(gen: torch.Generator, model_init: Callable, K: int):
-    inits = [model_init(gen) for _ in range(K)]
+def _init_server(seed: int, model_init: Callable, device):
+    return model_init(prng.generator(seed, 0, "init_server", 0, device))
+
+
+def init_stack(seed: int, model_init: Callable, ids, device,
+               population: Optional[int] = None):
+    """(params, state) stacks of the models of clients ``ids``, each drawn
+    from a generator keyed on ("init", id): row g is the same in a dense
+    init, a lazy cohort init or any slab.  With ``population``, an id
+    outside the fleet raises."""
+    ids = torch.as_tensor(ids, dtype=torch.int64)
+    if population is not None and int(ids.max()) >= population:
+        raise ValueError(f"client id {int(ids.max())} outside a fleet of "
+                         f"{population}")
+    seeds = prng.keys(seed, 0, "init", ids).reshape(-1)
+    inits = [model_init(torch.Generator(device=device).manual_seed(k))
+             for k in seeds.tolist()]
     return _stack([p for p, _ in inits]), _stack([s for _, s in inits])
 
 
@@ -185,7 +242,8 @@ class DSFLAlgorithm:
     """Paper Algorithm 1 (SA / ERA / weighted ERA).
 
     ``corrupt(probs (K, n, C), xo, gen) -> probs`` optionally injects
-    malicious local logits between "2. Prediction" and "4. Aggregation".
+    malicious local logits between "2. Prediction" and "4. Aggregation";
+    ``gen`` is a generator keyed on the round's "corrupt" leg.
     ``agg_weights=None`` with ``aggregation="weighted_era"`` re-estimates
     each client's reliability every round as the inverse mean entropy of its
     uploaded soft labels.  ``use_kernel=True`` routes "4. Aggregation"
@@ -193,7 +251,7 @@ class DSFLAlgorithm:
     every masked or sparse round, and each edge's partial of a two-level
     round).  ``agg_edges > 1`` aggregates through the edge -> server tree
     of `core.hierarchy`.  ``device`` (default: the card) is where the
-    engine that drives the algorithm draws and places each round's data."""
+    models are made and where the engine places each round's data."""
     apply_fn: Callable
     hp: DSFLConfig
     corrupt: Optional[Callable] = None
@@ -219,12 +277,31 @@ class DSFLAlgorithm:
                            min(hp.batch_size, hp.open_batch))
         return spec_u, spec_d
 
-    def init(self, gen: torch.Generator, model_init: Callable,
-             data) -> RoundState:
-        """The server model, then K client models, drawn from ``gen``."""
-        wg, sg = model_init(gen)
-        wk, sk = _init_stack(gen, model_init, data.x_clients.shape[0])
+    def init(self, seed: int, model_init: Callable, data) -> RoundState:
+        """The server model and K client models, each from its own keyed
+        generator (`init_stack`)."""
+        wg, sg = _init_server(seed, model_init, self.device)
+        wk, sk = init_stack(seed, model_init, range(data.x_clients.shape[0]),
+                            self.device)
         return self.init_from(wk, sk, wg, sg)
+
+    def init_server(self, seed: int, model_init: Callable) -> RoundState:
+        """The cohort plane's starting state: the server model alone (the
+        dense `init`'s), client slabs stream in through `init_cohort`."""
+        _, spec_d = self._specs()
+        wg, sg = _init_server(seed, model_init, self.device)
+        return RoundState(server=ServerState(params=wg, model_state=sg,
+                                             opt_distill=spec_d.opt.init(wg)))
+
+    def init_cohort(self, seed: int, model_init: Callable, ids,
+                    population: int) -> ClientState:
+        """Fresh client states of the global ids ``ids`` (one row each):
+        row g equals row g of the dense `init`'s stack."""
+        spec_u, spec_d = self._specs()
+        wk, sk = init_stack(seed, model_init, ids, self.device, population)
+        return ClientState(params=wk, model_state=sk,
+                           opt_update=spec_u.opt.init(wk),
+                           opt_distill=spec_d.opt.init(wk))
 
     def init_from(self, wk, sk, wg, sg) -> RoundState:
         """Build a RoundState around externally initialized models."""
@@ -275,28 +352,33 @@ class DSFLAlgorithm:
         path.  Both halves of a round ask, so they cannot disagree."""
         return _sparse_ctx(ctx) and self.corrupt is None
 
-    def round(self, state: RoundState, ctx: BatchCtx, gen: torch.Generator,
+    def round(self, state: RoundState, ctx: BatchCtx, rnd: int,
               draws: Optional[RoundDraws] = None):
+        """Round ``rnd`` (it keys the round's draws): `round_finish` of
+        `round_start`, the calls of the reference's pipelined schedule in
+        its order, so the engine's ``overlap=True`` runs this."""
         return self.round_finish(state, ctx,
-                                 self.round_start(state, ctx, gen, draws),
-                                 gen, draws)
+                                 self.round_start(state, ctx, rnd, draws),
+                                 rnd, draws)
 
-    def round_start(self, state: RoundState, ctx: BatchCtx,
-                    gen: torch.Generator, draws: Optional[RoundDraws] = None):
+    def round_start(self, state: RoundState, ctx: BatchCtx, rnd: int,
+                    draws: Optional[RoundDraws] = None):
         """"1. Update" + "2. Prediction".  Returns the in-flight
         ``(wk, sk, ouk, up_loss, probs)`` that `round_finish` consumes
         (m lanes on the sparse plane)."""
         if self._is_sparse(ctx):
-            return self._sparse_start(state, ctx, gen, draws)
+            return self._sparse_start(state, ctx, rnd, draws)
         spec_u, _ = self._specs()
         wk, sk = state.clients.params, state.clients.model_state
         ouk = state.clients.opt_update
         xo = ctx.open_x[ctx.o_idx]
 
         # 1. Update (every client computes; a where keeps absent ones)
+        perms = lane_perms(spec_u, ctx.y.shape[1], ctx,
+                           _draw(draws, "update_perms"), self.hp.seed, rnd,
+                           "update")
         wk_n, sk_n, ouk_n, up_loss = local_update(
-            spec_u, wk, sk, ouk, ctx.x, ctx.y,
-            perms=_draw(draws, "update_perms"), gen=gen)
+            spec_u, wk, sk, ouk, ctx.x, ctx.y, perms)
         if present(ctx.mask):
             wk, sk, ouk = select_clients(ctx.mask, (wk_n, sk_n, ouk_n),
                                          (wk, sk, ouk))
@@ -307,15 +389,15 @@ class DSFLAlgorithm:
         probs = vmap(lambda w, s: predict_probs(self.apply_fn, w, s, xo))(
             wk, sk)
         if self.corrupt is not None:
-            probs = self.corrupt(probs, xo, gen)
+            probs = self.corrupt(probs, xo, prng.generator(
+                self.hp.seed, rnd, "corrupt", 0, probs.device))
         return (wk, sk, ouk, up_loss, probs)
 
     def round_finish(self, state: RoundState, ctx: BatchCtx, inflight,
-                     gen: torch.Generator,
-                     draws: Optional[RoundDraws] = None):
+                     rnd: int, draws: Optional[RoundDraws] = None):
         """"3-6'. Upload / Aggregation / Broadcast / Distillation"."""
         if self._is_sparse(ctx):
-            return self._sparse_finish(state, ctx, inflight, gen, draws)
+            return self._sparse_finish(state, ctx, inflight, rnd, draws)
         hp = self.hp
         _, spec_d = self._specs()
         odk = state.clients.opt_distill
@@ -345,16 +427,18 @@ class DSFLAlgorithm:
             sa_entropy = entropy(probs.mean(dim=0)).mean()
 
         # 6. Distillation (clients, Eq. 10; absent clients keep their state)
+        perms = lane_perms(spec_d, xo.shape[0], ctx,
+                           _draw(draws, "distill_perms"), hp.seed, rnd,
+                           "distill")
         wk_n, sk_n, odk_n, d_loss = local_distill(
-            spec_d, wk, sk, odk, xo, global_logit,
-            perms=_draw(draws, "distill_perms"), gen=gen)
+            spec_d, wk, sk, odk, xo, global_logit, perms)
         if masked:
             wk, sk, odk = select_clients(ctx.mask, (wk_n, sk_n, odk_n),
                                          (wk, sk, odk))
         else:
             wk, sk, odk = wk_n, sk_n, odk_n
 
-        server, metrics = self._server_distill(state, xo, global_logit, gen,
+        server, metrics = self._server_distill(state, xo, global_logit, rnd,
                                                draws)
         metrics.update(
             update_loss=(masked_mean(up_loss, ctx.mask) if masked
@@ -365,45 +449,49 @@ class DSFLAlgorithm:
         if pw is not None:
             # normalized per-client aggregation weights (non-scalar: kept on
             # `FedEngine.last_metrics`, out of the scalar history)
-            metrics["agg_weights"] = pw / torch.clamp(pinned_sum(pw), min=1e-9)
+            metrics["agg_weights"] = normalized(pw)
         if masked:
             metrics["participants"] = ctx.mask.to(F32).sum()
         return RoundState(clients=ClientState(wk, sk, ouk, odk),
                           server=server), metrics
 
-    def _server_distill(self, state: RoundState, xo, global_logit,
-                        gen: torch.Generator, draws: Optional[RoundDraws]):
-        """6'. the server's global model (Eq. 11) on its own permutations.
-        Returns the new `ServerState` and the round's server metrics."""
+    def _server_distill(self, state: RoundState, xo, global_logit, rnd: int,
+                        draws: Optional[RoundDraws]):
+        """6'. the server's global model (Eq. 11) on its own permutations
+        (the "server" leg, id 0).  Returns the new `ServerState` and the
+        round's server metrics."""
         _, spec_d = self._specs()
         srv = state.server
         server_perms = _draw(draws, "server_perms")
+        perms = perms_for(
+            spec_d, xo.shape[0], torch.zeros((1,), dtype=torch.int64,
+                                             device=xo.device),
+            None if server_perms is None else server_perms[None],
+            seed=self.hp.seed, rnd=rnd, leg="server")
         wg, sg, odg, gd_loss = local_distill(
             spec_d, _lift(srv.params), _lift(srv.model_state),
-            _lift(srv.opt_distill), xo, global_logit,
-            perms=None if server_perms is None else server_perms[None],
-            gen=gen)
+            _lift(srv.opt_distill), xo, global_logit, perms)
         return (ServerState(_first(wg), _first(sg), _first(odg)),
                 {"server_distill_loss": gd_loss[0],
                  "global_entropy": entropy(global_logit).mean()})
 
-    def _sparse_start(self, state: RoundState, ctx: BatchCtx,
-                      gen: torch.Generator, draws: Optional[RoundDraws]):
+    def _sparse_start(self, state: RoundState, ctx: BatchCtx, rnd: int,
+                      draws: Optional[RoundDraws]):
         """The sparse plane's start leg: gather the m active lanes of the
-        client stack, their data and their rows of the dense round's
-        permutations, then "1. Update" and "2. Prediction" on those lanes
-        alone.  Returns the m-lane in-flight buffers."""
+        client stack and their data, draw those lanes' permutations alone,
+        then "1. Update" and "2. Prediction" on those lanes.  Returns the
+        m-lane in-flight buffers."""
         spec_u, _ = self._specs()
         c = state.clients
-        K, n = ctx.y.shape[:2]
         xo = ctx.open_x[ctx.o_idx]
         idx = active_indices(ctx.mask, ctx.active_budget)
         mask_m = ctx.mask[idx]
         x_m, y_m = gather_clients((ctx.x, ctx.y), idx)
         wk_m, sk_m, ouk_m = gather_clients(
             (c.params, c.model_state, c.opt_update), idx)
-        perms = perms_for(spec_u, K, n, _draw(draws, "update_perms"), gen,
-                          ctx.x.device)[idx]
+        perms = lane_perms(spec_u, ctx.y.shape[1], ctx,
+                           _draw(draws, "update_perms"), self.hp.seed, rnd,
+                           "update", idx)
 
         # 1. Update on the gathered lanes (padding lanes keep their state)
         wk_n, sk_n, ouk_n, up_loss = local_update(
@@ -418,7 +506,7 @@ class DSFLAlgorithm:
         return (wk_m, sk_m, ouk_m, up_loss, probs_m)
 
     def _sparse_finish(self, state: RoundState, ctx: BatchCtx, inflight,
-                       gen: torch.Generator, draws: Optional[RoundDraws]):
+                       rnd: int, draws: Optional[RoundDraws]):
         """The sparse plane's finish leg: the dense masked aggregation on the
         uploads scattered into exact zeros, distillation of the gathered
         lanes, and the results scattered back into the (K, ...) stacks."""
@@ -436,14 +524,15 @@ class DSFLAlgorithm:
             scatter_zeros(probs_m, K, idx), ctx)
 
         # 6. Distillation (clients) on the gathered lanes
-        perms = perms_for(spec_d, K, xo.shape[0],
-                          _draw(draws, "distill_perms"), gen, xo.device)[idx]
+        perms = lane_perms(spec_d, xo.shape[0], ctx,
+                           _draw(draws, "distill_perms"), self.hp.seed, rnd,
+                           "distill", idx)
         wk_n, sk_n, odk_n, d_loss = local_distill(
             spec_d, wk_m, sk_m, odk_m, xo, global_logit, perms=perms)
         wk_m, sk_m, odk_m = select_clients(mask_m, (wk_n, sk_n, odk_n),
                                            (wk_m, sk_m, odk_m))
 
-        server, metrics = self._server_distill(state, xo, global_logit, gen,
+        server, metrics = self._server_distill(state, xo, global_logit, rnd,
                                                draws)
         clients = ClientState(*scatter_clients(
             (wk_m, sk_m, ouk_m, odk_m),
@@ -452,7 +541,7 @@ class DSFLAlgorithm:
             update_loss=masked_mean(scatter_zeros(up_loss, K, idx), ctx.mask),
             distill_loss=masked_mean(scatter_zeros(d_loss, K, idx), ctx.mask),
             sa_entropy=sa_entropy,
-            agg_weights=pw / torch.clamp(pinned_sum(pw), min=1e-9),
+            agg_weights=normalized(pw),
             participants=ctx.mask.to(F32).sum())
         return RoundState(clients=clients, server=server), metrics
 
@@ -500,11 +589,23 @@ class FDAlgorithm:
         return LocalSpec(self.apply_fn, opt_lib.make(hp.optimizer, hp.lr),
                          hp.local_epochs, hp.batch_size)
 
-    def init(self, gen: torch.Generator, model_init: Callable,
-             data) -> RoundState:
-        """K client models drawn from ``gen``."""
-        return self.init_from(*_init_stack(gen, model_init,
-                                           data.x_clients.shape[0]))
+    def init(self, seed: int, model_init: Callable, data) -> RoundState:
+        """K client models, each from its own keyed generator."""
+        return self.init_from(*init_stack(seed, model_init,
+                                          range(data.x_clients.shape[0]),
+                                          self.device))
+
+    def init_server(self, seed: int, model_init: Callable) -> RoundState:
+        """FD has no server model: the cohort plane's state starts empty."""
+        return RoundState()
+
+    def init_cohort(self, seed: int, model_init: Callable, ids,
+                    population: int) -> ClientState:
+        """Fresh client states of the global ids ``ids`` (rows of the dense
+        `init`'s stack)."""
+        wk, sk = init_stack(seed, model_init, ids, self.device, population)
+        return ClientState(params=wk, model_state=sk,
+                           opt_update=self._spec().opt.init(wk))
 
     def init_from(self, wk, sk) -> RoundState:
         return RoundState(clients=ClientState(
@@ -523,16 +624,20 @@ class FDAlgorithm:
         return local_update(self._spec(), *lanes, x, y, perms=perms,
                             distill_extra=tgt, gamma=self.hp.gamma)
 
-    def round(self, state: RoundState, ctx: BatchCtx, gen: torch.Generator,
+    def round(self, state: RoundState, ctx: BatchCtx, rnd: int,
               draws: Optional[RoundDraws] = None):
         c = state.clients
         lanes = (c.params, c.model_state, c.opt_update)
-        K, n = ctx.y.shape[:2]
-        perms = perms_for(self._spec(), K, n, _draw(draws, "update_perms"),
-                          gen, ctx.x.device)
+        n = ctx.y.shape[1]
+        injected = _draw(draws, "update_perms")
         masked = present(ctx.mask)
         if _sparse_ctx(ctx):
-            return self._sparse_round(lanes, ctx, perms)
+            idx = active_indices(ctx.mask, ctx.active_budget)
+            return self._sparse_round(lanes, ctx, idx, lane_perms(
+                self._spec(), n, ctx, injected, self.hp.seed, rnd, "update",
+                idx))
+        perms = lane_perms(self._spec(), n, ctx, injected, self.hp.seed, rnd,
+                           "update")
         tk, owns = self._tables(c.params, c.model_state, ctx.x, ctx.y)
         if masked:
             # absent clients' per-class tables leave the Eq. 5 mean entirely
@@ -546,12 +651,12 @@ class FDAlgorithm:
                    "global_logit": tg}        # (C, C), for Fig. 2 analysis
         return RoundState(clients=ClientState(*new)), metrics
 
-    def _sparse_round(self, lanes, ctx: BatchCtx, perms):
-        """Tables and the Eq. 7 update on the <= m gathered lanes only; the
-        Eq. 5 mean sees scattered zero tables whose ``owns`` are False,
-        exactly the lanes the dense masked round gives zero weight."""
+    def _sparse_round(self, lanes, ctx: BatchCtx, idx, perms_m):
+        """Tables and the Eq. 7 update on the <= m gathered lanes ``idx``
+        only; the Eq. 5 mean sees scattered zero tables whose ``owns`` are
+        False, exactly the lanes the dense masked round gives zero
+        weight."""
         K = ctx.x.shape[0]
-        idx = active_indices(ctx.mask, ctx.active_budget)
         mask_m = ctx.mask[idx]
         x_m, y_m = gather_clients((ctx.x, ctx.y), idx)
         lanes_m = gather_clients(lanes, idx)
@@ -560,7 +665,7 @@ class FDAlgorithm:
         tg, n_own = fd_lib.aggregate_fd(scatter_zeros(tk_m, K, idx),
                                         scatter_zeros(owns_m, K, idx))
         *new, losses = self._update(lanes_m, x_m, y_m, tk_m, tg, n_own,
-                                    perms[idx])
+                                    perms_m)
         new = scatter_clients(select_clients(mask_m, tuple(new), lanes_m),
                               lanes, idx)
         metrics = {"update_loss": masked_mean(scatter_zeros(losses, K, idx),
@@ -614,20 +719,19 @@ class FedAvgAlgorithm:
         return LocalSpec(self.apply_fn, opt_lib.make(hp.optimizer, hp.lr),
                          hp.local_epochs, hp.batch_size)
 
-    def init(self, gen: torch.Generator, model_init: Callable,
-             data) -> RoundState:
-        return self.init_from(*model_init(gen))
+    def init(self, seed: int, model_init: Callable, data) -> RoundState:
+        """The server model from the "init_server" key (``data`` unused)."""
+        return self.init_from(*_init_server(seed, model_init, self.device))
 
     def init_from(self, w0, s0) -> RoundState:
         return RoundState(server=ServerState(params=w0, model_state=s0))
 
-    def round(self, state: RoundState, ctx: BatchCtx, gen: torch.Generator,
+    def round(self, state: RoundState, ctx: BatchCtx, rnd: int,
               draws: Optional[RoundDraws] = None):
         spec = self._spec()
         K, n = ctx.y.shape[:2]
         masked = present(ctx.mask)
-        perms = perms_for(spec, K, n, _draw(draws, "update_perms"), gen,
-                          ctx.x.device)
+        injected = _draw(draws, "update_perms")
 
         def train(x, y, perms):
             # the server's model broadcast to every lane as a stride-0 view
@@ -642,10 +746,13 @@ class FedAvgAlgorithm:
             # exact zeros, which the Eq. 3 average gives zero weight anyway
             idx = active_indices(ctx.mask, ctx.active_budget)
             x_m, y_m = gather_clients((ctx.x, ctx.y), idx)
+            perms = lane_perms(spec, n, ctx, injected, self.hp.seed, rnd,
+                               "update", idx)
             wk, sk, _, losses = tree_map(lambda a: scatter_zeros(a, K, idx),
-                                         train(x_m, y_m, perms[idx]))
+                                         train(x_m, y_m, perms))
         else:
-            wk, sk, _, losses = train(ctx.x, ctx.y, perms)
+            wk, sk, _, losses = train(ctx.x, ctx.y, lane_perms(
+                spec, n, ctx, injected, self.hp.seed, rnd, "update"))
         weights = (torch.ones((K,), dtype=F32, device=ctx.x.device)
                    if ctx.weights is None else ctx.weights)
         if masked:

@@ -10,9 +10,9 @@ leading (K,) axis, and each minibatch step is one
 Minibatch order comes from epoch permutations of shape (K, epochs, nb, bs):
 each epoch is a permutation of the client's n items cut to nb = n // bs
 whole batches (the tail is dropped, as the reference's ``_epoch_perm``
-drops it).  Every loop takes them precomputed (``perms=``), so a test can
-hand in the reference's own draws; without them it draws from ``gen``, a
-``torch.Generator`` on the data's device.
+drops it).  Every loop takes them precomputed (``perms=``): the algorithms
+draw them keyed on each lane's global client id (`perms_for`,
+`core.prng.epoch_perms`), and a test can hand in the reference's own draws.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from ..optim.optimizers import Optimizer
+from . import prng
 from .losses import distill_xent, softmax_xent, xent_int_labels
 
 
@@ -34,30 +35,29 @@ class LocalSpec:
     batch_size: int
 
 
-def epoch_perms(gen: torch.Generator, K: int, epochs: int, n_items: int,
-                batch_size: int) -> torch.Tensor:
-    """(K, epochs, nb, bs) minibatch indices: an independent permutation of
-    ``range(n_items)`` per client and epoch, cut to ``nb = n_items //
-    batch_size`` whole batches."""
-    nb = n_items // batch_size
-    keys = torch.rand((K, epochs, n_items), generator=gen, device=gen.device)
-    return keys.argsort(dim=-1)[..., :nb * batch_size].reshape(
-        K, epochs, nb, batch_size)
-
-
-def perms_for(spec: LocalSpec, K: int, n: int, perms, gen, device):
-    """The (K, epochs, nb, bs) permutations of one loop over n items:
-    ``perms`` checked and moved to ``device``, or drawn from ``gen``."""
-    bs = min(spec.batch_size, n)     # clamp: batch_size > n gives zero batches
+def _check_perms(spec: LocalSpec, L: int, n: int, perms):
+    """``perms`` of one loop of L lanes over n items, shape-checked."""
     if perms is None:
-        if gen is None:
-            raise ValueError("pass precomputed perms or a generator")
-        return epoch_perms(gen, K, spec.epochs, n, bs)
-    expected = (K, spec.epochs, n // bs, bs)
+        raise ValueError("pass precomputed perms (core.client.perms_for)")
+    bs = min(spec.batch_size, n)     # clamp: batch_size > n gives zero batches
+    expected = (L, spec.epochs, n // bs, bs)
     if tuple(perms.shape) != expected:
         raise ValueError(f"perms must have shape {expected}, got "
                          f"{tuple(perms.shape)}")
-    return perms.to(device)
+    return perms
+
+
+def perms_for(spec: LocalSpec, n: int, ids, perms=None, seed: int = 0,
+              rnd: int = 0, leg: str = "update"):
+    """The (L, epochs, nb, bs) permutations of one loop over n items for the
+    L lanes whose global client ids are ``ids``: ``perms`` (injected, one
+    row per lane) checked and moved to ``ids``' device, or drawn keyed on
+    (seed, round, leg, id), so that a client's rows do not depend on its
+    lane, its slab or how many lanes the round computes."""
+    if perms is None:
+        return prng.epoch_perms(seed, rnd, leg, ids, spec.epochs, n,
+                                min(spec.batch_size, n))
+    return _check_perms(spec, ids.shape[0], n, perms).to(ids.device)
 
 
 def _train(spec: LocalSpec, params, state, opt_state, perms, loss_fn, batch):
@@ -81,8 +81,8 @@ def _train(spec: LocalSpec, params, state, opt_state, perms, loss_fn, batch):
             torch.stack(epoch_losses, dim=1).mean(dim=1))
 
 
-def local_update(spec: LocalSpec, params, state, opt_state, x, y, perms=None,
-                 gen=None, distill_extra=None, gamma: float = 0.0):
+def local_update(spec: LocalSpec, params, state, opt_state, x, y, perms,
+                 distill_extra=None, gamma: float = 0.0):
     """"1. Update": E epochs of minibatch supervised training of K clients
     on their private data x: (K, n, ...), y: (K, n).  ``distill_extra``
     (K, n, C), per-sample soft targets aligned with x and gathered per batch
@@ -90,7 +90,7 @@ def local_update(spec: LocalSpec, params, state, opt_state, x, y, perms=None,
     the private inputs.  Returns the new (params, state, opt_state) stacks
     and each client's mean loss (K,)."""
     K, n = y.shape[:2]
-    perms = perms_for(spec, K, n, perms, gen, x.device)
+    perms = _check_perms(spec, K, n, perms).to(x.device)
     rows = torch.arange(K, device=x.device)[:, None]
 
     def batch(idx):
@@ -110,12 +110,12 @@ def local_update(spec: LocalSpec, params, state, opt_state, x, y, perms=None,
 
 
 def local_distill(spec: LocalSpec, params, state, opt_state, x_open,
-                  teacher_probs, perms=None, gen=None):
+                  teacher_probs, perms):
     """"6. Distillation" (Eq. 10): K clients train on the shared open batch
     x_open: (n, ...) against the broadcast global logit (n, C)."""
     K = next(iter(params.values())).shape[0]
     n = x_open.shape[0]
-    perms = perms_for(spec, K, n, perms, gen, x_open.device)
+    perms = _check_perms(spec, K, n, perms).to(x_open.device)
 
     def batch(idx):
         return x_open[idx], teacher_probs[idx]

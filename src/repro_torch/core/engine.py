@@ -1,32 +1,57 @@
-"""`FedEngine`: the federated trainer's per-round loop (mirrors the loop
-path of ``repro/core/engine.py``).
+"""`FedEngine`: the federated trainer (mirrors ``repro/core/engine.py``).
 
 Each round the engine draws the shared open batch o_r (the first
-``open_batch`` entries of a random permutation of the open set) when the
-algorithm uses one, runs ``algo.round``, scores ``algo.eval_params(state)``
-with ``eval_fn`` every ``log_every`` rounds and appends the scalar metrics
-to ``history``.  All draws come from one ``torch.Generator`` on the
-algorithm's ``device``, seeded with ``hp.seed``; ``run(draws=[RoundDraws,
-...])`` injects any of them per round.  ``run(active_budget=m)`` makes
-masked rounds participation-sparse.  ``measured_round_bytes`` measures a
-round's wire bytes through ``codec``.
+``open_batch`` entries of a keyed permutation of the open set, the "open"
+leg of `core.prng`) when the algorithm uses one, runs ``algo.round(state,
+ctx, r)``, scores ``algo.eval_params(state)`` with ``eval_fn`` every
+``log_every`` rounds and appends the scalar metrics to ``history``.  Every
+draw of round r is keyed on (hp.seed, r), so a run resumes from
+``rounds_done`` alone and can be cut into chunks anywhere;
+``run(draws=[RoundDraws, ...])`` injects any draw per round.
 
-Not ported yet, and refused when asked for: fused multi-round chunks
-(``chunk_rounds > 1``) and the pipelined schedule (``overlap``), ROADMAP
-Queue 1 item 2; checkpoints and telemetry spans are absent.
+``run(chunk_rounds=k)`` runs k rounds at a time with the ``ctx_plan``
+sliced per chunk: the per-round scalar metrics stay on the device and
+cross to the host once per chunk (one sync a chunk instead of one a
+round), and with ``eval_fn`` the chunks end on ``log_every`` boundaries.
+``overlap=True`` asks for the pipelined schedule: ``round_start`` of the
+first round, then ``round_finish(r)`` followed by ``round_start(r + 1)``,
+then the last ``round_finish``.  Since ``algo.round`` is
+``round_finish(round_start(...))``, the sequential chunk already makes
+exactly these calls in this order, so it runs that chunk: with no side
+stream nothing overlaps yet (a CUDA-graph capture of a chunk is not built
+either).  All schedules give the same bits on the CPU.
+
+``run(active_budget=m)`` makes masked rounds participation-sparse;
+``cohort``/``population`` run them over a slab (see `core.algorithms`).
+``save_state``/``load_state`` checkpoint the round state, ``rounds_done``
+and ``history`` in the reference's msgpack layout (`checkpoint`).
+``measured_round_bytes`` measures a round's wire bytes through ``codec``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
-from ..device import generator
+from ..checkpoint import (assert_tree_compatible, load_pytree,
+                          named_leaves, save_pytree, with_leaves)
+from ..obs import trace as obs
+from . import prng
 from .algorithms import BatchCtx, RoundState
 from .protocol import make_eval_fn  # noqa: F401  (re-exported)
 from .wire import Codec, DenseF32Codec, nbytes
+
+
+def open_batch(seed: int, rnd: int, n_open: int, n_r: int, device
+               ) -> torch.Tensor:
+    """Round ``rnd``'s o_r: the first ``n_r`` entries of the keyed
+    permutation of ``range(n_open)``."""
+    return prng.permutation(seed, rnd, "open", 0, n_open, device)[:n_r]
 
 
 @dataclass
@@ -38,9 +63,11 @@ class FedEngine:
     ``last_metrics``.  The engine runs on ``algo.device``.
 
     Host hooks between rounds: ``on_ctx(r, ctx) -> ctx`` rewrites a round's
-    BatchCtx before the round (e.g. a scheduler's participation mask),
-    ``on_round(r, state) -> state`` rewrites the state after it, and
-    ``on_chunk(rounds_done, state)`` observes each new state."""
+    BatchCtx before the round (e.g. a scheduler's participation mask) and
+    ``on_round(r, state) -> state`` the state after it; either one makes
+    the run take one round at a time.  ``on_chunk(rounds_done, state)``
+    observes each new state: after every chunk, or every round on the
+    loop."""
     algo: Any
     eval_fn: Optional[Callable] = None
     codec: Codec = field(default_factory=DenseF32Codec)
@@ -51,48 +78,50 @@ class FedEngine:
     last_metrics: dict = field(default_factory=dict)
     rounds_done: int = 0
 
-    def __post_init__(self):
-        self.gen = generator(self.device, self.algo.hp.seed)
-
     @property
     def device(self) -> torch.device:
         return self.algo.device
 
-    def init(self, model_init: Callable, data, gen=None) -> RoundState:
-        """Fresh training: reseeds the engine's generator and clears
-        ``rounds_done`` and ``history``.  Models are drawn from ``gen``
-        (default: a generator seeded with ``hp.seed``)."""
-        seed = self.algo.hp.seed
-        self.gen.manual_seed(seed)
+    def init(self, model_init: Callable, data) -> RoundState:
+        """Fresh training: clears ``rounds_done`` and ``history``; every
+        model is drawn from its own generator keyed on ``hp.seed``."""
         self.rounds_done = 0
         self.history = []
-        return self.algo.init(gen or generator(self.device, seed), model_init,
-                              data)
+        return self.algo.init(self.algo.hp.seed, model_init, data)
 
     def make_ctx(self, data, o_idx=None, weights=None,
-                 active_budget: Optional[int] = None) -> BatchCtx:
+                 active_budget: Optional[int] = None, cohort=None,
+                 population: Optional[int] = None) -> BatchCtx:
         return BatchCtx(x=data.x_clients, y=data.y_clients,
                         open_x=data.open_x if self.algo.uses_open else None,
-                        o_idx=o_idx, weights=weights,
-                        active_budget=active_budget)
+                        o_idx=o_idx, weights=weights, cohort=cohort,
+                        active_budget=active_budget, population=population)
 
+    # ----------------------------------------------------------------- run --
     def run(self, state: RoundState, data, rounds: Optional[int] = None,
-            weights=None, log_every: int = 1, ctx_plan=None, draws=None,
-            chunk_rounds: int = 1, overlap: bool = False,
-            active_budget: Optional[int] = None) -> RoundState:
-        """Run ``rounds`` rounds (default ``hp.rounds``).  ``ctx_plan`` is a
-        dict of per-round BatchCtx overrides with a leading (rounds,) axis
-        (e.g. ``{"mask": (rounds, K)}``); ``draws`` a list of per-round
-        `RoundDraws`.  ``active_budget=m`` computes only the (at most) m
-        participants of each masked round; a ``ctx_plan`` mask must then
-        give every round between 1 and m participants."""
-        if chunk_rounds != 1 or overlap:
-            raise NotImplementedError(
-                "chunk_rounds > 1 and overlap=True (fused and pipelined "
-                "multi-round execution) are not ported yet: ROADMAP Queue 1, "
-                "item 2")
+            weights=None, log_every: int = 1,
+            start_round: Optional[int] = None, chunk_rounds: int = 1,
+            ctx_plan=None, active_budget: Optional[int] = None,
+            cohort=None, population: Optional[int] = None,
+            overlap: bool = False, draws=None) -> RoundState:
+        """Run ``rounds`` rounds (default ``hp.rounds``) from
+        ``start_round`` (default ``rounds_done``, which ``load_state``
+        restores).  ``ctx_plan`` is a dict of per-round BatchCtx overrides
+        with a leading (rounds,) axis (e.g. ``{"mask": (rounds, K)}``);
+        ``draws`` a list of per-round `RoundDraws`.  ``active_budget=m``
+        computes only the (at most) m participants of each masked round; a
+        ``ctx_plan`` mask must then give every round between 1 and m
+        participants.  ``chunk_rounds``/``overlap``: see the module
+        docstring; the host hooks ``on_ctx``/``on_round`` force one round
+        at a time."""
         hp = self.algo.hp
+        if overlap and getattr(self.algo, "round_start", None) is None:
+            raise ValueError(
+                f"overlap=True needs algorithm {self.algo.name!r} to expose "
+                f"round_start/round_finish (the pipelined round halves); "
+                f"{type(self.algo).__name__} has no round_start")
         rounds = hp.rounds if rounds is None else rounds
+        start = self.rounds_done if start_round is None else start_round
         for f, v in (ctx_plan or {}).items():
             if v.shape[0] < rounds:
                 raise ValueError(f"ctx_plan[{f!r}] covers {v.shape[0]} rounds; "
@@ -107,45 +136,102 @@ class FedEngine:
             # round runs: too many participants would leave clients that
             # carry aggregation weight uncomputed; none at all would need the
             # uniform fallback's uploads, which the sparse round never makes
-            pops = (mask_plan[:rounds] > 0).sum(dim=-1).cpu()
+            pops = (np.asarray(mask_plan[:rounds].cpu()) > 0).sum(axis=-1)
             lo, hi = int(pops.min()), int(pops.max())
             if lo < 1 or hi > active_budget:
                 raise ValueError(
                     f"active_budget={active_budget} needs 1 <= participants "
                     f"<= budget every round; ctx_plan masks have [{lo}, {hi}]")
-        if self.algo.uses_open:
-            n_open = data.open_x.shape[0]
-            n_r = min(hp.open_batch, n_open)
-        for i in range(rounds):
-            r = self.rounds_done
-            d = None if draws is None else draws[i]
-            o_idx = None
-            if d is not None and d.o_idx is not None:
-                o_idx = d.o_idx.to(self.device)
-            elif self.algo.uses_open:
-                o_idx = torch.randperm(n_open, generator=self.gen,
-                                       device=self.device)[:n_r]
-            ctx = self.make_ctx(data, o_idx=o_idx, weights=weights,
-                                active_budget=active_budget)
-            if ctx_plan is not None:
-                ctx = dataclasses.replace(
-                    ctx, **{f: v[i].to(self.device) for f, v in ctx_plan.items()})
+        run = _Run(self, data, weights, log_every, start, ctx_plan, draws,
+                   active_budget, cohort, population)
+        chunk = max(1, int(chunk_rounds))
+        if self.on_round is not None or self.on_ctx is not None:
+            chunk = 1
+        if chunk > 1:
+            if self.eval_fn is not None and log_every < chunk:
+                warnings.warn(
+                    f"eval_fn snaps every chunk to log_every={log_every} "
+                    f"rounds, cutting the requested chunk_rounds={chunk} (each "
+                    f"eval needs a host sync); pass log_every=chunk_rounds",
+                    stacklevel=2)
+            state = self._run_chunked(run, state, rounds, chunk, overlap)
+        else:
+            if overlap:
+                warnings.warn(
+                    "overlap=True only pipelines the chunked path; the "
+                    "per-round loop (chunk_rounds<=1, or per-round host "
+                    "hooks) runs one round at a time, which makes the same "
+                    "calls", stacklevel=2)
+            state = self._run_loop(run, state, rounds)
+        reg = obs.current_registry()
+        if reg is not None:
+            reg.counter("engine.rounds").inc(rounds)
+        return state
+
+    def _run_loop(self, run: "_Run", state, rounds: int):
+        for r in range(run.start, run.start + rounds):
+            run.load_chunk(r, 1)
+            ctx = run.ctx(r)
             if self.on_ctx is not None:
                 ctx = self.on_ctx(r, ctx)
-            state, m = self.algo.round(state, ctx, self.gen, d)
-            if self.on_round is not None:
-                state = self.on_round(r, state)
-            self.last_metrics = m
-            self.rounds_done = r + 1
+            with obs.span("engine.round", "engine", round=r):
+                state, m = self.algo.round(state, ctx, r, run.draw(r))
+                if self.on_round is not None:
+                    state = self.on_round(r, state)
+                self.last_metrics = m
+                self.rounds_done = r + 1
+                if self.on_chunk is not None:
+                    self.on_chunk(self.rounds_done, state)
+                if (r + 1) % run.log_every == 0:
+                    rec = {"round": r + 1,
+                           **{k: float(v) for k, v in m.items()
+                              if v.ndim == 0}}
+                    self._log(rec, state)
+        return state
+
+    def _run_chunked(self, run: "_Run", state, rounds: int, chunk: int,
+                     overlap: bool):
+        r, end, n_chunks = run.start, run.start + rounds, 0
+        while r < end:
+            k = min(chunk, end - r)
+            if self.eval_fn is not None:
+                # eval needs the state at every log point: end the chunk
+                # exactly on the next log boundary
+                k = min(k, (r // run.log_every + 1) * run.log_every - r)
+            n_chunks += 1
+            run.load_chunk(r, k)
+            with obs.span("engine.chunk", "engine", rounds=k, start_round=r,
+                          overlap=overlap):
+                ms = []
+                for rr in range(r, r + k):
+                    state, m = self.algo.round(state, run.ctx(rr), rr,
+                                               run.draw(rr))
+                    ms.append(m)
+                self.last_metrics = ms[-1]
+                # one host sync a chunk: the per-round scalars cross together
+                names = [key for key, v in ms[-1].items() if v.ndim == 0]
+                scalars = (torch.stack([
+                    torch.stack([m[key].to(torch.float64) for key in names])
+                    for m in ms]).cpu().tolist()
+                    if names else [[] for _ in ms])
+            for i in range(k):
+                if (r + i + 1) % run.log_every == 0:
+                    self._log({"round": r + i + 1,
+                               **dict(zip(names, scalars[i]))}, state)
+            r += k
+            self.rounds_done = r
             if self.on_chunk is not None:
                 self.on_chunk(self.rounds_done, state)
-            if self.rounds_done % log_every == 0:
-                rec = {"round": self.rounds_done,
-                       **{k: float(v) for k, v in m.items() if v.ndim == 0}}
-                if self.eval_fn is not None:
-                    rec.update(self.eval_fn(*self.algo.eval_params(state)))
-                self.history.append(rec)
+        reg = obs.current_registry()
+        if reg is not None:
+            reg.counter("engine.chunks").inc(n_chunks)
         return state
+
+    def _log(self, rec: dict, state) -> None:
+        if self.eval_fn is not None:
+            with obs.span("engine.eval", "engine"):
+                rec.update(self.eval_fn(*self.algo.eval_params(state)))
+        self.history.append(rec)
 
     # -------------------------------------------------------- comm bytes ----
     def _payload_ctx(self, data) -> BatchCtx:
@@ -162,13 +248,102 @@ class FedEngine:
         round's size, client 0's per-class table, or the server's model)
         and encoded by ``codec.encode_up`` / ``encode_down``.  No gradients
         are kept."""
-        with torch.no_grad():
+        with obs.span("wire.measure", "wire", codec=self.codec.name) as sp, \
+                torch.no_grad():
             payload = self.algo.upload_payload(state, self._payload_ctx(data))
-            return (nbytes(self.codec.encode_up(payload)),
-                    nbytes(self.codec.encode_down(payload)))
+            up, down = (nbytes(self.codec.encode_up(payload)),
+                        nbytes(self.codec.encode_down(payload)))
+            sp.set(up_bytes=up, down_bytes=down)
+        return up, down
 
-    def measured_round_bytes(self, state: RoundState, data) -> int:
+    def measured_round_bytes(self, state: RoundState, data,
+                             n_clients: Optional[int] = None) -> int:
         """Per-round wire bytes under ``codec``: K client uploads and one
         multicast broadcast, `comm.CommModel`'s convention."""
+        K = data.x_clients.shape[0] if n_clients is None else n_clients
         up, down = self.measured_leg_bytes(state, data)
-        return up * data.x_clients.shape[0] + down
+        return up * K + down
+
+    # ------------------------------------------------------- checkpointing --
+    def save_state(self, path: str, state: RoundState) -> None:
+        """The round state's leaves in the reference's order, the algorithm
+        tag, ``rounds_done`` and ``history``, in the reference's layout:
+        each package reads the other's files."""
+        tag = np.frombuffer(self.algo.name.encode(), dtype=np.uint8)
+        hist = np.frombuffer(json.dumps(self.history, default=float).encode(),
+                             dtype=np.uint8)
+        save_pytree(path, {"algo": tag,
+                           "leaves": [v for _, v in named_leaves(state)],
+                           "round": np.int64(self.rounds_done),
+                           "history": hist})
+
+    def load_state(self, path: str, like: RoundState) -> RoundState:
+        """Restore a state written by ``save_state`` (this package's or the
+        reference's).  ``like`` (e.g. a fresh ``init``) gives the structure,
+        the device and each leaf's name; a wrong leaf count, shape or dtype
+        raises, naming the leaf.  Also restores ``rounds_done`` and
+        ``history``, so a later ``run`` resumes where the file left off."""
+        raw = load_pytree(path)
+        tag = bytes(raw["algo"].numpy().tobytes()).decode()
+        if tag != self.algo.name:
+            raise ValueError(f"checkpoint is for {tag!r}, "
+                             f"engine runs {self.algo.name!r}")
+        n_like = len(named_leaves(like))
+        if len(raw["leaves"]) != n_like:
+            raise ValueError(
+                f"checkpoint {path!r} holds {len(raw['leaves'])} leaves but "
+                f"the engine's state has {n_like}: it was saved from a "
+                f"different model or config than this {self.algo.name!r} "
+                f"state")
+        state = with_leaves(like, [v.to(lv.device) for v, (_, lv) in
+                                   zip(raw["leaves"], named_leaves(like))])
+        assert_tree_compatible(like, state, what=f"checkpoint {path!r}")
+        if "round" in raw:
+            self.rounds_done = int(raw["round"])
+        if "history" in raw:
+            self.history = json.loads(
+                bytes(raw["history"].numpy().tobytes()).decode())
+        return state
+
+
+class _Run:
+    """One ``run`` call's per-round inputs: the round's BatchCtx (the keyed
+    open batch, the plan's row) and its injected draws."""
+
+    def __init__(self, eng: FedEngine, data, weights, log_every, start,
+                 ctx_plan, draws, active_budget, cohort, population):
+        self.eng, self.data, self.start = eng, data, start
+        self.log_every = log_every
+        self.plan, self.draws = ctx_plan, draws
+        self.ctx0 = eng.make_ctx(data, weights=weights,
+                                 active_budget=active_budget, cohort=cohort,
+                                 population=population)
+        algo = eng.algo
+        if algo.uses_open:
+            n_open = data.open_x.shape[0]
+            self.n_open, self.n_r = n_open, min(algo.hp.open_batch, n_open)
+
+    def load_chunk(self, r0: int, k: int) -> None:
+        """Move the plan rows of rounds [r0, r0 + k) to the device at once."""
+        if self.plan is not None:
+            i = r0 - self.start
+            self._r0 = r0
+            self._rows = {f: v[i:i + k].to(self.eng.device)
+                          for f, v in self.plan.items()}
+
+    def ctx(self, r: int) -> BatchCtx:
+        """Round r's BatchCtx (r in the chunk `load_chunk` moved last)."""
+        eng, ctx = self.eng, self.ctx0
+        d = self.draw(r)
+        if d is not None and d.o_idx is not None:
+            ctx = dataclasses.replace(ctx, o_idx=d.o_idx.to(eng.device))
+        elif eng.algo.uses_open:
+            ctx = dataclasses.replace(ctx, o_idx=open_batch(
+                eng.algo.hp.seed, r, self.n_open, self.n_r, eng.device))
+        if self.plan is not None:
+            ctx = dataclasses.replace(ctx, **{
+                f: v[r - self._r0] for f, v in self._rows.items()})
+        return ctx
+
+    def draw(self, r: int):
+        return None if self.draws is None else self.draws[r - self.start]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..lanes import lane_sum
 from .client import predict_probs
 
 F32 = torch.float32
@@ -33,11 +34,11 @@ def per_label_logits(apply_fn, params, state, x, y, n_classes: int):
 def aggregate_fd(tk: torch.Tensor, present: torch.Tensor):
     """Eq. 5: class-wise mean over owning clients.
     tk: (K, C, C), present: (K, C) -> (t_g (C, C), n_owners (C,)).  Both
-    cross-client sums are the reference's einsum contractions."""
+    cross-client sums are `lanes.lane_sum`s (the reference's are einsum
+    contractions)."""
     m = present.to(F32)                                                # (K, C)
-    n_own = torch.einsum("k,kc->c", torch.ones((m.shape[0],), dtype=F32,
-                                               device=m.device), m)
-    tg = torch.einsum("kc,kcd->cd", m, tk.to(F32)) \
+    n_own = lane_sum(m)
+    tg = lane_sum(m[:, :, None] * tk.to(F32)) \
         / torch.clamp(n_own[:, None], min=1.0)
     return tg, n_own
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .losses import pinned_sum
+from ..lanes import lane_sum, weighted_lane_sum
 from .trees import tree_map
 
 F32 = torch.float32
@@ -16,8 +16,8 @@ F32 = torch.float32
 
 def weighted_average(stacked, weights: torch.Tensor):
     """Eq. 3: sum_k (I_k / I) w_k over the leading client axis of every
-    leaf, the weight total through `losses.pinned_sum`."""
+    leaf, every cross-client sum a `lanes.lane_sum`."""
     w = weights.to(F32)
-    w = w / pinned_sum(w)
-    return tree_map(lambda leaf: torch.einsum(
-        "k,k...->...", w, leaf.to(F32)).to(leaf.dtype), stacked)
+    w = w / lane_sum(w)
+    return tree_map(lambda leaf: weighted_lane_sum(w, leaf).to(leaf.dtype),
+                    stacked)

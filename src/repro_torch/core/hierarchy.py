@@ -9,7 +9,7 @@ Parity contract (``tests/test_torch_hierarchy.py``):
 
 * Weights are normalized globally first (`aggregation._normalize_weights`),
   so every edge scales its lanes by the coefficients the flat sum uses.
-  ``n_edges=1`` computes the flat ``einsum`` (or the flat kernel call) on
+  ``n_edges=1`` computes the flat lane-order sum (or the flat kernel call) on
   the same operands and is bitwise `aggregation.weighted_sa` /
   `weighted_era`.
 * ``n_edges >= 2`` re-associates the cross-client sum: within ~1e-6 of the
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..lanes import weighted_lane_sum
 from .aggregation import _kernel_eligible, _normalize_weights
 
 F32 = torch.float32
@@ -48,7 +49,7 @@ def _partial(probs, w, use_kernel: bool):
     if use_kernel and _kernel_eligible(probs):
         from ..kernels import ops as kops
         return kops.weighted_mean(probs, w)
-    return torch.einsum("k,k...->...", w, probs)
+    return weighted_lane_sum(w, probs)
 
 
 def hierarchical_weighted_sa(local_probs: torch.Tensor, weights: torch.Tensor,

@@ -4,7 +4,7 @@ kernel path (K3/K4, `repro_torch.kernels.ops.distill_loss`) selected by
 
 ``pinned_sum``/``pinned_mean`` keep the reference's names.  There they pin
 XLA's reduction order across programs; PyTorch runs eagerly, so here they
-are plain fp32 sums."""
+are plain fp32 sums.  Sums over the client axis are `lanes.lane_sum`."""
 from __future__ import annotations
 
 import torch

@@ -1,13 +1,17 @@
 """Dataset assembly for federated image experiments: private/open/test
-sets and the client stacks (mirrors ``FederatedImageTask`` and
-``build_image_task`` of ``repro/data/pipeline.py``)."""
+sets, the client stacks, and the cohort plane's data providers (mirrors
+``FederatedImageTask``, ``build_image_task``, ``SlabTask``,
+``ArrayProvider`` and ``SyntheticProvider`` of
+``repro/data/pipeline.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from ..device import generator
+from ..core import prng
+from ..device import generator, resolve_device
 from . import partition, synthetic
 
 
@@ -43,3 +47,70 @@ def build_image_task(seed: int, K: int, n_private: int, n_open: int,
         raise ValueError(distribution)
     xc, yc = partition.gather_clients(x, y, idx)
     return FederatedImageTask(xc, yc, open_x, x_test, y_test, n_classes)
+
+
+# -------------------------------------------------- cohort data providers ----
+@dataclass
+class SlabTask:
+    """An (S, ...) slab of client data with `FederatedImageTask`'s field
+    names, so ``FedEngine.make_ctx`` reads a slab as it reads a dense task;
+    the leading axis is the slab lane (``BatchCtx.cohort`` maps it to
+    ids)."""
+    x_clients: torch.Tensor
+    y_clients: torch.Tensor
+    open_x: torch.Tensor
+    x_test: torch.Tensor = None
+    y_test: torch.Tensor = None
+    n_classes: int = 10
+
+
+class ArrayProvider:
+    """Cohort data over an in-memory dense task: ``slab(ids)`` gathers the
+    clients' rows, so a cohort run sees the rows a dense run sees."""
+
+    def __init__(self, task: FederatedImageTask):
+        self.task = task
+        self.n_clients = int(task.x_clients.shape[0])
+
+    def slab(self, ids) -> SlabTask:
+        t = self.task
+        idx = torch.as_tensor(np.asarray(ids, np.int64),
+                              device=t.x_clients.device)
+        return SlabTask(t.x_clients.index_select(0, idx),
+                        t.y_clients.index_select(0, idx), t.open_x,
+                        t.x_test, t.y_test, t.n_classes)
+
+
+class SyntheticProvider:
+    """Per-id synthetic ``digits`` shards, made on demand: client g's
+    private data is drawn from a generator keyed on (seed, "data", g), a
+    function of (seed, g) alone, so a million-client fleet holds no data
+    until a client is sampled and its rows do not depend on the order or
+    company it is asked in.  The shared open and test sets are made once
+    (from the "data_open" and "data_test" keys)."""
+
+    def __init__(self, seed: int, n_clients: int, n_per_client: int,
+                 n_open: int, n_test: int = 0, hw: int = 16,
+                 n_classes: int = 10, device="cuda"):
+        self.seed, self.n_clients = seed, int(n_clients)
+        self.n_per_client, self.hw, self.n_classes = n_per_client, hw, n_classes
+        self.device = resolve_device(device)
+        self.open_x, _ = synthetic.make_digits(
+            prng.generator(seed, 0, "data_open", 0, self.device), n_open,
+            n_classes, hw)
+        self.x_test = self.y_test = None
+        if n_test:
+            self.x_test, self.y_test = synthetic.make_digits(
+                prng.generator(seed, 0, "data_test", 0, self.device), n_test,
+                n_classes, hw)
+
+    def slab(self, ids) -> SlabTask:
+        seeds = prng.keys(self.seed, 0, "data",
+                          torch.as_tensor(np.asarray(ids, np.int64)))
+        shards = [synthetic.make_digits(
+            torch.Generator(device=self.device).manual_seed(k),
+            self.n_per_client, self.n_classes, self.hw)
+            for k in seeds.tolist()]
+        return SlabTask(torch.stack([x for x, _ in shards]),
+                        torch.stack([y for _, y in shards]), self.open_x,
+                        self.x_test, self.y_test, self.n_classes)

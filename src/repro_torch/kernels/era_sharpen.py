@@ -21,6 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..lanes import weighted_lane_sum
 from . import _build
 
 F32 = torch.float32
@@ -131,9 +132,10 @@ def era_sharpen_plain(local_probs: torch.Tensor,
 def weighted_era_sharpen_plain(local_probs: torch.Tensor, weights: torch.Tensor,
                                temperature: float = 0.1,
                                sharpen: bool = True) -> torch.Tensor:
-    """(K, N, C) x (K,) normalized weights -> (N, C) f32."""
-    w = weights.to(F32).reshape(-1, 1, 1)
-    acc = (local_probs.to(F32) * w).sum(dim=0)
+    """(K, N, C) x (K,) normalized weights -> (N, C) f32, summed lane after
+    lane (`lanes.weighted_lane_sum`, as the rounds' other cross-client sums)
+    so that a zero-weight lane changes no bit wherever it sits."""
+    acc = weighted_lane_sum(weights, local_probs)
     if not sharpen:
         return acc
     return _softmax_rows(acc * (1.0 / temperature))

@@ -219,10 +219,11 @@ def _imports(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("where", ["package", "chip_smoke"])
+@pytest.mark.parametrize("where", ["package", "chip_smoke", "example"])
 def test_port_imports_neither_jax_nor_the_reference(where):
-    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-             if where == "package" else [ROOT / "chip_smoke.py"])
+    files = {"package": sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
+             "chip_smoke": [ROOT / "chip_smoke.py"],
+             "example": [ROOT / "examples" / "torch_sim_stragglers.py"]}[where]
     assert files
     for f in files:
         for mod in _imports(f):
@@ -250,22 +251,30 @@ def test_cuda_request_without_card_raises(monkeypatch):
             algo(apply_tiny_mlp, hp)
     # the engine has no device of its own: it runs where its algorithm does
     assert FedEngine(DSFLAlgorithm(apply_tiny_mlp, DSFLConfig(), device=CPU)
-                     ).gen.device.type == "cpu"
+                     ).device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_image_task(0, 2, 20, 10, 10)
+    from repro_torch.data.pipeline import SyntheticProvider
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticProvider(0, 10, 2, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_tiny_mlp(torch.Generator())
     assert resolve_device(CPU).type == "cpu"
 
 
 def test_unported_options_raise():
-    from repro_torch.core.algorithms import DSFLAlgorithm
+    """What is still refused: the models and the partition not ported yet,
+    and the pipelined schedule for an algorithm without round halves (FD,
+    as in the reference).  Fused chunks and ``overlap`` are ported."""
+    from repro_torch.core.algorithms import FDAlgorithm, FDConfig
     from repro_torch.core.engine import FedEngine
-    from repro_torch.core.protocol import DSFLConfig
+    from repro_torch.data.pipeline import build_image_task
     from repro_torch.models.smallnets import apply_tiny_mlp, make_smallnet
-    eng = FedEngine(DSFLAlgorithm(apply_tiny_mlp, DSFLConfig(), device=CPU))
-    for kw in ({"chunk_rounds": 2}, {"overlap": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.run(None, None, **kw)
+    eng = FedEngine(FDAlgorithm(apply_tiny_mlp, FDConfig(), device=CPU))
+    with pytest.raises(ValueError, match="round_start"):
+        eng.run(None, None, chunk_rounds=2, overlap=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_smallnet("fmnist_cnn")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_image_task(0, 2, 20, 10, 10, distribution="dirichlet:0.5",
+                         device=CPU)

@@ -351,8 +351,8 @@ def test_sparse_round_against_masked_on_the_card(cuda_device):
     round from the same state and draws: absent clients' leaves and the
     aggregation weights bitwise, the rest within 2e-4 + 1e-3 |x| (the
     m-lane convolutions may run other cuDNN algorithms); K2 once a round."""
+    from repro_torch.core import prng
     from repro_torch.core.algorithms import DSFLAlgorithm, RoundDraws
-    from repro_torch.core.client import epoch_perms
     from repro_torch.core.engine import FedEngine
     from repro_torch.core.protocol import DSFLConfig
     from repro_torch.models.smallnets import apply_mnist_cnn
@@ -360,12 +360,13 @@ def test_sparse_round_against_masked_on_the_card(cuda_device):
     task = _image_task(cuda_device, K, 0)
     hp = DSFLConfig(rounds=1, local_epochs=1, distill_epochs=1,
                     batch_size=20, open_batch=80)
-    g = _gen(cuda_device, 1)
-    draws = [RoundDraws(o_idx=torch.randperm(160, generator=g,
-                                             device=cuda_device)[:80],
-                        update_perms=epoch_perms(g, K, 1, 40, 20),
-                        distill_perms=epoch_perms(g, K, 1, 80, 20),
-                        server_perms=epoch_perms(g, 1, 1, 80, 20)[0])]
+    ids = torch.arange(K, device=cuda_device)
+    draws = [RoundDraws(
+        o_idx=prng.permutation(1, 0, "open", 0, 160, cuda_device)[:80],
+        update_perms=prng.epoch_perms(1, 0, "update", ids, 1, 40, 20),
+        distill_perms=prng.epoch_perms(1, 0, "distill", ids, 1, 80, 20),
+        server_perms=prng.epoch_perms(1, 0, "server", ids[:1], 1, 80,
+                                      20)[0])]
     mask = torch.tensor([[0, 1, 1, 0, 1, 0, 0, 1]], dtype=torch.float32,
                         device=cuda_device)
     algo = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True,
@@ -396,16 +397,16 @@ def test_fedavg_round_card_against_cpu(cuda_device):
     """One FedAvg round (K=4, the narrow CNN) from the same weights and
     draws on the card and on the CPU: the server's leaves within 2e-4 +
     1e-3 |x|.  FedAvg launches no kernel."""
+    from repro_torch.core import prng
     from repro_torch.core.algorithms import (FedAvgAlgorithm, FedAvgConfig,
                                              RoundDraws)
-    from repro_torch.core.client import epoch_perms
     from repro_torch.core.engine import FedEngine
     from repro_torch.models.smallnets import apply_mnist_cnn
     K = 4
     hp = FedAvgConfig(rounds=1, local_epochs=1, batch_size=20)
     w0, s0 = _narrow_cnn("cpu")(torch.Generator().manual_seed(2))
-    draws = [RoundDraws(update_perms=epoch_perms(
-        torch.Generator().manual_seed(3), K, 1, 40, 20))]
+    draws = [RoundDraws(update_perms=prng.epoch_perms(
+        3, 0, "update", torch.arange(K), 1, 40, 20))]
     got = {}
     _build.reset_launches()
     for device in (cuda_device, torch.device("cpu")):
@@ -517,3 +518,122 @@ def test_serving_launches_ssd_chunk_per_prefill(cuda_device, monkeypatch):
         assert shots == (cfg.n_layers * 3 if use_kernel else 0)
         got[use_kernel] = {r.id: r.tokens for r in eng.pop_completed()}
     assert got[True] == got[False]
+
+
+# ------------------------------------------------ keyed draws, chunks, ckpts --
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnd", [0, 1, 2 ** 33 + 5])
+def test_keyed_draws_card_equal_cpu(cuda_device, rnd):
+    """Keys, epoch permutations and the open batch of a round are the same
+    bits on the card and on the CPU, for dense and scattered ids."""
+    from repro_torch.core import prng
+    from repro_torch.core.engine import open_batch
+    for ids in (torch.arange(100), torch.tensor([7, 999_999, 3, 2 ** 40])):
+        assert torch.equal(prng.keys(5, rnd, "update", ids, (3, 50)),
+                           prng.keys(5, rnd, "update", ids.to(cuda_device),
+                                     (3, 50)).cpu())
+        assert torch.equal(
+            prng.epoch_perms(5, rnd, "distill", ids, 2, 1000, 100),
+            prng.epoch_perms(5, rnd, "distill", ids.to(cuda_device), 2, 1000,
+                             100).cpu())
+    assert torch.equal(open_batch(5, rnd, 10_000, 1_000, "cpu"),
+                       open_batch(5, rnd, 10_000, 1_000, cuda_device).cpu())
+
+
+def _sim_setup(device):
+    from repro_torch.core.algorithms import DSFLAlgorithm
+    from repro_torch.core.engine import FedEngine
+    from repro_torch.core.protocol import DSFLConfig
+    from repro_torch.models.smallnets import apply_mnist_cnn
+    K = 8
+    hp = DSFLConfig(rounds=4, local_epochs=1, distill_epochs=1,
+                    batch_size=20, open_batch=80)
+    algo = DSFLAlgorithm(apply_mnist_cnn, hp, use_kernel=True, device=device)
+    task = _image_task(device, K, 5)
+    mask = torch.tensor([[1, 0, 1, 0, 1, 1, 0, 0], [0, 1, 1, 0, 0, 0, 1, 1],
+                         [1, 1, 0, 0, 1, 0, 0, 1], [0, 0, 1, 1, 0, 1, 1, 0]],
+                        dtype=torch.float32)
+    return algo, task, FedEngine(algo).init(_narrow_cnn(device), task), mask
+
+
+@pytest.mark.cuda
+def test_chunked_run_against_loop_on_the_card(cuda_device):
+    """4 sparse rounds (budget 4) through ``chunk_rounds=2``, the pipelined
+    schedule and the loop: the same metrics and leaves within 2e-4 +
+    1e-3 |x| (the card is not bitwise reproducible); K2 once a round in
+    each run."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.core.engine import FedEngine
+    algo, task, start, mask = _sim_setup(cuda_device)
+    out = {}
+    for name, kw in (("loop", {}), ("chunked", dict(chunk_rounds=2)),
+                     ("pipelined", dict(chunk_rounds=4, overlap=True))):
+        eng = FedEngine(algo)
+        _build.reset_launches()
+        state = eng.run(start, task, ctx_plan={"mask": mask},
+                        active_budget=4, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["weighted_era_sharpen"] == 4
+        assert _build.LAUNCHES["era_sharpen"] == 0
+        out[name] = (dict(named_leaves(state)), eng.history)
+    ref, hist = out["loop"]
+    for name in ("chunked", "pipelined"):
+        leaves, h = out[name]
+        assert [r["round"] for r in h] == [r["round"] for r in hist]
+        for a, b in zip(h, hist):
+            for k, v in b.items():
+                assert abs(a[k] - v) <= 2e-4 + 1e-3 * abs(v), (name, k)
+        for k, v in ref.items():
+            torch.testing.assert_close(leaves[k], v, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_save_load_round_trip_on_the_card(cuda_device, tmp_path):
+    """2 rounds, ``save_state``, a fresh engine's ``load_state`` (leaves on
+    the card, bitwise the saved ones), 2 more rounds: within 2e-4 + 1e-3 |x|
+    of 4 uninterrupted rounds, with the same round count and history
+    rounds."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.core.engine import FedEngine
+    algo, task, start, mask = _sim_setup(cuda_device)
+    full = FedEngine(algo).run(start, task, ctx_plan={"mask": mask},
+                               active_budget=4)
+    eng = FedEngine(algo)
+    half = eng.run(start, task, rounds=2, ctx_plan={"mask": mask[:2]},
+                   active_budget=4)
+    path = str(tmp_path / "ckpt")
+    eng.save_state(path, half)
+    eng2 = FedEngine(algo)
+    loaded = eng2.load_state(path, start)
+    assert eng2.rounds_done == 2 and eng2.history == eng.history
+    for (k, a), (_, b) in zip(named_leaves(loaded), named_leaves(half)):
+        assert a.device.type == "cuda" and torch.equal(a, b), k
+    resumed = eng2.run(loaded, task, rounds=2, ctx_plan={"mask": mask[2:]},
+                       active_budget=4)
+    assert eng2.rounds_done == 4
+    for (k, a), (_, b) in zip(named_leaves(resumed), named_leaves(full)):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 2, 1000, 10_000])
+def test_lane_sum_is_sequential_on_the_card(cuda_device, cols):
+    """`lanes.lane_sum` on the card equals an fp32 loop over the lanes,
+    bitwise, for one, two and many columns, with values spread over 12
+    decades (so any other order shows); exact-zero lanes anywhere change
+    no bit.  The cohort plane's equality with the dense rounds on the card
+    rests on this order, which is how torch runs cumsum (a thread a column
+    down dim 0; the lone column copied to two) and not a documented
+    contract: a torch that changes it fails here."""
+    from repro_torch.lanes import lane_sum
+    rng = np.random.default_rng(cols)
+    x = torch.from_numpy((rng.standard_normal((37, cols))
+                          * np.logspace(-6, 6, 37)[:, None]).astype(np.float32)
+                         ).to(cuda_device)
+    acc = x[0].clone()
+    for k in range(1, x.shape[0]):
+        acc = acc + x[k]
+    assert torch.equal(lane_sum(x), acc)
+    rows = [torch.zeros_like(x[0])] * 2 + list(x[:5]) + [torch.zeros_like(
+        x[0])] + list(x[5:]) + [torch.zeros_like(x[0])]
+    assert torch.equal(lane_sum(torch.stack(rows)), acc)

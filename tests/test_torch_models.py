@@ -150,15 +150,24 @@ def test_local_distill_matches_reference_with_batch_clamp(stack):
 
 
 def test_drawn_perms_are_clamped_permutations(stack):
+    """Keyed draws (`perms_for` without injected rows): each client and
+    epoch a permutation cut to whole batches, the batch clamped to n; a
+    loop without perms raises."""
     wk, sk, x, y, _, _ = stack
     spec = tc.LocalSpec(tsn.apply_mnist_cnn, topt.sgd(0.1), 3, 20)
-    p = tc.epoch_perms(torch.Generator().manual_seed(0), K, 3, 50, 20)
+    ids = torch.arange(K)
+    p = tc.perms_for(spec, 50, ids, seed=0, rnd=0, leg="update")
     assert tuple(p.shape) == (K, 3, 2, 20)
     assert all(len(set(row.tolist())) == 40 for row in p.reshape(K * 3, 40))
+    assert tuple(tc.perms_for(spec, 7, ids, rnd=1).shape) == (K, 3, 1, 7)
+    n = x.shape[1]
     out = tc.local_update(spec, to_port(wk), to_port(sk), {},
                           torch.from_numpy(x), torch.from_numpy(y),
-                          gen=torch.Generator().manual_seed(1))
+                          tc.perms_for(spec, n, ids, seed=1, rnd=0))
     assert torch.isfinite(out[3]).all()
+    with pytest.raises(ValueError, match="precomputed perms"):
+        tc.local_update(spec, to_port(wk), to_port(sk), {},
+                        torch.from_numpy(x), torch.from_numpy(y), None)
 
 
 @pytest.mark.parametrize("bs", [0, 7, 30, 100])
