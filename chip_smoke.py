@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
-Three paths: the federated rounds (DS-FL dense, masked,
+Four paths: the federated rounds (DS-FL dense, masked,
 participation-sparse and two-level, FD and FedAvg), the federation
-simulator and the million-client cohort plane, and serving mamba2-2.7b at
-full width (its SSD kernel K5 runs on the tensor cores).  Phases, in order;
-any failure exits non-zero and prints no result:
+simulator and the million-client cohort plane, serving mamba2-2.7b at full
+width (its SSD kernel K5 runs on the tensor cores), and training
+mamba2-2.7b at full width with LLM-scale DS-FL and FedAvg (K1/K2, K3/K4
+and K5 on its path).  Phases, in order; any failure exits non-zero and
+prints no result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
              off for matmuls and convolutions, so float32 means float32.
@@ -23,8 +25,9 @@ any failure exits non-zero and prints no result:
              edges, two of them not 16-byte aligned;
              K3/K4 (distillation loss and gradient) at the round's
              distillation batch (100, 10) f32, at (333, 50001) f32 (no row
-             16-byte aligned) and at (2048, 151936) bf16 (the vocabulary of
-             configs/qwen1_5_4b.py), K3 with its launch plan, two launches
+             16-byte aligned), at (2048, 151936) bf16 (the vocabulary of
+             configs/qwen1_5_4b.py) and at the LLM round's (1024, 50280)
+             bf16, K3 with its launch plan, two launches
              bitwise equal, its float64 error within twice the plain
              version's at those shapes and at one long row, views at row
              offsets, bf16 rows of V = 8k + 1 and short rows, and a
@@ -39,23 +42,26 @@ any failure exits non-zero and prints no result:
              its error against float64 at unit-normal B and C no more than
              twice the plain version's.
  4. timing   CUDA events over >= 100 launches after a warm-up, for each
-             kernel and its plain version; for K1-K4 also the device time
+             kernel and its plain version; for K1-K5 also the device time
              from a CUDA graph of 100 launches (the stream timing measures
              the host's launch rate at small shapes), hot (one input, kept
              in the L2 cache where it fits) and cold (cycling over copies
              larger together than the L2 cache), K1/K2 at the round's (100,
              1000, 10), (100, 1000, 46) and (10, 256, 32768) f32, K3/K4 at
-             their three shapes.  The bound is the larger of the
+             their four shapes, K5 at the prefill's and at the LLM round's
+             (8, 128, 80, 64, 1, 128).  The bound is the larger of the
              bytes moved over 3.35 TB/s and the operations over the card's
              rate for their type (H100 SXM data sheet): 67 TFLOP/s for fp32
              outside the tensor cores, 495 TFLOP/s for TF32 products, which
              K5 runs three of per fp32 product (3xTF32); K5 also prints its
              earlier bound with every operation at the fp32 rate.  For K3
              also the library call ``F.cross_entropy(z, t,
-             reduction="none")`` as a yardstick, timed the same three ways,
-             and for K2's weighted mean
+             reduction="none")`` as a yardstick, timed the same three ways;
+             for K4 the backward of ``F.cross_entropy(z, t)`` (its forward
+             outside the timed window), which computes K4's function; and
+             for K2's weighted mean
              ``torch.mv(p.view(K, N*C).t(), w)`` (no single PyTorch call
-             computes K1, K2 with its softmax, K4 or K5).
+             computes K1, K2 with its softmax or K5).
  5. slice    the federated round plane at full width: the paper's MNIST
              CNN (582,218 trainable parameters, 582,410 with BatchNorm
              state), K=100 clients, ``build_image_task(0, K=100,
@@ -86,10 +92,11 @@ any failure exits non-zero and prints no result:
              ERA round, timed in the two halves the algorithm splits it
              into.
  6. card vs CPU  rounds from the same weights and draws on the card
-             (kernels) and on the CPU (plain versions), compared leaf by
-             leaf: K=4, full-width CNN, 1 local and 1 distillation epoch; an
-             ERA round, a sparse ERA round (2 of 4 clients, budget 2) and a
-             FedAvg round.
+             (kernels, float32) and on the CPU (plain versions, float64),
+             compared leaf by leaf: K=4, full-width CNN, 1 local and 1
+             distillation epoch; an ERA round, a sparse ERA round (2 of 4
+             clients, budget 2) and a FedAvg round.  The CPU's float32
+             round is printed beside them.
     sim      the simulator at full width (``mnist_cnn`` at paper width,
              examples/sim_stragglers.py's lognormal fleet, ``SyncScheduler(
              fraction, deadline=20, straggler="admit", sampler="available")``),
@@ -119,7 +126,8 @@ any failure exits non-zero and prints no result:
              0's (800, 200, 10) slab against its participants' stack, as in
              (c). (d) keyed
              permutations and open batches bitwise equal on the card and
-             the CPU; a K=4 cohort round card vs CPU. (e) ``torch.profiler``
+             the CPU; a K=4 cohort round on the card against the CPU's
+             float64 round. (e) ``torch.profiler``
              over the second chunk of (a)'s resumed run and of (b): host
              time, the card's busy time (the union of its activities) and
              idle share, top ops.
@@ -149,7 +157,26 @@ any failure exits non-zero and prints no result:
              same weights on the card (K5) and on the CPU (plain versions):
              one (1, 512) prefill and 8 decode steps, logits and every cache
              leaf compared.
-10. the ``{"kernels": [...]}`` line, the card's line, and the result line.
+10. llm      LLM-scale training, `repro_torch.launch.train`'s code path
+             (``setup``, ``run_rounds``, ``run_local``) at mamba2-2.7b's
+             full width and 64 layers, bf16, K = 2 clients, batch 8, seq
+             128, open batch 8, the kernels on (``use_kernel``): DS-FL ERA 3
+             rounds, DS-FL ``--topk 8`` 1 round, DS-FL ``--participation
+             0.5`` through ``SimRunner`` (one dense masked round, one
+             participation-sparse), FedAvg 2 rounds, ``local`` 2 steps.  Each
+             run is one window with the launch counts zeroed before and read
+             after, held to exactly what its path takes (K5 64 a client's
+             prediction and 64 a measured payload, K1 a dense teacher, K2 a
+             masked or sparse one, K3/K4 a client step; FedAvg and local
+             none); one ``llm`` JSON line a run with the seconds of the first
+             round and of the rest, peak memory, losses and the measured
+             bytes a round, held equal to ``CommModel``'s (FP16, top-k, and
+             FedAvg's f32 parameters).  Then K1-K5 against their plain
+             versions at this path's shapes (K3/K4 also f32 logits against
+             the bf16 teacher), the route check at full width in f32 (see
+             LLM_ROUTE_LAYERS), and a smoke-config DS-FL and FedAvg round on
+             the card against the CPU.
+11. the ``{"kernels": [...]}`` line, the card's line, and the result line.
 """
 from __future__ import annotations
 
@@ -177,17 +204,23 @@ TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
 TIMING_ITERS = 100
 L2_BYTES = 50 * 2 ** 20       # H100 L2 cache
 CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL = 2e-4, 1e-3
-# the kernels the DS-FL round launches; K3/K4 sit behind
-# losses.distill_xent(use_kernel=True), which the round does not call
+# the kernels the image DS-FL round launches; K3/K4 sit behind
+# losses.distill_xent(use_kernel=True), which that round does not call
 ON_MAIN_PATH = ("era_sharpen", "weighted_era_sharpen")
 SERVE_KERNELS = ("ssd_chunk",)      # what the serving path launches
+# K3/K4's main path: the KD term of the LLM rounds (phase "llm"), which
+# also launches K1, K2 and K5 (their counts there are ``llm_launches``)
+LLM_KERNELS = ("distill_loss_fwd", "distill_loss_bwd")
 # K1/K2 timing shapes (K, N, C) f32: the DS-FL round's, reuters_dnn's 46
 # classes, and the edge of the kernel's regime (C = 32k), beyond the L2 cache
 ERA_SHAPES = ((100, 1000, 10), (100, 1000, 46), (10, 256, 32768))
 # K3/K4 shapes (N, V, dtype): the round's distillation batch, a ragged f32
-# vocabulary (rows not 16-byte aligned), qwen1.5-4b's vocabulary in bf16
+# vocabulary (rows not 16-byte aligned), qwen1.5-4b's vocabulary in bf16,
+# and the LLM round's KD term (batch 8 x seq 128 tokens, mamba2-2.7b's
+# vocabulary, bf16)
 K3_SHAPES = ((100, 10, torch.float32), (333, 50_001, torch.float32),
-             (2048, 151_936, torch.bfloat16))
+             (2048, 151_936, torch.bfloat16), (1024, 50_280, torch.bfloat16))
+K3_MAIN = K3_SHAPES[3]      # K3/K4's main path: the LLM round's KD term
 K5_TOL = 1e-4                       # the reference's (tests/test_kernels.py)
 K5_MAIN = (32, 256, 80, 64, 1, 128)  # (M, Q, H, P, G, N) of a (4, 2048) prefill
 K5_SHAPES = (("main path (4, 2048) prefill", K5_MAIN),
@@ -257,7 +290,9 @@ def graph_ms(fns, launches=TIMING_ITERS, replays=10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up's stream, where a backward yardstick's forward
+    # ran (autograd runs a backward op on its forward op's stream)
+    with torch.cuda.graph(graph, stream=side):
         for i in range(launches):
             fns[i % len(fns)]()
     graph.replay()
@@ -669,6 +704,53 @@ def distill_autograd_peak(ops, z, t) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
+def dz_tol(N, dtype):
+    """K4's tolerance: the reference's 1e-6 in f32; in bf16 every |dz| is at
+    most 1/N, so atol 1e-6/N, and rtol 1e-2 for one bf16 step (2^-7)."""
+    return (1e-6, 0.0) if dtype == torch.float32 else (1e-6 / N, 1e-2)
+
+
+def ce_backward_timing(z, t, pairs, tol):
+    """K4's library yardstick: the backward of ``F.cross_entropy(z, t)``
+    with probability targets (mean over rows), which computes (softmax(z)
+    * sum(t) - t) * g / N, K4's function.  Its forward runs outside the
+    timed window (once an input, on the stream the graphs capture on) and
+    the backward is timed alone, by stream events, from a graph on one
+    input and from a graph cycling over ``pairs``; its gradient's distance
+    from K4's plain version is reported beside K4's tolerance ``tol``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import distill_loss as dl
+    side = _capture_stream()
+
+    def backward_of(z_, t_):
+        zr = z_.detach().requires_grad_(True)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            loss = F.cross_entropy(zr, t_)
+        torch.cuda.current_stream().wait_stream(side)
+        return lambda: torch.autograd.grad(loss, zr, retain_graph=True)[0]
+
+    one = backward_of(z, t)
+    _, plogz = dl.distill_loss_fwd_plain(z, t)
+    exp = dl.distill_loss_bwd_plain(
+        z, t, plogz, t.float().sum(-1),
+        torch.full((1,), 1.0 / z.shape[0], device="cuda"))
+    got = one()
+    torch.cuda.synchronize()
+    err = max_err(got, exp)
+    say(f"check K4's yardstick F.cross_entropy backward {tuple(z.shape)} "
+        f"{z.dtype}: max_abs_err={err:.3e} from K4's plain version "
+        f"({'within' if close(got, exp, *tol) else 'outside'} K4's "
+        f"tolerance {tol})")
+    del got, exp, plogz
+    rec = dict(library_ms=time_ms(one), library_graph_ms=graph_ms(one),
+               library_max_abs_err=err)
+    cold = [backward_of(*p) for p in pairs]
+    rec["library_graph_cold_ms"] = graph_ms(cold)
+    del cold, one
+    return rec
+
+
 def phase_kernels_and_timing():
     """Checks (phase 3) and timings (phase 4) of K1-K4.  Returns one record
     per kernel at the main path's shape, plus extra timing rows."""
@@ -714,20 +796,17 @@ def phase_kernels_and_timing():
                    graph_cold_ms=graph_ms([k4(*p) for p in pairs]),
                    plain_ms=time_ms(lambda: dl.distill_loss_bwd_plain(
                        z, t, plogz, tmass, gscale)),
-                   bound_ms=bb, bound_by=byb, library_ms=None,
+                   bound_ms=bb, bound_by=byb,
                    shape=[N, V], dtype=fwd["dtype"], cold_copies=len(pairs))
+        bwd.update(ce_backward_timing(z, t, pairs, tol_b))
         del pairs
         torch.cuda.empty_cache()
         return fwd, bwd
 
-    # K4's f32 tolerance is the reference's 1e-6.  In bf16 every |dz| is at
-    # most gscale = 1/N, so the tolerance scales with it: atol 1e-6/N, and
-    # rtol 1e-2 for one bf16 rounding step (2^-7) of the value.
-    tols = {torch.float32: (1e-4, (1e-6, 0.0))}
     for i, (N_, V_, dt) in enumerate(K3_SHAPES):
-        atol_f, tol_b = tols.get(dt, (2e-2, (1e-6 / N_, 1e-2)))
-        f_, b_ = k34(N_, V_, dt, 5 + i, atol_f, tol_b)
-        if i == 0:
+        atol_f = 1e-4 if dt == torch.float32 else 2e-2
+        f_, b_ = k34(N_, V_, dt, 5 + i, atol_f, dz_tol(N_, dt))
+        if (N_, V_, dt) == K3_MAIN:
             recs["distill_loss_fwd"] = dict(
                 source="src/repro_torch/csrc/distill_loss.cu",
                 replaces="src/repro/kernels/distill_loss.py:74", **f_)
@@ -853,21 +932,36 @@ def phase_k5():
         fail(f"K5: error against float64 {e_k:.3e}, above twice the plain "
              f"version's {e_p:.3e}")
     del raw, exact
-    args = _ssd_inputs(*K5_MAIN, seed=20)
-    b, by, b32 = k5_bound(*K5_MAIN)
+    def timed(shape, seed):
+        """Stream events, a graph on one input and a graph cycling over
+        copies larger together than the L2 cache."""
+        args = _ssd_inputs(*shape, seed=seed)
+        b, by, b32 = k5_bound(*shape)
+        k5 = lambda a: (lambda: ssd.ssd_chunk(*a))
+        copies = cold_copies(*args)
+        r = dict(ms=time_ms(k5(args)), graph_ms=graph_ms(k5(args)),
+                 graph_cold_ms=graph_ms([k5(c) for c in copies]),
+                 plain_ms=time_ms(lambda: ssd.ssd_chunk_plain(*args),
+                                  iters=20),
+                 bound_ms=b, bound_by=by, fp32_bound_ms=b32, library_ms=None,
+                 shape=list(shape), dtype="float32", cold_copies=len(copies))
+        del copies
+        say(f"timing ssd_chunk {r['shape']} float32: ms={r['ms']:.5f} " +
+            "".join(f"{k}={r[k]:.5f} ({b / r[k]:.1%} of the bound) "
+                    for k in ("graph_ms", "graph_cold_ms")) +
+            f"plain_ms={r['plain_ms']:.5f} bound_ms={b:.5f} ({by}; "
+            f"{b / r['ms']:.1%} of it) fp32_bound_ms={b32:.5f} (every "
+            f"operation at the fp32 rate; {b32 / r['ms']:.1%} of it) "
+            f"library_ms=none (no single PyTorch call computes it)")
+        torch.cuda.empty_cache()
+        return r
+
     rec = dict(source="src/repro_torch/csrc/ssd_chunk.cu",
                replaces="src/repro/kernels/ssd_chunk.py:48",
                max_abs_err=err_main, float64_err=e_k, float64_err_plain=e_p,
-               ms=time_ms(lambda: ssd.ssd_chunk(*args)),
-               plain_ms=time_ms(lambda: ssd.ssd_chunk_plain(*args), iters=20),
-               bound_ms=b, bound_by=by, fp32_bound_ms=b32, library_ms=None,
-               shape=list(K5_MAIN), dtype="float32")
-    say(f"timing ssd_chunk {rec['shape']} float32: ms={rec['ms']:.5f} "
-        f"plain_ms={rec['plain_ms']:.5f} bound_ms={rec['bound_ms']:.5f} "
-        f"({rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.1%} of it) "
-        f"fp32_bound_ms={b32:.5f} (every operation at the fp32 rate; "
-        f"{b32 / rec['ms']:.1%} of it) library_ms=none (no single PyTorch "
-        f"call computes it)")
+               **timed(K5_MAIN, 20))
+    # the LLM round's prediction: one client's open batch, Q = seq = 128
+    rec["llm_shape_timing"] = timed(LLM_K5, 22)
     return rec
 
 
@@ -1469,11 +1563,24 @@ def phase_legs(eng, state, task):
                               for k, v in legs.items()}))
 
 
+def _widen(tree: dict) -> dict:
+    """A state's floating leaves in float64 (integer leaves as they are)."""
+    return {k: v.double() if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
 def phase_card_vs_cpu(smi):
-    """Rounds from the same weights and draws on the card (kernels) and on
-    the CPU (plain versions), compared leaf by leaf (phase 6): K=4 at full
-    width, 1 local (and 1 distillation) epoch; an ERA round, a sparse ERA
-    round (clients 0 and 3 of 4, budget 2) and a FedAvg round."""
+    """Rounds from the same weights and draws on the card (kernels, float32,
+    deterministic algorithms) and on the CPU (plain versions), compared leaf
+    by leaf (phase 6): K=4 at full width, 1 local (and 1 distillation)
+    epoch; an ERA round, a sparse ERA round (clients 0 and 3 of 4, budget 2)
+    and a FedAvg round.  The CPU runs each round in float64 and the card is
+    held to that within CARD_VS_CPU_ATOL/RTOL: client 1's local update is
+    ill-conditioned (its float32 result moves 4e-5 from float64 on the CPU
+    alone, 1e-7 on the other clients), so a float32 CPU reference carries
+    its own rounding error, up to 2.7e-4 after the round, and more on
+    another CPU.  The CPU's float32 round is run too and its distance from
+    float64 printed beside the card's."""
     from repro_torch import convert
     from repro_torch.core.algorithms import (DSFLAlgorithm, FedAvgAlgorithm,
                                              FedAvgConfig)
@@ -1494,16 +1601,22 @@ def phase_card_vs_cpu(smi):
     draws = [_round_draws(7, K, hp, n_k, 400, "cpu")]
     sparse_kw = dict(ctx_plan={"mask": torch.tensor([[1.0, 0.0, 0.0, 1.0]])},
                      active_budget=2)
+    runs = (("cuda", torch.float32), ("cpu", torch.float64),
+            ("cpu", torch.float32))
     for case, kw in (("era", {}), ("sparse 2/4, budget 2", sparse_kw),
                      ("fedavg", {})):
         results = {}
-        for device in ("cuda", "cpu"):
+        for device, dtype in runs:
+            wide = (lambda x: x.double()) if dtype == torch.float64 else \
+                (lambda x: x)
             task = FederatedImageTask(*(t.to(device) for t in (
-                cpu_task.x_clients, cpu_task.y_clients, cpu_task.open_x,
-                cpu_task.x_test, cpu_task.y_test)), cpu_task.n_classes)
-            mv = lambda d: {k: v.to(device) for k, v in d.items()}
-            stack = lambda i: {k: torch.stack([m[i][k] for m in models[1:]]
-                                              ).to(device) for k in models[0][i]}
+                wide(cpu_task.x_clients), cpu_task.y_clients,
+                wide(cpu_task.open_x), wide(cpu_task.x_test),
+                cpu_task.y_test)), cpu_task.n_classes)
+            mv = lambda d: {k: v.to(device) for k, v in (
+                _widen(d) if dtype == torch.float64 else d).items()}
+            stack = lambda i: mv({k: torch.stack([m[i][k] for m in models[1:]])
+                                  for k in models[0][i]})
             if case == "fedavg":
                 algo = FedAvgAlgorithm(apply_mnist_cnn, FedAvgConfig(
                     rounds=1, local_epochs=1, batch_size=100), device=device)
@@ -1516,37 +1629,46 @@ def phase_card_vs_cpu(smi):
             eng = FedEngine(algo, make_eval_fn(apply_mnist_cnn, task.x_test,
                                                task.y_test))
             t0 = time.perf_counter()
-            state = eng.run(start, task, draws=draws, **kw)
+            with deterministic():
+                state = eng.run(start, task, draws=draws, **kw)
             if device == "cuda":
                 torch.cuda.synchronize()
-            say(f"card vs cpu ({case}): {device} round in "
+            say(f"card vs cpu ({case}): {device} {dtype} round in "
                 f"{time.perf_counter() - t0:.2f} s")
-            results[device] = (convert.round_state_to_numpy(state),
-                               eng.history[-1])
-        (sc, hc), (sp, h_cpu) = results["cuda"], results["cpu"]
-        worst = 0.0
+            results[(device, dtype)] = (convert.round_state_to_numpy(state),
+                                        eng.history[-1])
+        (sc, hc), (sp, h_cpu), (s32, _) = (results[r] for r in runs)
+        worst = worst_32 = ratio = 0.0
         for part in sc:
             for field in sc[part]:
                 a = convert.flatten_tree(sc[part][field])
                 b = convert.flatten_tree(sp[part][field])
+                c = convert.flatten_tree(s32[part][field])
                 for k in b:
-                    d = float(abs(a[k] - b[k]).max()) if b[k].size else 0.0
-                    worst = max(worst, d)
-                    if not torch.allclose(torch.from_numpy(a[k]),
-                                          torch.from_numpy(b[k]),
-                                          atol=CARD_VS_CPU_ATOL,
+                    if not b[k].size:
+                        continue
+                    ta, tb = (torch.from_numpy(x).double() for x in (a[k], b[k]))
+                    d = (ta - tb).abs()
+                    worst = max(worst, float(d.max()))
+                    ratio = max(ratio, float((d / (CARD_VS_CPU_ATOL +
+                                                   CARD_VS_CPU_RTOL *
+                                                   tb.abs())).max()))
+                    worst_32 = max(worst_32, float(abs(c[k] - b[k]).max()))
+                    if not torch.allclose(ta, tb, atol=CARD_VS_CPU_ATOL,
                                           rtol=CARD_VS_CPU_RTOL):
                         fail(f"card vs cpu ({case}): {part}.{field}.{k} "
-                             f"differs by {d:.3e}")
+                             f"differs from the float64 round by "
+                             f"{float(d.max()):.3e}")
         for key, v in h_cpu.items():
             tol = (1.0 / 200 + 1e-6) if key == "test_acc" else \
                 CARD_VS_CPU_ATOL + CARD_VS_CPU_RTOL * abs(v)
             if abs(hc[key] - v) > tol:
                 fail(f"card vs cpu ({case}): metric {key} {hc[key]} vs {v}")
         say(f"card vs cpu [{smi}] ({case}): state leaves and metrics agree "
-            f"(max leaf diff {worst:.3e}; atol {CARD_VS_CPU_ATOL}, rtol "
-            f"{CARD_VS_CPU_RTOL}; test_acc within 1/200): cuda "
-            f"{json.dumps(hc)}")
+            f"with the CPU's float64 round (max leaf diff {worst:.3e}, "
+            f"{ratio:.3f} of the limit; atol {CARD_VS_CPU_ATOL}, rtol "
+            f"{CARD_VS_CPU_RTOL}; test_acc within 1/200; the CPU's float32 "
+            f"round is {worst_32:.3e} from it): cuda {json.dumps(hc)}")
 
 
 # ------------------------------------------------------------- phase "sim" --
@@ -1665,6 +1787,16 @@ def _largest(a, b) -> float:
                default=0.0)
 
 
+def _share_of_limit(a, b, atol=CARD_VS_CPU_ATOL, rtol=CARD_VS_CPU_RTOL):
+    """The largest |a - b| / (atol + rtol |b|) over two states' leaves: how
+    close a comparison came to its limit (1.0)."""
+    from repro_torch.checkpoint import named_leaves
+    return max((float(((x.cpu().double() - y.cpu().double()).abs() /
+                       (atol + rtol * y.cpu().double().abs())).max())
+                for (_, x), (_, y) in zip(named_leaves(a), named_leaves(b))
+                if x.numel()), default=0.0)
+
+
 def _compare_leaves(what, a, b, atol=CARD_VS_CPU_ATOL, rtol=CARD_VS_CPU_RTOL):
     """Every leaf of two states (or two leaf lists) on the host within
     atol + rtol |b|; returns the largest difference."""
@@ -1736,9 +1868,9 @@ def check_k2_slab(what, slab, dense, temperature):
     return err
 
 
-def _profiled(label, fn, smi, out):
-    """``fn()`` under ``torch.profiler`` (phase "sim" (e)): host time, the
-    card's summed and busy time, idle share and top ops into
+def _profiled(label, fn, smi, out, phase="sim (e)"):
+    """``fn()`` under ``torch.profiler`` (phase "sim" (e), phase "llm"):
+    host time, the card's summed and busy time, idle share and top ops into
     ``out[label]``.  Returns ``fn()`` and the host seconds."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1755,7 +1887,7 @@ def _profiled(label, fn, smi, out):
         device_kernels=n_kernels, launch_queue_full_markers=n_full,
         idle_share=1 - busy / host_ms if host_ms else None,
         top=[(k[:60], c, t) for k, c, t in tops])
-    say(f"sim (e) trace [{smi}]: {label}: host {host_ms:.3f} ms; device "
+    say(f"{phase} trace [{smi}]: {label}: host {host_ms:.3f} ms; device "
         f"activities {dev_ms:.3f} ms summed in {n_kernels} (copies "
         f"included), busy {busy:.3f} ms as their union (profiled; idle "
         f"share {rec['idle_share']:.1%}); top by device ms: " +
@@ -1902,7 +2034,7 @@ def phase_sim(smi, tmp):
                                        straggler="admit",
                                        sampler="available"), "cohorts")
     store = ClientStore(lambda ids: c_algo.init_cohort(
-        hp.seed, init, ids, SIM_K), device="cuda")
+        hp.seed, init, ids, SIM_K))
     c_runner = CohortRunner(FedEngine(c_algo, eval_fn), c_sched,
                             ArrayProvider(task), store=store)
     d_sched = _Replay([], pop, c_sched.active_budget)
@@ -1962,7 +2094,7 @@ def phase_sim(smi, tmp):
         sched = SyncScheduler(pop_b, fraction=COHORT_FRACTION, deadline=20.0,
                               straggler="admit", sampler="available")
         store = ClientStore(lambda ids: algo_b.init_cohort(
-            hp_b.seed, init, ids, COHORT_K), device="cuda")
+            hp_b.seed, init, ids, COHORT_K))
         return CohortRunner(FedEngine(algo_b, eval_b), sched, prov,
                             store=store), sched
 
@@ -2068,29 +2200,463 @@ def phase_sim(smi, tmp):
     server = cpu_algo.init_server(0, _paper_cnn("cpu")).server
     clients = cpu_algo.init_cohort(0, _paper_cnn("cpu"), cohort, 4)
     results = {}
-    for device in ("cuda", "cpu"):
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64),
+                          ("cpu", torch.float32)):
         a = DSFLAlgorithm(apply_mnist_cnn, hp_d, use_kernel=True,
                           device=device)
+        wide = (lambda x: x.double()) if dtype == torch.float64 else \
+            (lambda x: x)
         prov_d = ArrayProvider(type(cpu_task)(*(
-            x.to(device) for x in (cpu_task.x_clients, cpu_task.y_clients,
-                                   cpu_task.open_x, cpu_task.x_test,
-                                   cpu_task.y_test)), cpu_task.n_classes))
-        mv = lambda t: {k: v.to(device) for k, v in t.items()}
+            x.to(device) for x in (wide(cpu_task.x_clients),
+                                   cpu_task.y_clients, wide(cpu_task.open_x),
+                                   wide(cpu_task.x_test), cpu_task.y_test)),
+            cpu_task.n_classes))
+        mv = lambda t: {k: v.to(device) for k, v in (
+            _widen(t) if dtype == torch.float64 else t).items()}
         start = a.init_from(mv(clients.params), mv(clients.model_state),
                             mv(server.params), mv(server.model_state))
         eng = FedEngine(a)
-        st = eng.run(start, prov_d.slab(cohort), rounds=1,
-                     ctx_plan={"mask": torch.tensor([[1.0, 0.0, 1.0]])},
-                     cohort=torch.tensor(cohort, device=device), population=4)
-        results[device] = (st, eng.history[-1])
-    worst = _compare_leaves("sim (d) cohort round card vs cpu",
-                            results["cuda"][0], results["cpu"][0])
-    say(f"sim (d) K=4 cohort round (ids {cohort}, one absent) card vs cpu "
-        f"[{smi}]: every leaf within atol {CARD_VS_CPU_ATOL}, rtol "
-        f"{CARD_VS_CPU_RTOL} (largest difference {worst:.3e}), keyed draws")
+        with deterministic():
+            st = eng.run(start, prov_d.slab(cohort), rounds=1,
+                         ctx_plan={"mask": torch.tensor([[1.0, 0.0, 1.0]])},
+                         cohort=torch.tensor(cohort, device=device),
+                         population=4)
+        results[(device, dtype)] = (st, eng.history[-1])
+    # held to the CPU's float64 round, as phase 6's rounds are
+    card, exact, cpu32 = (results[k][0] for k in results)
+    worst = _compare_leaves("sim (d) cohort round card vs cpu float64",
+                            card, exact)
+    say(f"sim (d) K=4 cohort round (ids {cohort}, one absent) card vs the "
+        f"CPU's float64 round [{smi}]: every leaf within atol "
+        f"{CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL} (largest difference "
+        f"{worst:.3e}, {_share_of_limit(card, exact):.3f} of the limit; the "
+        f"CPU's float32 round is "
+        f"{_largest(cpu32, exact):.3e} from it), keyed draws")
     part_done("(d)")
     say("sim trace " + json.dumps(profiles))
     return sim_launches
+
+
+# ------------------------------------------------------------ phase llm ----
+LLM_ARGS = ["--arch", "mamba2-2.7b", "--clients", "2", "--batch", "8",
+            "--seq", "128"]
+LLM_K, LLM_B, LLM_S, LLM_V = 2, 8, 128, 50_280
+LLM_N = LLM_B * LLM_S                  # rows of the teacher and the KD term
+LLM_K5 = (LLM_B, LLM_S, 80, 64, 1, 128)  # a client's prediction, Q = seq
+# The route check: a DS-FL round at full width in float32, depth cut to
+# LLM_ROUTE_LAYERS (the input state, both routes' results and a client's
+# f32 gradients at 64 layers, 4 x 21.6 GB, would not fit in 80 GB), split
+# at the wire as the round is.  (a) The prediction leg: each client's
+# open-batch logits through K5 and through the model's differentiable SSD
+# block, held to ROUTE_RTOL of their largest magnitude, as the serving
+# route check holds its logits; the plain route with a seeded 1% fault in
+# the SSD core must land outside.  The uploads are bf16 (the reference's
+# wire type), where a logit difference of 1e-6 flips a value on a
+# rounding boundary by one step, and sharpening (T = 0.1) amplifies a flip
+# tenfold: so (b) and (c) take the kernel route's uploads, the same
+# inputs on both routes.  (b) The f32 teacher through K1 and through the
+# plain ERA, and the KD loss and its gradient on client 0's logits through
+# K3/K4 and through autograd of the plain loss, each held to
+# LLM_ROUTE_RTOL (the plain K4 and autograd already differ by 3e-5 of the
+# largest gradient on the CPU); a 1% fault in the teacher and in the
+# gradient must land outside.  (c)
+# The rest of the round (teacher, hybrid steps) through the kernels and
+# through the plain route: the loss and every leaf's update (new minus
+# old, where the routes differ; the parameters would hide it) within
+# LLM_ROUND_RTOL of their largest magnitude.  That is a composition check
+# only: the CPU's plain versions and autograd already leave 2e-4 of a
+# leaf's largest update between the routes (the C projection's), and a 1%
+# teacher fault moves the updates by just 4e-4 to 1.6e-3 of it, so no
+# tolerance tells the two apart there; (b) is where each kernel's check
+# has its power.
+LLM_ROUTE_LAYERS = 16
+LLM_ROUTE_RTOL = 1e-3
+LLM_ROUND_RTOL = 1e-2
+
+
+def _llm_window(body):
+    """``body()`` with the launch counts zeroed just before and read just
+    after, the peak device memory reset, on the host clock around a
+    synchronize."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = body()
+    torch.cuda.synchronize()
+    return out, dict(seconds=time.perf_counter() - t0,
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     launches=dict(_build.LAUNCHES))
+
+
+def _llm_expect(name, launches, want):
+    """Each kernel's launches in a window against what its path takes."""
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        fail(f"llm {name}: launches {launches}, the path takes {full}")
+
+
+def phase_llm(smi):
+    """LLM-scale DS-FL and FedAvg training of mamba2-2.7b at full width
+    through `repro_torch.launch.train`'s code path (phase "llm")."""
+    from repro_torch.core.comm import CommModel
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    per_window = {}
+
+    def fed_rounds(name, argv, schedule, want):
+        """Set up a federation from the CLI's flags and run its rounds:
+        ``schedule`` is a list of (rounds, active_budget)."""
+        args = train.parse_args(LLM_ARGS + argv)
+
+        def body():
+            fed = train.setup(args)
+            recs = []
+            for n, budget in schedule:
+                recs += train.run_rounds(fed, n, active_budget=budget)
+            return fed, recs
+
+        (fed, recs), w = _llm_window(body)
+        n_params = fed.params_per_client
+        cm = CommModel(LLM_K, LLM_V, n_params, open_batch=LLM_N)
+        expect = {"fp16": cm.dsfl_fp16_round(),
+                  "topk": cm.dsfl_topk_round(args.topk or 0),
+                  "dense_f32": cm.fl_round()}[fed.engine.codec.name]
+        losses = [r["loss"] for r in recs]
+        rec = dict(run=name, rounds=len(recs),
+                   seconds_first_round=recs[0]["seconds"],
+                   seconds_later_rounds=[r["seconds"] for r in recs[1:]],
+                   losses=losses, exchange_bytes=fed.exchange_bytes,
+                   comm_model_bytes=expect,
+                   fedavg_fp32_bytes=cm.fl_round(),
+                   participants=[r.get("participants", LLM_K) for r in recs],
+                   params_per_client=n_params, **w)
+        say(f"llm [{smi}] " + json.dumps(rec))
+        if n_params != 2_702_579_200:
+            fail(f"llm {name}: {n_params} parameters a client")
+        if not all(np.isfinite(losses)):
+            fail(f"llm {name}: a loss is not finite: {losses}")
+        if fed.exchange_bytes != expect:
+            fail(f"llm {name}: measured {fed.exchange_bytes} B a round, "
+                 f"CommModel {expect}")
+        _llm_expect(name, w["launches"], want)
+        per_window[name] = w["launches"]
+        return fed
+
+    k5 = 64                                   # one launch a Mamba layer
+    # DS-FL ERA: 3 rounds; K5 for each client's prediction and for the
+    # measured payload, K1 once a round, K3/K4 once a client step
+    fed = fed_rounds("dsfl era", ["--mode", "dsfl"], [(3, "auto")],
+                     dict(ssd_chunk=k5 * (1 + 3 * LLM_K), era_sharpen=3,
+                          distill_loss_fwd=3 * LLM_K,
+                          distill_loss_bwd=3 * LLM_K))
+    llm_step_trace(smi, fed)
+    del fed
+    fed_rounds("dsfl topk 8", ["--mode", "dsfl", "--topk", "8"], [(1, "auto")],
+               dict(ssd_chunk=k5 * (1 + LLM_K), era_sharpen=1,
+                    distill_loss_fwd=LLM_K, distill_loss_bwd=LLM_K))
+    # participation 0.5 through SimRunner: the first round dense masked
+    # (both clients predict and step, the absent one's step is dropped), the
+    # second participation-sparse (one lane); K2 for both teachers; K5 also
+    # for the engine's and the runner's measured payloads
+    fed = fed_rounds("dsfl participation 0.5",
+                     ["--mode", "dsfl", "--participation", "0.5"],
+                     [(1, None), (1, "auto")],
+                     dict(ssd_chunk=k5 * (2 + LLM_K + 1),
+                          weighted_era_sharpen=2,
+                          distill_loss_fwd=LLM_K + 1,
+                          distill_loss_bwd=LLM_K + 1))
+    del fed
+    fed = fed_rounds("fedavg", ["--mode", "fedavg"], [(2, "auto")], {})
+    for k, v in fed.state.clients.params.items():
+        if not torch.equal(v[0], v[1]):
+            fail(f"llm fedavg: clients differ at {k} after the broadcast")
+    del fed
+    local, w = _llm_window(lambda: train.run_local(train.parse_args(
+        LLM_ARGS + ["--mode", "local", "--steps", "2"])))
+    rec = dict(run="local", steps=len(local),
+               seconds_first_step=local[0]["seconds"],
+               seconds_later_steps=[r["seconds"] for r in local[1:]],
+               losses=[r["loss"] for r in local], **w)
+    say(f"llm [{smi}] " + json.dumps(rec))
+    if not all(np.isfinite(rec["losses"])):
+        fail(f"llm local: a loss is not finite: {rec['losses']}")
+    _llm_expect("local", w["launches"], {})
+    per_window["local"] = w["launches"]
+    torch.cuda.empty_cache()
+    checks = llm_kernel_checks()
+    llm_route_check(smi)
+    llm_card_vs_cpu(smi)
+    say(f"llm: phase took {time.perf_counter() - t_phase:.1f} s")
+    total = {k: sum(w[k] for w in per_window.values())
+             for k in next(iter(per_window.values()))}
+    return total, per_window, checks
+
+
+def llm_step_trace(smi, fed):
+    """Where a round's time goes, outside the windows: the round's
+    uploads and teacher, then client 0's hybrid step timed alone and once
+    more under the profiler (host time, the card's busy time, idle share,
+    top ops).  A round is two predictions and two such steps; profiling a
+    whole round (about 132,000 device activities) costs the profiler's own
+    processing over 100 s."""
+    from repro_torch.core import llm_dsfl
+    hp, st, task = fed.engine.algo.hp, fed.state.clients.params, fed.task
+    t0 = time.perf_counter()
+    (probs,) = llm_dsfl.dsfl_exchange(fed.cfg, st, task.open_x, hp)
+    teacher = llm_dsfl._aggregate_teacher(probs, hp, None)
+    torch.cuda.synchronize()
+    t_ex = time.perf_counter() - t0
+    step = lambda: llm_dsfl.dsfl_client_step(
+        fed.cfg, llm_dsfl.client(st, 0), llm_dsfl.client(task.x_clients, 0),
+        task.open_x, teacher, hp)
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    trace = {}
+    _profiled("dsfl client 0 hybrid step", step, smi, trace, phase="llm")
+    say(f"llm trace [{smi}]: exchange (2 predictions through K5, the "
+        f"teacher through K1) {t_ex:.3f} s; client 0's hybrid step "
+        f"{t_step:.3f} s unprofiled; " + json.dumps(trace))
+
+
+def llm_kernel_checks():
+    """K1-K5 against their plain versions at the shapes the LLM path
+    launches them at: K1 and K2 on the (2, 1024, 50280) bf16 upload stack
+    (K2 with client 1 at weight 0), K1 also on the f32 stack the top-k
+    round densifies its uploads into, K3/K4 on (1024, 50280) bf16 logits and
+    teacher and, through ``ops.distill_loss``, on f32 logits against the
+    bf16 teacher (the smoke configs and the route check), K5 at the
+    prediction's (8, 128, 80, 64, 1, 128)."""
+    from repro_torch.core.aggregation import topk_compress
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.kernels import era_sharpen as es
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as ssd
+    out = {}
+    p = torch.softmax(torch.randn((LLM_K, LLM_N, LLM_V), generator=torch.
+                                  Generator(device="cuda").manual_seed(31),
+                                  device="cuda") * 4, -1).to(torch.bfloat16)
+    w = torch.tensor([1.0, 0.0], device="cuda")
+    # the top-k round densifies its uploads into an f32 stack (mostly
+    # exact zeros) before K1: the same kernel's f32 instantiation
+    tv, ti = topk_compress(p, 8)
+    dense = torch.zeros(p.shape, dtype=torch.float32, device="cuda").scatter(
+        -1, ti.long(), tv.float())
+    out["era_sharpen"] = max(
+        check(f"K1 llm {tuple(p.shape)} bf16", es.era_sharpen(p, 0.1),
+              es.era_sharpen_plain(p, 0.1), 1e-6),
+        check(f"K1 llm {tuple(p.shape)} f32, top-8 densified",
+              es.era_sharpen(dense, 0.1), es.era_sharpen_plain(dense, 0.1),
+              1e-6))
+    del tv, ti, dense
+    out["weighted_era_sharpen"] = check(
+        f"K2 llm {tuple(p.shape)} bf16, client 1 at weight 0",
+        es.weighted_era_sharpen(p, w, 0.1),
+        es.weighted_era_sharpen_plain(p, w, 0.1), 1e-6)
+    del p
+    z, t = _zt(LLM_N, LLM_V, 32, torch.bfloat16)
+    loss, logz = dl.distill_loss_fwd(z, t)
+    ploss, plogz = dl.distill_loss_fwd_plain(z, t)
+    out["distill_loss_fwd"] = max(
+        check(f"K3 llm ({LLM_N}, {LLM_V}) bf16 loss", loss, ploss, 2e-2),
+        check(f"K3 llm ({LLM_N}, {LLM_V}) bf16 logZ", logz, plogz, 2e-2))
+    tmass = t.float().sum(-1)
+    gscale = torch.full((1,), 1.0 / LLM_N, device="cuda")
+    out["distill_loss_bwd"] = check(
+        f"K4 llm ({LLM_N}, {LLM_V}) bf16",
+        dl.distill_loss_bwd(z, t, plogz, tmass, gscale),
+        dl.distill_loss_bwd_plain(z, t, plogz, tmass, gscale), 1e-6 / LLM_N,
+        1e-2)
+    # f32 logits, bf16 teacher: the wrapper widens the teacher (exact)
+    zf = z.float().requires_grad_(True)
+    lk = ops.distill_loss(zf, t)
+    (gk,) = torch.autograd.grad(lk, zf)
+    zp = z.float().requires_grad_(True)
+    lp = dl.distill_loss_fwd_plain(zp, t.float())[0].mean()
+    (gp,) = torch.autograd.grad(lp, zp)
+    check(f"K3 llm f32 logits, bf16 teacher ({LLM_N}, {LLM_V}) loss",
+          lk.detach(), lp.detach(), 1e-4)
+    # against autograd of the plain loss, whose logsumexp rounds otherwise:
+    # |dz| <= 1/N, so 4e-6/N and 1e-5 of the value (tests/test_torch_cuda.py)
+    check(f"K4 llm f32 logits, bf16 teacher ({LLM_N}, {LLM_V}) dz", gk, gp,
+          4e-6 / LLM_N, 1e-5)
+    del z, t, zf, zp, gk, gp
+    args = _ssd_inputs(*LLM_K5, seed=33)
+    plan = ssd.launch_plan(*LLM_K5[:3], *LLM_K5[4:],
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    say(f"K5 plan {LLM_K5}: {plan}; kernel's shared memory "
+        f"{ssd._lib().ssd_chunk_smem_bytes(LLM_S, 128, plan.heads_per_block)}"
+        f" B")
+    out["ssd_chunk"] = check(f"K5 llm {LLM_K5} f32", ssd.ssd_chunk(*args),
+                             ssd.ssd_chunk_plain(*args), K5_TOL, K5_TOL)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _route_report(what, kern, base, fault, rtol):
+    """Kernel route against plain route, and the faulty plain route
+    against the plain route, each relative to the plain route's largest
+    magnitude; fails unless the first is inside ``rtol`` and the second
+    outside."""
+    scale = float(base.abs().max())
+    diff, ferr = max_err(kern, base), max_err(fault, base)
+    say(f"llm routes {what}: kernel route {diff:.4g}, 1% fault {ferr:.4g} "
+        f"from the plain route; largest magnitude {scale:.4g}; tolerance "
+        f"{rtol} of it")
+    if diff > rtol * scale:
+        fail(f"llm routes: {what} differs by {diff:.4g}, above {rtol} of "
+             f"{scale:.4g}")
+    if ferr <= rtol * scale:
+        fail(f"llm routes: a 1% fault in {what} passes the tolerance, so "
+             f"the check cannot see one")
+    return diff / scale
+
+
+def llm_route_check(smi):
+    """The kernel route against the plain route at full width in float32
+    (see LLM_ROUTE_LAYERS)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import llm_dsfl
+    from repro_torch.core.losses import softmax_xent
+    from repro_torch.core.llm_algorithms import stack_init
+    from repro_torch.data.pipeline import build_lm_task
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models.api import model_init, model_logits
+    t_check = time.perf_counter()
+    cfg = get_config("mamba2-2.7b").replace(n_layers=LLM_ROUTE_LAYERS,
+                                            dtype="float32")
+    task = build_lm_task(0, LLM_K, LLM_B, LLM_S, cfg.vocab, device="cuda")
+    st = stack_init(0, lambda g: model_init(cfg, g, "cuda"), LLM_K, "cuda")
+    # The seeded init's tied embedding is unit-normal, which puts the full
+    # width's logits near +-900: there every softmax is one-hot in f32 and
+    # both routes agree bitwise whatever they compute.  Scaled by
+    # d_model^-1/2 the logits are O(1), so the softmax, the teacher and the
+    # KD gradient are dense and the comparison has something to compare.
+    st["embed/tok"] = st["embed/tok"] * cfg.d_model ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(11)
+    jitter = lambda t: t * (1 + ROUTE_FAULT * (torch.randint(
+        0, 2, t.shape, generator=g, device="cuda") * 2 - 1))
+    rel = {}
+
+    # (a) the prediction leg
+    real_local = ssm._chunk_local
+    with torch.no_grad():
+        for k in range(LLM_K):
+            p = llm_dsfl.client(st, k)
+            logits = {}
+            for route, uk, fn in (("kernel", True, real_local),
+                                  ("plain", False, real_local),
+                                  ("fault", False, lambda *a: jitter(
+                                      real_local(*a)))):
+                with mock.patch.object(ssm, "_chunk_local", fn):
+                    logits[route] = model_logits(cfg, p, task.open_x,
+                                                 use_ssd_kernel=uk)[0]
+            rel[f"logits {k}"] = _route_report(
+                f"client {k}'s open-batch logits (the prediction leg, K5)",
+                logits["kernel"], logits["plain"], logits["fault"],
+                ROUTE_RTOL)
+            del logits
+    # (b) the teacher (K1) and the KD term (K3/K4) on the same uploads
+    hp_k = llm_dsfl.LLMDsflHP(lr=3e-3, use_kernel=True)
+    hp_p = llm_dsfl.LLMDsflHP(lr=3e-3)
+    (probs,) = llm_dsfl.dsfl_exchange(cfg, st, task.open_x, hp_k)
+    t_plain = llm_dsfl._aggregate(probs, hp_p, None)
+    rel["teacher"] = _route_report(
+        "the f32 teacher (K1)", llm_dsfl._aggregate(probs, hp_k, None),
+        t_plain, jitter(t_plain), LLM_ROUTE_RTOL)
+    teacher = t_plain.to(torch.bfloat16)
+    with torch.no_grad():
+        z0 = model_logits(cfg, llm_dsfl.client(st, 0), task.open_x,
+                          use_ssd_kernel=False)[0]
+    grads = {}
+    for route, fn in (("kernel", ops.distill_loss), ("plain", softmax_xent)):
+        z = z0.detach().clone().requires_grad_(True)
+        loss = fn(z, teacher)
+        grads[route] = (loss.detach().reshape(1),
+                        torch.autograd.grad(loss, z)[0])
+    rel["kd loss"] = _route_report(
+        "the KD loss (K3)", grads["kernel"][0], grads["plain"][0],
+        grads["plain"][0] * (1 + ROUTE_FAULT), LLM_ROUTE_RTOL)
+    rel["kd grad"] = _route_report(
+        "the KD gradient (K4)", grads["kernel"][1], grads["plain"][1],
+        jitter(grads["plain"][1]), LLM_ROUTE_RTOL)
+    del grads, z0, t_plain, teacher
+    # (c) the rest of the round on the same uploads
+    upd = {}
+    for route, hp in (("kernel", hp_k), ("plain", hp_p)):
+        new, loss = llm_dsfl.dsfl_round_finish(cfg, st, task.x_clients,
+                                               task.open_x, (probs,), hp)
+        upd[route] = dict({k: new[k].float() - st[k].float() for k in st},
+                          loss=loss.reshape(1))
+        del new
+    torch.cuda.synchronize()
+    worst = ("", 0.0)
+    for k, base in upd["plain"].items():
+        scale = float(base.abs().max())
+        r = max_err(upd["kernel"][k], base) / max(scale, 1e-30)
+        worst = max(worst, (k, r), key=lambda kv: kv[1])
+        if r > LLM_ROUND_RTOL:
+            fail(f"llm routes: the round's {k} differs by {r:.3e} of its "
+                 f"largest magnitude {scale:.4g}, above {LLM_ROUND_RTOL}")
+    say(f"llm routes [{smi}]: f32, {LLM_ROUTE_LAYERS} layers at full width, "
+        f"K={LLM_K}: kernel route vs plain route relative to the largest "
+        f"magnitude: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) +
+        f"; the round's loss and {len(st)} leaves' updates at most "
+        f"{worst[1]:.3e} ({worst[0]}; tolerance {LLM_ROUND_RTOL}); "
+        f"loss {float(upd['kernel']['loss']):.6f} vs "
+        f"{float(upd['plain']['loss']):.6f}; "
+        f"{time.perf_counter() - t_check:.1f} s")
+    del upd, st, probs
+    torch.cuda.empty_cache()
+
+
+def llm_smoke_rounds(device):
+    """One DS-FL round (``use_kernel`` on: the kernels on the card, their
+    plain versions on the CPU) and one FedAvg round of mamba2-2.7b's smoke
+    config (K=2, batch 2, seq 32) on ``device``, from weights and data made
+    on the CPU from seed 0: [(params, loss), (params, loss)].  Shared with
+    tests/test_torch_cuda.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.llm_algorithms import stack_init
+    from repro_torch.core.llm_dsfl import (LLMDsflHP, dsfl_round_step,
+                                           fedavg_round_step)
+    from repro_torch.data.pipeline import build_lm_task
+    from repro_torch.models.api import model_init
+    cfg = get_config("mamba2-2.7b").smoke()
+    task = build_lm_task(0, 2, 2, 32, cfg.vocab, device="cpu")
+    st = stack_init(0, lambda g: model_init(cfg, g, "cpu"), 2, "cpu")
+    mv = lambda t: {k: v.to(device) for k, v in t.items()}
+    return [dsfl_round_step(cfg, mv(st), mv(task.x_clients),
+                            mv(task.open_x), LLMDsflHP(lr=5e-3,
+                                                       use_kernel=True)),
+            fedavg_round_step(cfg, mv(st), mv(task.x_clients), 1e-3)]
+
+
+def llm_card_vs_cpu(smi):
+    """`llm_smoke_rounds` on the card against the same rounds on the CPU,
+    leaf by leaf and in the loss."""
+    runs = {d: [dict(p, loss=l.reshape(1)) for p, l in llm_smoke_rounds(d)]
+            for d in ("cuda", "cpu")}
+    worst = 0.0
+    for kind, a, b in zip(("dsfl", "fedavg"), runs["cuda"], runs["cpu"]):
+        for k in b:
+            worst = max(worst, max_err(a[k].cpu(), b[k]))
+            if not close(a[k].cpu(), b[k], CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL):
+                fail(f"llm card vs cpu: {kind} {k} differs by "
+                     f"{max_err(a[k].cpu(), b[k]):.3e}")
+    say(f"llm card vs cpu [{smi}]: mamba2-2.7b's smoke config (f32), K=2: "
+        f"a DS-FL round (kernels vs plain versions) and a FedAvg round agree "
+        f"leaf by leaf and in the loss (max diff {worst:.3e}; atol "
+        f"{CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL})")
 
 
 def main():
@@ -2123,17 +2689,22 @@ def main():
     del wide
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu(smi)
+    torch.cuda.empty_cache()
+    llm_launches, llm_windows, llm_errs = phase_llm(smi)
     kernels = []
     for name, r in recs.items():
-        serving = name in SERVE_KERNELS
+        serving, llm = name in SERVE_KERNELS, name in LLM_KERNELS
         kernels.append(dict(
             name=name, route="cuda",
-            launches=(serve_launches if serving else launches)[name],
-            path="serve mamba2-2.7b" if serving else "federated rounds",
-            on_main_path=serving or name in ON_MAIN_PATH,
+            launches=(serve_launches if serving else llm_launches if llm
+                      else launches)[name],
+            path=("serve mamba2-2.7b" if serving else "llm training" if llm
+                  else "federated rounds"),
+            on_main_path=serving or llm or name in ON_MAIN_PATH,
             side_check_launches=side[name],
             sim_launches={run: v[name] for run, v in sim_launches.items()},
-            check="pass", **r))
+            llm_launches={run: v[name] for run, v in llm_windows.items()},
+            llm_max_abs_err=llm_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {smi}")
     say(json.dumps({"kernels": kernels}))

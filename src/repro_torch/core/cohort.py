@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import load_pytree, named_leaves, save_pytree, with_leaves
+from ..device import resolve_device
 from ..obs import trace as obs
 
 
@@ -37,11 +38,12 @@ class ClientStore:
 
     ``init_fn(ids)`` builds a stacked `ClientState` for an (m,) int64
     array of global ids, on any device.  Rows are kept as CPU tensors;
-    `gather` returns the stacked slab on ``device``."""
+    `gather` returns the stacked slab on ``device`` (default: the card,
+    which raises where there is none)."""
 
-    def __init__(self, init_fn: Callable, device="cpu"):
+    def __init__(self, init_fn: Callable, device="cuda"):
         self.init_fn = init_fn
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._rows: dict[int, list] = {}
         self._like = None            # a one-lane state: names and structure
 

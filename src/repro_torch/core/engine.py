@@ -44,6 +44,7 @@ from ..obs import trace as obs
 from . import prng
 from .algorithms import BatchCtx, RoundState
 from .protocol import make_eval_fn  # noqa: F401  (re-exported)
+from .trees import leading_dim
 from .wire import Codec, DenseF32Codec, nbytes
 
 
@@ -237,7 +238,7 @@ class FedEngine:
     def _payload_ctx(self, data) -> BatchCtx:
         o_idx = None
         if self.algo.uses_open:
-            n_r = min(self.algo.hp.open_batch, data.open_x.shape[0])
+            n_r = min(self.algo.hp.open_batch, leading_dim(data.open_x))
             o_idx = torch.zeros((n_r,), dtype=torch.long, device=self.device)
         return self.make_ctx(data, o_idx=o_idx)
 
@@ -260,7 +261,7 @@ class FedEngine:
                              n_clients: Optional[int] = None) -> int:
         """Per-round wire bytes under ``codec``: K client uploads and one
         multicast broadcast, `comm.CommModel`'s convention."""
-        K = data.x_clients.shape[0] if n_clients is None else n_clients
+        K = leading_dim(data.x_clients) if n_clients is None else n_clients
         up, down = self.measured_leg_bytes(state, data)
         return up * K + down
 
@@ -320,7 +321,7 @@ class _Run:
                                  population=population)
         algo = eng.algo
         if algo.uses_open:
-            n_open = data.open_x.shape[0]
+            n_open = leading_dim(data.open_x)
             self.n_open, self.n_r = n_open, min(algo.hp.open_batch, n_open)
 
     def load_chunk(self, r0: int, k: int) -> None:

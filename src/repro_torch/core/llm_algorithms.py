@@ -1,0 +1,191 @@
+"""LLM-scale DS-FL and FedAvg on the `FedAlgorithm` surface (mirrors
+``repro/core/llm_algorithms.py``).
+
+`LLMDSFLAlgorithm` wraps `llm_dsfl.dsfl_round_step` (and
+`LLMFedAvgAlgorithm` its `fedavg_round_step` twin) behind the surface the
+small-net algorithms have, so the LLM path shares `FedEngine` and the
+simulator's runners: a `RoundState` holding the client-stacked parameters
+(``clients.params``, leaves (K, ...)), a `BatchCtx` carrying the private
+token stacks and the shared open set (sub-sampled per round through
+``o_idx``), msgpack checkpoints in the reference's layout and measured wire
+bytes.  The rounds draw nothing: ``rnd`` and ``draws`` are accepted and
+unused, and a model init takes a generator keyed on ("init", client id).
+
+The reference's ``shardings`` (mesh placement of the client axis on the
+"pod" axis) has no meaning on one card and is not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from ..device import resolve_device
+from ..models.base import ModelConfig
+from . import prng
+from .aggregation import participation_weights
+from .algorithms import BatchCtx, ClientState, RoundState, present
+from .llm_dsfl import (LLMDsflHP, dsfl_exchange, dsfl_round_finish,
+                       dsfl_round_step, fedavg_round_step,
+                       predict_open_probs)
+from .trees import leading_dim
+
+F32 = torch.float32
+
+
+def _participation(ctx: BatchCtx, decay: float):
+    """(K,) aggregation weights from the sim's mask/stale ctx fields, or
+    None for the full-participation path."""
+    if not present(ctx.mask):
+        return None
+    return participation_weights(
+        ctx.mask, ctx.stale if present(ctx.stale) else None, decay)
+
+
+def _take_open(open_x: dict, o_idx) -> dict:
+    """This round's open batch o_r out of the full shared open set."""
+    return {k: v.index_select(0, o_idx) for k, v in open_x.items()}
+
+
+def _first_client(tree: dict) -> dict:
+    return {k: v[0] for k, v in tree.items()}
+
+
+def _mean_clients(tree: dict) -> dict:
+    return {k: v.to(F32).mean(dim=0).to(v.dtype) for k, v in tree.items()}
+
+
+def stack_init(seed: int, model_init: Callable, K: int, device) -> dict:
+    """Client-stacked parameters (leaves (K, ...)): client k's model from a
+    generator keyed on ("init", k), written into the stack one client at a
+    time (the peak holds the stack and one model)."""
+    seeds = prng.keys(seed, 0, "init", torch.arange(K)).reshape(-1).tolist()
+    out = None
+    for k, s in enumerate(seeds):
+        p = model_init(torch.Generator(device=device).manual_seed(s))
+        if out is None:
+            out = {n: torch.empty((K,) + tuple(v.shape), dtype=v.dtype,
+                                  device=v.device) for n, v in p.items()}
+        for n, v in p.items():
+            out[n][k].copy_(v)
+        del p
+    return out
+
+
+def _state(stacked: dict) -> RoundState:
+    return RoundState(clients=ClientState(params=stacked))
+
+
+@dataclass(frozen=True)
+class LLMDSFLAlgorithm:
+    """DS-FL at LLM scale: the round's exchange is the open-batch
+    distributions (top-k pairs under ``hp.topk``); ``hp.use_kernel`` puts
+    the prediction on K5, the teacher on K1/K2 and the KD term on K3/K4.
+    ``device`` (default: the card) is where the models are made."""
+    cfg: ModelConfig
+    hp: LLMDsflHP
+    device: Any = "cuda"
+
+    name = "llm_dsfl"
+    uses_open = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def init(self, seed: int, model_init: Callable, data) -> RoundState:
+        return self.init_from(stack_init(seed, model_init,
+                                         leading_dim(data.x_clients),
+                                         self.device))
+
+    def init_from(self, stacked_params: dict) -> RoundState:
+        """A RoundState around externally made client-stacked params."""
+        return _state(stacked_params)
+
+    def _kw(self, ctx: BatchCtx) -> dict:
+        return dict(weights=_participation(ctx, self.hp.staleness_decay),
+                    mask=ctx.mask if present(ctx.mask) else None,
+                    active_budget=ctx.active_budget)
+
+    def round(self, state: RoundState, ctx: BatchCtx, rnd: int, draws=None):
+        new, loss = dsfl_round_step(
+            self.cfg, state.clients.params, ctx.x,
+            _take_open(ctx.open_x, ctx.o_idx), self.hp, **self._kw(ctx))
+        return _state(new), {"loss": loss}
+
+    # round == round_finish(state, ctx, round_start(state, ctx, ...), ...):
+    # the same calls in the same order, split at the wire boundary
+    def round_start(self, state: RoundState, ctx: BatchCtx, rnd: int,
+                    draws=None):
+        """The wire leg: open-batch prediction and the (compressed)
+        uploads.  Returns the exchange buffers."""
+        return dsfl_exchange(self.cfg, state.clients.params,
+                             _take_open(ctx.open_x, ctx.o_idx), self.hp,
+                             **self._kw(ctx))
+
+    def round_finish(self, state: RoundState, ctx: BatchCtx, inflight,
+                     rnd: int, draws=None):
+        """The compute leg: the teacher and the hybrid CE+KD client step."""
+        new, loss = dsfl_round_finish(
+            self.cfg, state.clients.params, ctx.x,
+            _take_open(ctx.open_x, ctx.o_idx), inflight, self.hp,
+            **self._kw(ctx))
+        return _state(new), {"loss": loss}
+
+    def upload_payload(self, state: RoundState, ctx: BatchCtx):
+        """One client's upload: its per-token class distributions on o_r,
+        (|o_r|, S, V) bf16, the tensor the wire codec encodes."""
+        return predict_open_probs(self.cfg, _first_client(state.clients.params),
+                                  _take_open(ctx.open_x, ctx.o_idx),
+                                  self.hp.use_kernel)
+
+    def eval_params(self, state: RoundState):
+        # no server model at LLM scale: score the mean client model
+        return _mean_clients(state.clients.params), {}
+
+
+@dataclass(frozen=True)
+class LLMFedAvgHP:
+    lr: float = 1e-4
+    staleness_decay: float = 0.5    # async sim: weight factor per round of lag
+    rounds: int = 10
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class LLMFedAvgAlgorithm:
+    """FedAvg at LLM scale: local SGD, then the parameter mean, whose bytes
+    a round equal K + 1 copies of the model."""
+    cfg: ModelConfig
+    hp: LLMFedAvgHP
+    device: Any = "cuda"
+
+    name = "llm_fedavg"
+    uses_open = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def init(self, seed: int, model_init: Callable, data) -> RoundState:
+        return self.init_from(stack_init(seed, model_init,
+                                         leading_dim(data.x_clients),
+                                         self.device))
+
+    def init_from(self, stacked_params: dict) -> RoundState:
+        return _state(stacked_params)
+
+    def round(self, state: RoundState, ctx: BatchCtx, rnd: int, draws=None):
+        new, loss = fedavg_round_step(
+            self.cfg, state.clients.params, ctx.x, self.hp.lr,
+            weights=_participation(ctx, self.hp.staleness_decay),
+            mask=ctx.mask if present(ctx.mask) else None,
+            active_budget=ctx.active_budget)
+        return _state(new), {"loss": loss}
+
+    def upload_payload(self, state: RoundState, ctx: BatchCtx):
+        """One client's upload: its full parameters."""
+        return _first_client(state.clients.params)
+
+    def eval_params(self, state: RoundState):
+        # the round's broadcast synced the clients: any one of them
+        return _first_client(state.clients.params), {}

@@ -28,3 +28,9 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def leading_dim(tree) -> int:
+    """First-axis size of a tensor or of a (dict-of-tensors) batch tree,
+    e.g. an LM task's ``{"tokens": (K, B, S)}``."""
+    return tree_leaves(tree)[0].shape[0]

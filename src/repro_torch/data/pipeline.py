@@ -1,7 +1,8 @@
-"""Dataset assembly for federated image experiments: private/open/test
-sets, the client stacks, and the cohort plane's data providers (mirrors
+"""Dataset assembly for federated experiments: private/open/test sets, the
+client stacks, and the cohort plane's data providers (mirrors
 ``FederatedImageTask``, ``build_image_task``, ``SlabTask``,
-``ArrayProvider`` and ``SyntheticProvider`` of
+``ArrayProvider``, ``SyntheticProvider``, ``FederatedLMTask``,
+``build_lm_task``, ``lm_private_batches`` and ``lm_open_batch`` of
 ``repro/data/pipeline.py``)."""
 from __future__ import annotations
 
@@ -114,3 +115,49 @@ class SyntheticProvider:
         return SlabTask(torch.stack([x for x, _ in shards]),
                         torch.stack([y for _, y in shards]), self.open_x,
                         self.x_test, self.y_test, self.n_classes)
+
+
+# ------------------------------------------------------------ LLM tasks ----
+@dataclass
+class FederatedLMTask:
+    """LLM-scale federated task for `FedEngine`: batch dicts of token
+    tensors instead of image tensors.  Labels derive from the tokens
+    (next-token prediction), so ``y_clients`` stays an absent slot."""
+    x_clients: dict           # {"tokens": (K, B, S)} private token stacks
+    open_x: dict              # {"tokens": (I_o, S)} the shared open set
+    y_clients: None = None
+
+
+def build_lm_task(seed: int, K: int, batch: int, seq: int, vocab: int,
+                  n_open: int | None = None, extras_fn=None,
+                  device="cuda") -> FederatedLMTask:
+    """K private token batches and an open set of ``n_open`` (default
+    ``batch``) sequences, drawn on ``device`` from one generator seeded
+    with ``seed`` (private first).  ``extras_fn`` (VLM patches, audio
+    frames) is not ported: token-only models run."""
+    if extras_fn is not None:
+        raise NotImplementedError(
+            "modality inputs (VLM patches, audio frames) are not ported yet "
+            "(a later slice of the port); token-only models run")
+    gen = generator(device, seed)
+    private = lm_private_batches(gen, K, batch, seq, vocab)
+    return FederatedLMTask(x_clients=private, open_x=lm_open_batch(
+        gen, n_open or batch, seq, vocab))
+
+
+def lm_private_batches(gen: torch.Generator, n_clients: int, batch: int,
+                       seq: int, vocab: int) -> dict:
+    """Per-client private token batches: sequences of ``n_clients``
+    domains, stably sorted by domain and dealt in order (domain d <->
+    client d, structurally non-IID)."""
+    toks, dom = synthetic.make_token_lm(gen, n_clients * batch, seq, vocab,
+                                        n_domains=n_clients)
+    order = torch.argsort(dom, stable=True)
+    return {"tokens": toks[order].reshape(n_clients, batch, seq)}
+
+
+def lm_open_batch(gen: torch.Generator, batch: int, seq: int,
+                  vocab: int) -> dict:
+    """The shared open set: ``batch`` sequences of 7 domains."""
+    toks, _ = synthetic.make_token_lm(gen, batch, seq, vocab, n_domains=7)
+    return {"tokens": toks}

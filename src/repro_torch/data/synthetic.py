@@ -1,6 +1,7 @@
-"""Synthetic image data (mirrors the image part of
+"""Synthetic data (mirrors the image and token parts of
 ``repro/data/synthetic.py``): the MNIST stand-in ``digits``, smooth
-per-class templates with a random shift and pixel noise.
+per-class templates with a random shift and pixel noise, and the token LM
+corpus ``make_token_lm``.
 
 The class templates are numpy-exact copies of the reference's (the same
 ``np.random.default_rng`` stream and arithmetic); labels, shifts and noise
@@ -46,3 +47,49 @@ def make_digits(gen: torch.Generator, n: int, n_classes: int = 10,
     imgs = templates[y[:, None, None], ri[:, :, None], ci[:, None, :]]
     imgs = imgs + noise * torch.randn(imgs.shape, generator=gen, device=dev)
     return imgs[..., None].to(torch.float32), y
+
+
+# --------------------------------------------------------------- token LM ----
+def _domain_probs(vocab: int, n_domains: int) -> np.ndarray:
+    """(D, V) float32 unigram of each domain: a Zipf unigram with the
+    domain's block of the vocabulary weighted 20x, normalized (a
+    numpy-exact copy of the reference's)."""
+    zipf = 1.0 / (np.arange(1, vocab + 1) ** 1.1)
+    zipf /= zipf.sum()
+    doms = []
+    for d in range(n_domains):
+        lo = (vocab * d) // n_domains
+        hi = (vocab * (d + 1)) // n_domains
+        p = zipf.copy()
+        p[lo:hi] *= 20.0
+        doms.append(p / p.sum())
+    return np.stack(doms).astype(np.float32)
+
+
+def make_token_lm(gen: torch.Generator, n_seqs: int, seq_len: int,
+                  vocab: int, n_domains: int = 4, order_mix: float = 0.7):
+    """Synthetic LM corpus: each sequence follows its domain's first-order
+    chain, ``order_mix * p_domain + (1 - order_mix) * onehot((prev * 7 +
+    13) % vocab)``; the domain id doubles as the non-IID partition key.
+    Returns tokens (n_seqs, seq_len) int64 and domains (n_seqs,) int64 on
+    the generator's device.
+
+    The reference samples the mixture at each step; here each token is a
+    draw from the domain's unigram with probability ``order_mix`` and the
+    successor of the previous token otherwise, which is the same
+    distribution (the draws differ, as ``torch.Generator`` is not
+    ``jax.random``).  The first token is a unigram draw."""
+    dev = gen.device
+    domains = torch.randint(0, n_domains, (n_seqs,), generator=gen,
+                            device=dev)
+    dom_p = torch.as_tensor(_domain_probs(vocab, n_domains), device=dev)
+    draws = torch.multinomial(dom_p[domains], seq_len, replacement=True,
+                              generator=gen)                    # (n, S)
+    from_unigram = torch.rand((n_seqs, seq_len), generator=gen,
+                              device=dev) < order_mix
+    toks = torch.empty_like(draws)
+    toks[:, 0] = draws[:, 0]
+    for t in range(1, seq_len):
+        toks[:, t] = torch.where(from_unigram[:, t], draws[:, t],
+                                 (toks[:, t - 1] * 7 + 13) % vocab)
+    return toks, domains

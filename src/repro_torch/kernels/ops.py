@@ -63,10 +63,16 @@ class distill_loss_2d(torch.autograd.Function):
 def distill_loss(student_logits: torch.Tensor, teacher_probs: torch.Tensor,
                  mask=None) -> torch.Tensor:
     """Arbitrary leading dims.  With a mask the kernel does not apply, and
-    the loss is the reference's masked soft-target cross-entropy."""
+    the loss is the reference's masked soft-target cross-entropy.  K3/K4
+    take z and t of one dtype; where they differ (f32 logits against the
+    bf16 teacher) both are widened to f32, which is exact, as the
+    reference's kernel upcasts both (z is never rounded)."""
     if mask is not None:
         from ..core.losses import softmax_xent
         return softmax_xent(student_logits, teacher_probs, mask)
+    if teacher_probs.dtype != student_logits.dtype:
+        student_logits = student_logits.to(F32)
+        teacher_probs = teacher_probs.to(F32)
     V = student_logits.shape[-1]
     z = student_logits.reshape(-1, V).contiguous()
     t = teacher_probs.reshape(-1, V).contiguous()

@@ -31,10 +31,13 @@ def model_init(cfg: ModelConfig, gen: torch.Generator,
     return T.init_lm(cfg, gen, resolve_device(device))
 
 
-def model_logits(cfg: ModelConfig, params: dict, batch: dict):
-    """Full-sequence logits and aux loss."""
+def model_logits(cfg: ModelConfig, params: dict, batch: dict,
+                 use_ssd_kernel: bool = True):
+    """Full-sequence logits and aux loss.  ``use_ssd_kernel=False`` takes
+    the differentiable SSD route (training), where the backward recomputes
+    each block."""
     _token_only(cfg, batch)
-    return T.lm_logits(cfg, params, batch["tokens"])
+    return T.lm_logits(cfg, params, batch["tokens"], use_ssd_kernel)
 
 
 def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,

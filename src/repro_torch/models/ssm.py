@@ -1,10 +1,13 @@
 """Mamba2 (SSD — state-space duality, arXiv:2405.21060) mixer (mirrors
 ``repro/models/ssm.py``).
 
-Chunked SSD forward: within-chunk quadratic blocks (K5,
-`kernels.ops.ssd_chunk`: the CUDA kernel on a card tensor, its plain
-version on a CPU one) plus the inter-chunk linear recurrence over chunk
-states, a Python loop where the reference has ``lax.scan``.  Decode is the
+Chunked SSD forward: within-chunk quadratic blocks plus the inter-chunk
+linear recurrence over chunk states, a Python loop where the reference has
+``lax.scan``.  The within-chunk block takes one of two routes, the
+reference's ``use_ssd_kernel`` switch: K5 (`kernels.ops.ssd_chunk`: the
+CUDA kernel on a card tensor, its plain version on a CPU one), which has no
+backward and serves inference, or `_chunk_local`, the model's own
+differentiable block, which training runs through.  Decode is the
 O(1) recurrent step carrying (ssm_state, conv_state).
 
 The x/B/C projections and their causal convs are separate parameter leaves
@@ -72,13 +75,42 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """dA: (..., Q) -> (..., Q, Q) with T[i, j] = sum_{j<k<=i} dA_k (i >= j),
+    -inf above the diagonal."""
+    cum = torch.cumsum(dA, dim=-1)
+    T = cum[..., :, None] - cum[..., None, :]
+    Q = dA.shape[-1]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dA.device))
+    return T.masked_fill(~mask, float("-inf"))
+
+
+def _chunk_local(xr, dtr, dAr, Br, Cr, hpg: int) -> torch.Tensor:
+    """Within-chunk quadratic block, differentiable (the reference's
+    ``_chunk_local``; K5 computes the same function without a backward).
+    xr: (B,nc,Q,H,P), dtr/dAr: (B,nc,Q,H), Br/Cr: (B,nc,Q,G,N).  The
+    scores C.B are computed once a group and shared by its heads (the
+    reference repeats B and C over the heads first; the sums are the
+    same)."""
+    Bsz, nc, Q, H, P = xr.shape
+    G = Br.shape[3]
+    L = torch.exp(_segsum(dAr.permute(0, 1, 3, 2)))           # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcqgn,bckgn->bcgqk", Cr, Br)       # (B,nc,G,Q,Q)
+    M = (scores[:, :, :, None] * L.reshape(Bsz, nc, G, hpg, Q, Q)
+         * dtr.permute(0, 1, 3, 2).reshape(Bsz, nc, G, hpg, 1, Q))
+    return torch.einsum("bcgjqk,bckgjp->bcqgjp", M,
+                        xr.reshape(Bsz, nc, Q, G, hpg, P)).reshape(
+        Bsz, nc, Q, H, P)
+
+
 def ssd_chunked(x, dt, a_log, Bm, Cm, chunk: int,
-                return_state: bool = False):
+                return_state: bool = False, use_kernel: bool = True):
     """SSD over a full sequence.
 
     x: (B,S,H,P); dt: (B,S,H) post-softplus; a_log: (H,); Bm/Cm: (B,S,G,N).
     Returns y (B,S,H,P) fp32 (and the final state (B,H,P,N) if requested).
-    The within-chunk blocks go through K5 (`kernels.ops.ssd_chunk`).  The
+    The within-chunk blocks go through K5 (`kernels.ops.ssd_chunk`), or
+    through `_chunk_local` with ``use_kernel=False`` (training).  The
     chunk-end states and the off-diagonal term contract each group's B or C
     with its heads without repeating B and C over the heads (the reference
     repeats them first; the products and sums are the same)."""
@@ -109,7 +141,8 @@ def ssd_chunked(x, dt, a_log, Bm, Cm, chunk: int,
     cum = torch.cumsum(dAr, dim=2)
 
     # 1. diagonal (within-chunk) blocks
-    y_diag = kops.ssd_chunk(xr, dtr, dAr, Br, Cr, hpg)
+    local = kops.ssd_chunk if use_kernel else _chunk_local
+    y_diag = local(xr, dtr, dAr, Br, Cr, hpg)
 
     # 2. per-chunk end states
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
@@ -153,8 +186,9 @@ def _gate_norm_out(p, cfg, y, z):
 
 
 def mamba_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  return_cache: bool = False):
-    """Full-sequence Mamba2 block. x: (B, S, D)."""
+                  return_cache: bool = False, use_ssd_kernel: bool = True):
+    """Full-sequence Mamba2 block. x: (B, S, D).  ``use_ssd_kernel=False``
+    takes the differentiable within-chunk route (`_chunk_local`)."""
     B, S, _ = x.shape
     H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     z, xs_pre, b_pre, c_pre, dt = _project(p, cfg, x)
@@ -162,7 +196,7 @@ def mamba_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     Bm = _causal_conv(b_pre, p["cw_b"], p["cb_b"]).reshape(B, S, G, N)
     Cm = _causal_conv(c_pre, p["cw_c"], p["cb_c"]).reshape(B, S, G, N)
     res = ssd_chunked(xs, dt, p["a_log"], Bm, Cm, cfg.ssm_chunk,
-                      return_state=return_cache)
+                      return_state=return_cache, use_kernel=use_ssd_kernel)
     y, final = res if return_cache else (res, None)
     y = y + p["d_skip"][:, None] * xs.to(F32)
     out = _gate_norm_out(p, cfg, y.reshape(B, S, cfg.d_inner), z)

@@ -12,11 +12,17 @@ Execution modes:
   * ``decode_step``  - one token against the O(1) SSM state
 
 Every Mamba mixer's within-chunk block goes through K5
-(`kernels.ops.ssd_chunk`), which computes its plain version on CPU tensors.
+(`kernels.ops.ssd_chunk`, its plain version on CPU tensors) unless
+``use_ssd_kernel=False`` asks for the differentiable `ssm._chunk_local`,
+the reference's switch (training runs that route: K5 has no backward).
+Where autograd records, each block is a checkpoint
+(``torch.utils.checkpoint``, the reference's ``remat``): the backward
+recomputes it.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .base import ModelConfig
 from .layers import embed, init_embed, init_rmsnorm, rmsnorm, sub, unembed
@@ -38,7 +44,8 @@ def _check_pattern(cfg: ModelConfig) -> None:
 
 def _block(params: dict, i: int) -> dict:
     """Block ``i`` of the stacked ``blocks/...`` leaves (views, no copy),
-    named ``s0_mix/w_z`` and so on."""
+    named ``s0_mix/w_z`` and so on.  Any leaf indexable by block works: a
+    (n_blocks, ...) tensor or a list of per-block tensors."""
     return {k[len("blocks/"):]: v[i] for k, v in params.items()
             if k.startswith("blocks/")}
 
@@ -61,22 +68,33 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 
 
 # --------------------------------------------------------------- forward ----
-def _block_forward(cfg: ModelConfig, bp: dict, x: torch.Tensor):
+def _block_forward(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+                   use_ssd_kernel: bool = True):
     """One pattern-repeat in full-sequence mode.  Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, _ in enumerate(cfg.pattern):
         h = rmsnorm(sub(bp, f"s{i}_n1"), x, cfg.norm_eps)
-        out = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h)
+        out = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h,
+                            use_ssd_kernel=use_ssd_kernel)
         x = x + out
     return x, aux
 
 
-def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor):
-    """Run the block stack on embeddings x: (B, S, D)."""
+def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
+             use_ssd_kernel: bool = True):
+    """Run the block stack on embeddings x: (B, S, D).  With autograd
+    recording, each block is a checkpoint: the backward keeps only the
+    blocks' inputs and recomputes one block at a time."""
     _check_pattern(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt = torch.is_grad_enabled()
     for b in range(cfg.n_blocks):
-        x, a = _block_forward(cfg, _block(params, b), x)
+        bp = _block(params, b)
+        if ckpt:
+            x, a = checkpoint(lambda h, bp=bp: _block_forward(
+                cfg, bp, h, use_ssd_kernel), x, use_reentrant=False)
+        else:
+            x, a = _block_forward(cfg, bp, x, use_ssd_kernel)
         aux = aux + a
     return x, aux
 
@@ -87,10 +105,11 @@ def embed_inputs(cfg: ModelConfig, params: dict,
     return embed(sub(params, "embed"), cfg, tokens)
 
 
-def lm_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+def lm_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+              use_ssd_kernel: bool = True):
     """Full-sequence logits (B, S, V) and the aux loss."""
     x = embed_inputs(cfg, params, tokens)
-    x, aux = backbone(cfg, params, x)
+    x, aux = backbone(cfg, params, x, use_ssd_kernel)
     x = rmsnorm(sub(params, "final_norm"), x, cfg.norm_eps)
     return unembed(sub(params, "embed"), cfg, x), aux
 

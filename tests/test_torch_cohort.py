@@ -30,6 +30,7 @@ from repro_torch.sim import (AsyncBufferScheduler, ClientPopulation,
                              SyncScheduler, VirtualClock)
 
 K, ROUNDS = 8, 4
+CPU = "cpu"
 HP = dict(rounds=ROUNDS, local_epochs=1, batch_size=20)
 
 
@@ -97,7 +98,8 @@ def _engine(algo, task):
 
 def _cohort_run(algo, task, sched, chunk):
     store = (None if isinstance(algo, FedAvgAlgorithm) else
-             ClientStore(lambda ids: algo.init_cohort(0, _init, ids, K)))
+             ClientStore(lambda ids: algo.init_cohort(0, _init, ids, K),
+                         device=CPU))
     start = (algo.init(0, _init, None) if store is None
              else algo.init_server(0, _init))
     runner = CohortRunner(_engine(algo, task), sched, ArrayProvider(task),
@@ -182,7 +184,7 @@ def test_store_pads_inits_and_never_writes_pad_lanes(tmp_path):
         calls.append(np.asarray(ids).tolist())
         return algo.init_cohort(0, _init, ids, K)
 
-    store = ClientStore(init_fn)
+    store = ClientStore(init_fn, device=CPU)
     slab_ids = np.array([2, 5, 2, 2])          # lanes 2, 3 pad with id 2
     slab = store.gather(slab_ids)
     assert calls == [[2, 5, 2, 2]] and len(store) == 2
@@ -205,16 +207,26 @@ def test_store_pads_inits_and_never_writes_pad_lanes(tmp_path):
     row_bytes = sum(v[0].numel() * 4 for _, v in named_leaves(fresh))
     assert store.resident_bytes() == 2 * row_bytes
     store.save(str(tmp_path / "store"))
-    other = ClientStore(init_fn)
+    other = ClientStore(init_fn, device=CPU)
     other.load(str(tmp_path / "store"))
     assert other.ids().tolist() == [2, 5]
     for (n, a), (_, b) in zip(named_leaves(other.gather(np.array([2, 5]))),
                               named_leaves(store.gather(np.array([2, 5])))):
         assert torch.equal(a, b), n
-    empty = ClientStore(init_fn)
+    empty = ClientStore(init_fn, device=CPU)
     empty.save(str(tmp_path / "none"))
     empty.load(str(tmp_path / "none"))
     assert len(empty) == 0
+
+
+def test_store_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """A store made without ``device=`` gathers onto the card, as every
+    entry point does; without a card it raises instead of quietly keeping
+    its slabs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClientStore(lambda ids: None)
+    assert ClientStore(lambda ids: None, device=CPU).device.type == "cpu"
 
 
 @pytest.mark.parametrize("seed", range(4))

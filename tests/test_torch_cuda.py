@@ -443,7 +443,8 @@ def _ssd_inputs(device, M, Q, H, P, G, N, seed):
     (2, 130, 8, 96, 2, 64),         # two P tiles, three query tiles
     (24, 130, 20, 40, 1, 20),       # head slices of 16 and 4; N, P not 8k
     (3, 70, 6, 37, 2, 13),          # rows not 16-byte aligned (4-byte copies)
-    (1, 1, 12, 40, 3, 20)])         # Q = 1 with G > 1
+    (1, 1, 12, 40, 3, 20),          # Q = 1 with G > 1
+    (8, 128, 80, 64, 1, 128)])      # the LLM round's prediction, seq 128
 def test_ssd_chunk_kernel_matches_plain(cuda_device, M, Q, H, P, G, N):
     """K5 against its plain version at chip_smoke.py's shapes, atol = rtol
     = 1e-4 (the reference's tolerance); the kernel's shared memory is the
@@ -637,3 +638,62 @@ def test_lane_sum_is_sequential_on_the_card(cuda_device, cols):
     rows = [torch.zeros_like(x[0])] * 2 + list(x[:5]) + [torch.zeros_like(
         x[0])] + list(x[5:]) + [torch.zeros_like(x[0])]
     assert torch.equal(lane_sum(torch.stack(rows)), acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,V", [(333, 10), (256, 50280)])
+def test_distill_loss_f32_logits_bf16_teacher(cuda_device, N, V):
+    """The LLM round distills f32 logits (the smoke configs, the route
+    check) on the bf16 teacher: ``ops.distill_loss`` widens the teacher to
+    f32 (exact) for K3/K4, and the loss and gradient equal autograd of the
+    plain loss on the same f32 values; the gradient stays f32."""
+    g = _gen(cuda_device, N + V)
+    z = torch.randn((N, V), generator=g, device=cuda_device) * 4
+    t = _probs(cuda_device, (N, V), N, torch.bfloat16, scale=1.0)
+    zk = z.clone().requires_grad_(True)
+    _build.reset_launches()
+    lk = ops.distill_loss(zk, t)
+    lk.backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["distill_loss_fwd"] == 1
+    assert _build.LAUNCHES["distill_loss_bwd"] == 1
+    zp = z.clone().requires_grad_(True)
+    lp = tdl.distill_loss_fwd_plain(zp, t.float())[0].mean()
+    lp.backward()
+    torch.cuda.synchronize()
+    assert zk.grad.dtype == F32
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(zk.grad, zp.grad, atol=1e-6 / N * 4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_llm_smoke_round_card_against_cpu(cuda_device):
+    """One LLM DS-FL round and one FedAvg round on ``mamba2-2.7b``'s smoke
+    config (K=2, batch 2, seq 32) from the same weights and data on the
+    card (K1, K3, K4, K5) and on the CPU (their plain versions): leaves
+    and loss within 2e-4 + 1e-3 |x|.  The rounds are chip_smoke.py's
+    ``llm_smoke_rounds``, which its phase "llm" compares the same way."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n_layers = get_config("mamba2-2.7b").smoke().n_layers
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        _build.reset_launches()
+        out[device.type] = smoke.llm_smoke_rounds(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            for name, n in (("era_sharpen", 1), ("distill_loss_fwd", 2),
+                            ("distill_loss_bwd", 2),
+                            ("ssd_chunk", 2 * n_layers)):
+                assert _build.LAUNCHES[name] == n, name
+    for (cuda_p, cuda_l), (cpu_p, cpu_l) in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(cuda_l.cpu(), cpu_l, atol=2e-4, rtol=1e-3)
+        for k, v in cpu_p.items():
+            torch.testing.assert_close(cuda_p[k].cpu(), v, atol=2e-4,
+                                       rtol=1e-3)
