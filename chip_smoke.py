@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
-Four paths: the federated rounds (DS-FL dense, masked,
+Five paths: the federated rounds (DS-FL dense, masked,
 participation-sparse and two-level, FD and FedAvg), the federation
 simulator and the million-client cohort plane, serving mamba2-2.7b at full
-width (its SSD kernel K5 runs on the tensor cores), and training
-mamba2-2.7b at full width with LLM-scale DS-FL and FedAvg (K1/K2, K3/K4
-and K5 on its path).  Phases, in order; any failure exits non-zero and
+width (its SSD kernel K5 runs on the tensor cores), serving qwen1.5-4b at
+full width (the dense family: attention and MLPs in plain PyTorch, no
+kernel of K1-K5 on its path), and training mamba2-2.7b at full width with
+LLM-scale DS-FL and FedAvg (K1/K2, K3/K4 and K5 on its path).  Phases, in order; any failure exits non-zero and
 prints no result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
@@ -92,10 +93,11 @@ prints no result:
              ERA round, timed in the two halves the algorithm splits it
              into.
  6. card vs CPU  rounds from the same weights and draws on the card
-             (kernels, float32) and on the CPU (plain versions, float64),
-             compared leaf by leaf: K=4, full-width CNN, 1 local and 1
-             distillation epoch; an ERA round, a sparse ERA round (2 of 4
-             clients, budget 2) and a FedAvg round.  The CPU's float32
+             (kernels, float32, PyTorch's own convolutions in place of
+             cuDNN's, see ``native_convs``) and on the CPU (plain versions,
+             float64), compared leaf by leaf: K=4, full-width CNN, 1 local
+             and 1 distillation epoch; an ERA round, a sparse ERA round (2
+             of 4 clients, budget 2) and a FedAvg round.  The CPU's float32
              round is printed beside them.
     sim      the simulator at full width (``mnist_cnn`` at paper width,
              examples/sim_stragglers.py's lognormal fleet, ``SyncScheduler(
@@ -126,8 +128,9 @@ prints no result:
              0's (800, 200, 10) slab against its participants' stack, as in
              (c). (d) keyed
              permutations and open batches bitwise equal on the card and
-             the CPU; a K=4 cohort round on the card against the CPU's
-             float64 round. (e) ``torch.profiler``
+             the CPU; a K=4 cohort round on the card (native
+             convolutions, as phase 6) against the CPU's float64 round.
+             (e) ``torch.profiler``
              over the second chunk of (a)'s resumed run and of (b): host
              time, the card's busy time (the union of its activities) and
              idle share, top ops.
@@ -157,6 +160,27 @@ prints no result:
              same weights on the card (K5) and on the CPU (plain versions):
              one (1, 512) prefill and 8 decode steps, logits and every cache
              leaf compared.
+    serve qwen1.5-4b  (a) qwen1.5-4b at the config's widths and its 40
+             layers in bf16 (3,561,413,120 values from the port's seeded
+             init, asserted; the tied embedding scaled by d_model^-1/2,
+             see ``scale_embedding``) through phase 7's engine and window, with
+             ``decode_chunk=1`` first, then 16: launch counts zeroed just
+             before the first insert and read after the last step, K1-K5
+             all 0; a ``serve qwen1.5-4b`` line with prefill ms a shot,
+             decode ms a step at 8 slots, tokens/s, peak device memory
+             and the ring buffers' bytes (asserted 6,920,601,600); requests
+             of 1030, 1024 and 40 tokens served again, each alone in an
+             engine of the same 8 slots, must give the window's greedy
+             tokens; then phase 7's trace of this model; the port's
+             chunked attention at the (4, 2048) shot's per-layer shape
+             (4, 2048, 20, 128) bf16 causal beside
+             ``F.scaled_dot_product_attention`` (a yardstick, never called
+             by the engine); (b) the card against the CPU in float32 at
+             full width and depth 2, as phase 9: qwen1.5-4b, a (1, 512)
+             prefill and 8 decode steps; phi3-medium-14b (40 heads over 10
+             KV heads) with a 120-token sliding window and ring, a (1,
+             128) prefill and 4 decode steps that each overwrite the
+             ring's oldest slot.
 10. llm      LLM-scale training, `repro_torch.launch.train`'s code path
              (``setup``, ``run_rounds``, ``run_local``) at mamba2-2.7b's
              full width and 64 layers, bf16, K = 2 clients, batch 8, seq
@@ -201,6 +225,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 on the tensor cores
 TIMING_ITERS = 100
 L2_BYTES = 50 * 2 ** 20       # H100 L2 cache
 CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL = 2e-4, 1e-3
@@ -965,41 +990,76 @@ def phase_k5():
     return rec
 
 
-def _serving_model():
+def _serving_model(arch: str, n_values: int):
+    """``arch`` at its full widths and depth in its dtype, seeded on the
+    card; its parameter count must be ``n_values``."""
     from repro_torch.configs import get_config
     from repro_torch.device import generator
     from repro_torch.models.api import model_init
     from repro_torch.models.base import param_count
-    cfg = get_config("mamba2-2.7b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = model_init(cfg, generator("cuda", 0), "cuda")
     torch.cuda.synchronize()
     n = param_count(params)
+    if cfg.arch_type == "ssm":
+        shape = (f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+                 f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    else:
+        shape = (f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads} KV "
+                 f"heads, d_ff {cfg.d_ff} ({cfg.act}), RoPE theta "
+                 f"{cfg.rope_theta:g}, QKV bias {cfg.qkv_bias}")
     say(f"serve: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
-        f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
-        f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, {cfg.dtype}: {n} values, "
+        f"{shape}, vocab {cfg.vocab}, {cfg.dtype}: {n} values, "
         f"{sum(v.numel() * v.element_size() for v in params.values())} bytes,"
         f" seeded init in {time.perf_counter() - t0:.1f} s")
-    if n != 2_702_579_200:
-        fail(f"mamba2-2.7b parameter count {n}")
+    if n != n_values:
+        fail(f"{arch} parameter count {n}, expected {n_values}")
     return cfg, params
 
 
 SERVE_PROMPTS = (2048, 2048, 2048, 2048, 1024, 1030, 256, 40)
 SERVE_NEW, SERVE_D1_STEPS = 32, 16
+SERVE_ENGINE = dict(slots=8, seq_budget=2112, buckets=(256, 1024, 2048))
+QWEN_VALUES = 3_561_413_120         # the reference's init_lm of qwen1.5-4b
+QWEN_KV_BYTES = 6_920_601_600       # k and v: 40 x 8 x 2112 x 20 x 128 bf16
+# requests of the qwen window served again alone: 1030 tokens (1024
+# prefilled, 6 forced through decode), 1024, and 40 (bucket 1, 39 forced)
+QWEN_ALONE = (5, 4, 7)
 
 
-def phase_serve(smi, cfg, params, k5_ms):
-    """The serving path at full width (phase 7)."""
+def _serve_drain(eng, chunk, times=None):
+    """Step ``eng`` until it is empty: decode_chunk 1 for the first
+    SERVE_D1_STEPS steps, then ``chunk``; the d=1 calls' seconds go to
+    ``times``."""
+    steps = 0
+    while eng.n_active:
+        d = 1 if steps < SERVE_D1_STEPS else chunk
+        before = eng.n_steps
+        t0 = time.perf_counter()
+        eng.step(now=float(steps), decode_chunk=d)
+        if d == 1 and times is not None:
+            times.append(time.perf_counter() - t0)
+        steps += eng.n_steps - before
+
+
+def phase_serve(smi, cfg, params, k5_ms=None, chunk=8, label="serve",
+                alone=()):
+    """The serving path at full width through ``ServeEngine`` (phase 7 for
+    mamba2-2.7b; phase "serve qwen1.5-4b" (a)).  K5 must launch once a
+    Mamba layer a prefill shot, nothing else anywhere.  ``alone``: request
+    ids served again, each the only request in an engine of the same slots
+    (the same decode shapes, so the same kernels), whose greedy tokens must
+    equal the window's."""
     from repro_torch.kernels import _build
     from repro_torch.serve import Request, ServeEngine
+    dev = params["embed/tok"].device
     g = torch.Generator().manual_seed(5)
     prompts = [tuple(torch.randint(0, cfg.vocab, (n,), generator=g).tolist())
                for n in SERVE_PROMPTS]
     reqs = [Request(id=i, tokens=p, max_new_tokens=SERVE_NEW)
             for i, p in enumerate(prompts)]
-    eng = ServeEngine(cfg, params, slots=8, seq_budget=2112,
-                      buckets=(256, 1024, 2048), device="cuda")
+    eng = ServeEngine(cfg, params, **SERVE_ENGINE, device=dev)
     # warm-up outside the window: cuBLAS handles and the first GEMMs
     eng.insert(Request(id=-1, tokens=prompts[6], max_new_tokens=1))
     eng.pop_completed()
@@ -1024,47 +1084,43 @@ def phase_serve(smi, cfg, params, k5_ms):
         shots.append((f"insert {req.prompt_len} (prefill 1 x {n})",
                       t_shot() - t0))
     t_decode = t_shot()
-    steps, d1_times = 0, []
-    while eng.n_active:
-        d = 1 if steps < SERVE_D1_STEPS else 8
-        before = eng.n_steps
-        t0 = t_shot()
-        eng.step(now=float(steps), decode_chunk=d)
-        dt = t_shot() - t0
-        if d == 1:
-            d1_times.append(dt)
-        steps += eng.n_steps - before
+    d1_times = []
+    _serve_drain(eng, chunk, d1_times)
     torch.cuda.synchronize()
     t_end = t_shot()
     launches = dict(_build.LAUNCHES)              # end of the window
     peak = torch.cuda.max_memory_allocated()
     done = {r.id: r for r in eng.pop_completed()}
-    say(f"launches in the serving window: {json.dumps(launches)}")
+    say(f"launches in the {label} window: {json.dumps(launches)}")
 
     if sorted(done) != list(range(len(reqs))):
-        fail(f"serve: completed {sorted(done)} of {len(reqs)} requests")
+        fail(f"{label}: completed {sorted(done)} of {len(reqs)} requests")
     for r in done.values():
         if len(r.tokens) != SERVE_NEW or not all(0 <= t < cfg.vocab
                                                  for t in r.tokens):
-            fail(f"serve: request {r.id} returned {r.tokens}")
+            fail(f"{label}: request {r.id} returned {r.tokens}")
     for k, v in eng.cache.items():
         if not bool(torch.isfinite(v.float()).all()):
-            fail(f"serve: cache leaf {k} is not finite")
+            fail(f"{label}: cache leaf {k} is not finite")
     shots_n = eng.n_prefill_shots - shots_before
     if shots_n != 5:
-        fail(f"serve: {shots_n} prefill shots in the window, expected 5")
-    if launches["ssd_chunk"] != cfg.n_layers * shots_n:
-        fail(f"serve: K5 launched {launches['ssd_chunk']} times in "
-             f"{shots_n} prefill shots, not {cfg.n_layers} per shot")
+        fail(f"{label}: {shots_n} prefill shots in the window, expected 5")
+    k5_want = cfg.n_layers * shots_n if cfg.arch_type == "ssm" else 0
+    if launches["ssd_chunk"] != k5_want:
+        fail(f"{label}: K5 launched {launches['ssd_chunk']} times in "
+             f"{shots_n} prefill shots, not {k5_want}")
     for name in ("era_sharpen", "weighted_era_sharpen", "distill_loss_fwd",
                  "distill_loss_bwd"):
         if launches[name]:
-            fail(f"serve: {name} was launched on the serving path")
+            fail(f"{label}: {name} was launched on the serving path")
     n_gen = sum(len(r.tokens) for r in done.values())
     big_shot = shots[0][1]
     steady = d1_times[1:]
+    cache_bytes = sum(v.numel() * v.element_size()
+                      for v in eng.cache.values())
     rec = dict(
-        device=smi, prompts=list(SERVE_PROMPTS), max_new_tokens=SERVE_NEW,
+        device=smi, arch=cfg.name, prompts=list(SERVE_PROMPTS),
+        max_new_tokens=SERVE_NEW,
         prefill_shots={k: v * 1e3 for k, v in shots},
         prefill_shots_unit="ms",
         decode_ms_per_step_d1=1e3 * sum(steady) / len(steady),
@@ -1073,29 +1129,47 @@ def phase_serve(smi, cfg, params, k5_ms):
         generated_tokens=n_gen,
         generated_tokens_per_s_decode=n_gen / (t_end - t_decode),
         generated_tokens_per_s_end_to_end=n_gen / (t_end - t_start),
-        max_memory_allocated=peak,
-        k5_ms_at_main_shape=k5_ms,
-        k5_share_of_4x2048_prefill=k5_ms * cfg.n_layers / 1e3 / big_shot,
+        max_memory_allocated=peak, cache_bytes=cache_bytes,
         launches=launches)
     chunk_s = (t_end - t_decode) - sum(d1_times)
     chunk_steps = eng.n_steps - len(d1_times)
-    rec["decode_ms_per_step_d8"] = 1e3 * chunk_s / max(chunk_steps, 1)
+    rec[f"decode_ms_per_step_d{chunk}"] = 1e3 * chunk_s / max(chunk_steps, 1)
     for k, v in shots:
-        say(f"serve [{smi}]: prefill {k}: {v * 1e3:.3f} ms")
-    say(f"serve [{smi}]: decode at 8 slots: "
+        say(f"{label} [{smi}]: prefill {k}: {v * 1e3:.3f} ms")
+    say(f"{label} [{smi}]: decode at 8 slots: "
         f"{rec['decode_ms_per_step_d1']:.3f} ms/step (decode_chunk=1, "
-        f"{len(steady)} steady steps), {rec['decode_ms_per_step_d8']:.3f} "
-        f"ms/step (decode_chunk=8, {chunk_steps} steps)")
-    say(f"serve [{smi}]: {n_gen} generated tokens: "
+        f"{len(steady)} steady steps), "
+        f"{rec[f'decode_ms_per_step_d{chunk}']:.3f} ms/step (decode_chunk="
+        f"{chunk}, {chunk_steps} steps)")
+    say(f"{label} [{smi}]: {n_gen} generated tokens: "
         f"{rec['generated_tokens_per_s_decode']:.1f} tokens/s over the decode"
         f" phase, {rec['generated_tokens_per_s_end_to_end']:.1f} tokens/s "
         f"from the first insert to the last token")
-    say(f"serve [{smi}]: peak device memory {peak} B")
-    say(f"serve [{smi}]: K5 share of the (4, 2048) prefill: {k5_ms:.4f} ms x "
-        f"{cfg.n_layers} / {big_shot * 1e3:.3f} ms = "
-        f"{rec['k5_share_of_4x2048_prefill']:.1%}")
-    say("serve " + json.dumps(rec))
-    return launches, prompts[:4]
+    say(f"{label} [{smi}]: peak device memory {peak} B; decode cache "
+        f"{cache_bytes} B")
+    if k5_ms is not None:
+        rec["k5_ms_at_main_shape"] = k5_ms
+        rec["k5_share_of_4x2048_prefill"] = (k5_ms * cfg.n_layers / 1e3
+                                             / big_shot)
+        say(f"{label} [{smi}]: K5 share of the (4, 2048) prefill: "
+            f"{k5_ms:.4f} ms x {cfg.n_layers} / {big_shot * 1e3:.3f} ms = "
+            f"{rec['k5_share_of_4x2048_prefill']:.1%}")
+    del eng
+    for rid in alone:
+        solo = ServeEngine(cfg, params, **SERVE_ENGINE, device=dev)
+        solo.insert(reqs[rid])
+        _serve_drain(solo, chunk)
+        (r,) = solo.pop_completed()
+        del solo
+        if r.tokens != done[rid].tokens:
+            fail(f"{label}: request {rid} ({reqs[rid].prompt_len} tokens) "
+                 f"alone gave {r.tokens}, in the window {done[rid].tokens}")
+        say(f"{label}: request {rid} ({reqs[rid].prompt_len} tokens) alone "
+            f"in an 8-slot engine: the window's {len(r.tokens)} greedy tokens"
+            f" ({len(set(r.tokens))} distinct)")
+    rec["alone_equal"] = [reqs[rid].prompt_len for rid in alone]
+    say(f"{label} " + json.dumps(rec))
+    return launches, prompts[:4], rec
 
 
 def _trace_summary(prof):
@@ -1124,8 +1198,8 @@ def _trace_summary(prof):
     return dev_ms, len(kernels), full, sorted(ops, key=lambda r: -r[2])[:8]
 
 
-def phase_trace(smi, cfg, params, prompts):
-    """Where the serving time goes (phase 7, after its window): a
+def phase_trace(smi, cfg, params, prompts, label="trace"):
+    """Where the serving time goes (after a serving window): a
     ``torch.profiler`` trace of one (4, 2048) prefill shot, 4 decode steps
     at 8 slots with decode_chunk=1, and one chunk of 4; for each, the host
     time, the device time the profiler saw, the idle share and the top ops
@@ -1133,8 +1207,8 @@ def phase_trace(smi, cfg, params, prompts):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Request, ServeEngine
-    eng = ServeEngine(cfg, params, slots=8, seq_budget=2112,
-                      buckets=(256, 1024, 2048), device="cuda")
+    eng = ServeEngine(cfg, params, **SERVE_ENGINE,
+                      device=params["embed/tok"].device)
     reqs = [Request(id=i, tokens=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
     eng.insert_batch(reqs)                        # warm: same shapes again
@@ -1157,14 +1231,15 @@ def phase_trace(smi, cfg, params, prompts):
             launch_queue_full_markers=n_full,
             idle_share=1 - dev_ms / host_ms if host_ms else None,
             top=[(k[:60], c, t) for k, c, t in tops])
-        say(f"trace [{smi}]: {name}: host {host_ms:.3f} ms, device "
+        say(f"{label} [{smi}]: {name}: host {host_ms:.3f} ms, device "
             f"{dev_ms:.3f} ms in {n_kernels} kernels (profiled; idle share "
             f"{out[name]['idle_share']:.1%}; {n_full} launch-queue-full "
             f"markers); top by device ms: " +
             "; ".join(f"{k} x{c} {t:.3f}" for k, c, t in out[name]["top"]))
     if out["prefill 4 x 2048"]["device_ms"] == 0.0:
-        say("trace: the profiler saw no device time on this machine")
-    say("trace " + json.dumps(out))
+        say(f"{label}: the profiler saw no device time on this machine")
+    say(f"{label} " + json.dumps(out))
+    return out
 
 
 def phase_routes(smi, cfg, params, prompts):
@@ -1226,33 +1301,38 @@ def phase_routes(smi, cfg, params, prompts):
              "exceeds twice the largest logit difference")
 
 
-def phase_lm_card_vs_cpu(smi):
-    """mamba2-2.7b at full width, depth 2, float32: one (1, 512) prefill and
-    8 decode steps on the card (K5) and on the CPU (phase 9)."""
-    from repro_torch.configs import get_config
+def lm_card_vs_cpu(smi, cfg, S, steps, seq_len=None, label="lm card vs cpu",
+                   scaled=False):
+    """``cfg`` (float32) from one seeded CPU init on the card and on the
+    CPU: a (1, S) prefill (ring buffers of ``seq_len``) and ``steps``
+    decode steps, the logits and every cache leaf compared after each at
+    CARD_VS_CPU_ATOL / RTOL.  The decode step writes its cache in place, so
+    each step's cache is cloned before the next.  ``scaled``: the
+    embedding scaled as `scale_embedding` does."""
     from repro_torch.models.api import (model_decode_step, model_init,
                                         model_prefill)
-    cfg = get_config("mamba2-2.7b").replace(n_layers=2, dtype="float32")
     params = model_init(cfg, torch.Generator().manual_seed(1), "cpu")
+    if scaled:
+        scale_embedding(cfg, params)
     g = torch.Generator().manual_seed(2)
-    toks = torch.randint(0, cfg.vocab, (1, 512 + 8), generator=g)
+    toks = torch.randint(0, cfg.vocab, (1, S + steps), generator=g)
     runs = {}
     for device in ("cuda", "cpu"):
         p = {k: v.to(device) for k, v in params.items()}
         t = toks.to(device)
         t0 = time.perf_counter()
-        logits, cache = model_prefill(cfg, p, {"tokens": t[:, :512]})
-        seen = [(logits, dict(cache))]
-        for i in range(8):
-            logits, cache = model_decode_step(cfg, p, cache, t[:, 512 + i],
-                                              512 + i)
-            seen.append((logits, dict(cache)))
-        if device == "cuda":
-            torch.cuda.synchronize()
-        say(f"lm card vs cpu: {device} prefill + 8 steps in "
+        logits, cache = model_prefill(cfg, p, {"tokens": t[:, :S]}, seq_len)
+        snap = lambda lg, c: (lg.to("cpu", copy=True),
+                              {k: v.to("cpu", copy=True) for k, v in c.items()})
+        seen = [snap(logits, cache)]
+        for i in range(steps):
+            logits, cache = model_decode_step(cfg, p, cache, t[:, S + i],
+                                              S + i)
+            seen.append(snap(logits, cache))
+        say(f"{label}: {device} prefill + {steps} steps in "
             f"{time.perf_counter() - t0:.2f} s")
-        runs[device] = [(lg.cpu(), {k: v.cpu() for k, v in c.items()})
-                        for lg, c in seen]
+        runs[device] = seen
+        del p, cache
     worst = 0.0
     for step, ((la, ca), (lb, cb)) in enumerate(zip(runs["cuda"],
                                                     runs["cpu"])):
@@ -1260,12 +1340,113 @@ def phase_lm_card_vs_cpu(smi):
                                                   for k in cb]:
             worst = max(worst, max_err(a, b))
             if not close(a, b, CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL):
-                fail(f"lm card vs cpu: step {step} {name} differs by "
+                fail(f"{label}: step {step} {name} differs by "
                      f"{max_err(a, b):.3e}")
-    say(f"lm card vs cpu [{smi}]: d_model {cfg.d_model}, depth "
+    say(f"{label} [{smi}]: {cfg.name} d_model {cfg.d_model}, depth "
         f"{cfg.n_layers}, float32: logits and every cache leaf agree after "
-        f"the prefill and each of 8 decode steps (max diff {worst:.3e}; atol "
-        f"{CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL})")
+        f"the (1, {S}) prefill and each of {steps} decode steps (max diff "
+        f"{worst:.3e}; atol {CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL})")
+    return worst
+
+
+def phase_lm_card_vs_cpu(smi):
+    """mamba2-2.7b at full width, depth 2, float32: one (1, 512) prefill and
+    8 decode steps on the card (K5) and on the CPU (phase 9)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-2.7b").replace(n_layers=2, dtype="float32")
+    lm_card_vs_cpu(smi, cfg, 512, 8)
+
+
+def scale_embedding(cfg, params):
+    """Scale the dense family's tied unit-normal embedding by
+    d_model^-1/2 in place, as a trained model's rows are (phase "llm"'s
+    route check does the same).  At unit scale the residual stream is the
+    input token's embedding: greedy decoding repeats one token, so the
+    window's comparison with requests served alone is weak, and logits of
+    order +-200 come out of d_model-long f32 sums whose rounding (5e-4 at
+    d_model 5120) breaks CARD_VS_CPU_ATOL where a logit sits near zero.
+    Scaled, logits are of order 1 and every layer moves the residual
+    stream."""
+    params["embed/tok"].mul_(cfg.d_model ** -0.5)
+
+
+# the window that phi3-medium-14b's card-vs-CPU copy slides over: its (1,
+# 128) prefill keeps the last 120 keys rolled by 128 % 120, and each of its
+# 4 decode steps writes over the ring's oldest slot
+PHI3_WINDOW = 120
+
+
+def sdpa_yardstick(smi, B=4, S=2048, H=20, hd=128):
+    """The port's chunked attention at the (4, 2048) shot's per-layer shape
+    (4, 2048, 20, 128) bf16, causal, with the prefill's chunks of 1024,
+    beside ``F.scaled_dot_product_attention`` on the same inputs (a
+    yardstick for a later PR; the engine never calls it).  Bound: the
+    causal half of the two products' operations at 989 TFLOP/s (bf16 on
+    the tensor cores) against q, k, v and the output once over 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import flash_attention
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn((B, S, H, hd), generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    port = lambda: flash_attention(q, k, v, causal=True, q_chunk=1024,
+                                   kv_chunk=1024)
+    lib = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True).transpose(1, 2)
+    err = max_err(port(), lib())
+    if not err <= 3e-2:             # a few bf16 steps of outputs below 1
+        fail(f"sdpa yardstick: the port's attention is {err:.3e} from SDPA")
+    port_ms, lib_ms = time_ms(port, iters=20), time_ms(lib, iters=20)
+    flops = 2 * 2 * B * H * S * S * hd / 2
+    nbytes = 4 * B * S * H * hd * 2
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rec = dict(device=smi, shape=[B, S, H, hd], dtype="bfloat16",
+               causal=True, port_chunked_ms=port_ms, sdpa_ms=lib_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               max_abs_err=err, speedup_sdpa=port_ms / lib_ms)
+    say(f"sdpa yardstick [{smi}]: (4, 2048, 20, 128) bf16 causal: the port's"
+        f" chunked attention {port_ms:.3f} ms, F.scaled_dot_product_attention"
+        f" {lib_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}); max diff {err:.3e}")
+    say("sdpa yardstick " + json.dumps(rec))
+    return rec
+
+
+def phase_serve_qwen(smi):
+    """Phase "serve qwen1.5-4b": (a) the serving window at full width and
+    depth, its trace, and three of its requests alone; the attention
+    yardstick; (b) the card against the CPU in float32 at depth 2 and full
+    width, qwen1.5-4b and phi3-medium-14b (grouped-query heads, its ring
+    wrapped under a sliding window).  (a) and (b) scale the embedding
+    (`scale_embedding`)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg, params = _serving_model("qwen1.5-4b", QWEN_VALUES)
+    scale_embedding(cfg, params)
+    launches, prompts, rec = phase_serve(smi, cfg, params, chunk=16,
+                                         label="serve qwen1.5-4b",
+                                         alone=QWEN_ALONE)
+    if rec["cache_bytes"] != QWEN_KV_BYTES:
+        fail(f"serve qwen1.5-4b: ring buffers of {rec['cache_bytes']} B, "
+             f"expected {QWEN_KV_BYTES}")
+    phase_trace(smi, cfg, params, prompts, label="trace qwen1.5-4b")
+    del params
+    torch.cuda.empty_cache()
+    sdpa_yardstick(smi)
+    t1 = time.perf_counter()
+    qwen = get_config("qwen1.5-4b").replace(n_layers=2, dtype="float32")
+    lm_card_vs_cpu(smi, qwen, 512, 8, label="qwen1.5-4b card vs cpu",
+                   scaled=True)
+    phi3 = get_config("phi3-medium-14b").replace(
+        n_layers=2, dtype="float32", sliding_window=PHI3_WINDOW)
+    lm_card_vs_cpu(smi, phi3, 128, 4, seq_len=PHI3_WINDOW,
+                   label="phi3-medium-14b card vs cpu", scaled=True)
+    torch.cuda.empty_cache()
+    say(f"serve qwen1.5-4b: phase took {time.perf_counter() - t0:.1f} s "
+        f"((b) {time.perf_counter() - t1:.1f} s)")
+    return launches
 
 
 def _paper_cnn(device):
@@ -1574,7 +1755,8 @@ def phase_card_vs_cpu(smi):
     deterministic algorithms) and on the CPU (plain versions), compared leaf
     by leaf (phase 6): K=4 at full width, 1 local (and 1 distillation)
     epoch; an ERA round, a sparse ERA round (clients 0 and 3 of 4, budget 2)
-    and a FedAvg round.  The CPU runs each round in float64 and the card is
+    and a FedAvg round.  The card's convolutions run natively
+    (`native_convs`).  The CPU runs each round in float64 and the card is
     held to that within CARD_VS_CPU_ATOL/RTOL: client 1's local update is
     ill-conditioned (its float32 result moves 4e-5 from float64 on the CPU
     alone, 1e-7 on the other clients), so a float32 CPU reference carries
@@ -1629,7 +1811,7 @@ def phase_card_vs_cpu(smi):
             eng = FedEngine(algo, make_eval_fn(apply_mnist_cnn, task.x_test,
                                                task.y_test))
             t0 = time.perf_counter()
-            with deterministic():
+            with deterministic(), native_convs():
                 state = eng.run(start, task, draws=draws, **kw)
             if device == "cuda":
                 torch.cuda.synchronize()
@@ -1749,6 +1931,25 @@ def deterministic():
     finally:
         cudnn.deterministic, cudnn.benchmark = prev[:2]
         torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+
+
+@contextlib.contextmanager
+def native_convs():
+    """PyTorch's own CUDA convolutions in place of cuDNN's, for the card's
+    rounds held to the CPU's float64 round (phase 6, sim (d)).  cuDNN picks
+    an algorithm per shape by its heuristics, and client 1's
+    ill-conditioned local update (tools/round_spread.py) amplifies that
+    algorithm's float32 rounding: with the same code, phase 6's ERA round
+    landed 7.8e-5 from float64 in some runs of this script and 5.8e-4 (past
+    the limit) in others, where the native convolutions land 1.4e-6 from it
+    every time (PERF.md §6).  Phase 5's rounds and sim (a)-(c) keep cuDNN."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.enabled
+    cudnn.enabled = False
+    try:
+        yield
+    finally:
+        cudnn.enabled = prev
 
 
 def _busy_ms(prof) -> float:
@@ -2216,7 +2417,7 @@ def phase_sim(smi, tmp):
         start = a.init_from(mv(clients.params), mv(clients.model_state),
                             mv(server.params), mv(server.model_state))
         eng = FedEngine(a)
-        with deterministic():
+        with deterministic(), native_convs():
             st = eng.run(start, prov_d.slab(cohort), rounds=1,
                          ctx_plan={"mask": torch.tensor([[1.0, 0.0, 1.0]])},
                          cohort=torch.tensor(cohort, device=device),
@@ -2678,9 +2879,9 @@ def main():
         sim_launches = phase_sim(smi, Path(tmp))
     say(f"sim: phase took {time.perf_counter() - t_sim:.1f} s")
     torch.cuda.empty_cache()
-    cfg, params = _serving_model()
-    serve_launches, prompts = phase_serve(smi, cfg, params,
-                                          recs["ssd_chunk"]["ms"])
+    cfg, params = _serving_model("mamba2-2.7b", 2_702_579_200)
+    serve_launches, prompts, _ = phase_serve(smi, cfg, params,
+                                             recs["ssd_chunk"]["ms"])
     phase_trace(smi, cfg, params, prompts)
     wide = {k: v.float() for k, v in params.items()}
     del params
@@ -2690,6 +2891,7 @@ def main():
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu(smi)
     torch.cuda.empty_cache()
+    qwen_launches = phase_serve_qwen(smi)
     llm_launches, llm_windows, llm_errs = phase_llm(smi)
     kernels = []
     for name, r in recs.items():
@@ -2701,6 +2903,7 @@ def main():
             path=("serve mamba2-2.7b" if serving else "llm training" if llm
                   else "federated rounds"),
             on_main_path=serving or llm or name in ON_MAIN_PATH,
+            serve_qwen_launches=qwen_launches[name],
             side_check_launches=side[name],
             sim_launches={run: v[name] for run, v in sim_launches.items()},
             llm_launches={run: v[name] for run, v in llm_windows.items()},

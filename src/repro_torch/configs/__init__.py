@@ -4,21 +4,21 @@ resolves here.
 Every architecture id of the reference is listed, but only the ones whose
 mixers the port has are configs yet; `get_config` of the others raises and
 names what they still need."""
-from . import mamba2_2_7b
+from . import (gemma_7b, mamba2_2_7b, phi3_medium_14b, qwen1_5_110b,
+               qwen1_5_4b)
+from .shapes import LONG_CONTEXT_WINDOW, SHAPES, InputShape  # noqa
 
-ARCHS = {mamba2_2_7b.ARCH_ID: mamba2_2_7b.make_config}
+_MODULES = [qwen1_5_4b, mamba2_2_7b, qwen1_5_110b, gemma_7b,
+            phi3_medium_14b]
+
+ARCHS = {m.ARCH_ID: m.make_config for m in _MODULES}
 
 # id -> what the port still lacks to run it
 NOT_PORTED = {
-    "qwen1.5-4b": "the attention mixer and the MLP",
-    "qwen1.5-110b": "the attention mixer and the MLP",
-    "gemma-7b": "the attention mixer and the MLP",
-    "phi3-medium-14b": "the attention mixer and the MLP",
-    "llama4-scout-17b-a16e": "the attention mixer and the MoE FFN",
-    "llama4-maverick-400b-a17b": "the attention mixer, the MLP and the MoE FFN",
-    "jamba-1.5-large-398b": "the attention mixer, the MLP and the MoE FFN",
-    "phi-3-vision-4.2b": "the attention mixer, the MLP and the VLM patch "
-                         "projector",
+    "llama4-scout-17b-a16e": "the MoE FFN",
+    "llama4-maverick-400b-a17b": "the MoE FFN",
+    "jamba-1.5-large-398b": "the MoE FFN",
+    "phi-3-vision-4.2b": "the VLM patch projector",
     "whisper-small": "the encoder-decoder model",
 }
 
@@ -27,7 +27,7 @@ def get_config(arch_id: str):
     if arch_id in NOT_PORTED:
         raise NotImplementedError(
             f"{arch_id} is not ported yet: it needs {NOT_PORTED[arch_id]}, "
-            f"which come with a later slice of the port")
+            f"which comes with a later slice of the port")
     return ARCHS[arch_id]()
 
 

@@ -1,0 +1,23 @@
+"""The four assigned input shapes.  Decode shapes lower ``serve_step`` (one
+token against a seq_len cache); prefill lowers the DS-FL prediction pass;
+train lowers the DS-FL hybrid train step."""
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# window used when a full-attention arch runs long_500k (DESIGN.md §4)
+LONG_CONTEXT_WINDOW = 8_192

@@ -5,8 +5,10 @@ pytrees) and the port's flat ``dict[str, Tensor]`` with ``/``-joined names.
 A nested dict ``{"c1": {"w": a}}`` becomes ``{"c1/w": tensor(a)}``; an
 empty tuple (the reference's SGD state) becomes ``{}``.  The reference's LM
 parameters (``init_lm``) become ``embed/tok``, ``blocks/s0_mix/w_z`` (with
-the stacked block axis) and so on, and its decode cache (``init_cache``,
-``prefill``) ``s0/state``, ``s0/conv_x`` and so on; the LLM algorithms'
+the stacked block axis), ``blocks/s0_mix/wq``, ``blocks/s0_ffn/w_gate``
+and so on, and its decode cache (``init_cache``, ``prefill``)
+``s0/state``, ``s0/conv_x`` (Mamba) or the ring buffers ``s0/k``, ``s0/v``
+(attention) and so on; the LLM algorithms'
 client-stacked parameters (leaves (K, ...), ``core.llm_algorithms``) cross
 the same way, leading client axis and all.  numpy has no bfloat16
 of its own: the reference's bf16 leaves arrive as ``ml_dtypes.bfloat16``

@@ -1,9 +1,11 @@
 """Serving driver over `repro_torch.serve` (mirrors
 ``repro/launch/serve.py``): continuous-batching greedy decode with the
-O(1) SSM state.
+O(1) SSM state (mamba2-2.7b, the default) or a ring-buffer KV cache (the
+dense family, e.g. ``--arch qwen1.5-4b``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve               # the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b
 
 The default path drives `ServeEngine` (slot-based continuous batching).
 ``--decode-chunk d`` runs d decode steps per host sync and
@@ -11,7 +13,8 @@ The default path drives `ServeEngine` (slot-based continuous batching).
 prefill — both token-identical to the step-at-a-time defaults.
 ``--lockstep`` runs the whole-batch baseline — one prefill, all requests
 decoding in lockstep — which the tests hold the engine to.
-On the card the prefill's within-chunk SSD blocks run K5.
+On the card a Mamba prefill's within-chunk SSD blocks run K5; attention
+is plain PyTorch.
 Weights are random, drawn from ``--seed`` on the chosen device.
 """
 from __future__ import annotations

@@ -114,6 +114,11 @@ def _config(args):
     """The model config (``--smoke`` cuts it) and the device; prints the
     arch line."""
     cfg = get_config(args.arch)
+    if cfg.arch_type == "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the dense family comes with the next "
+            f"slice of the port (K1/K2 streaming a {cfg.vocab}-class row "
+            f"through shared memory in tiles); mamba2-2.7b trains today")
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)

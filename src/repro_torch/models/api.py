@@ -1,5 +1,5 @@
 """Uniform model API (mirrors ``repro/models/api.py``), token-only
-architectures.
+architectures: the dense family and Mamba2.
 
 ``batch`` dicts carry ``tokens`` (B, S) int.  The audio (encoder-decoder)
 and VLM (patch prefix) branches come with a later slice and raise.
@@ -42,7 +42,8 @@ def model_logits(cfg: ModelConfig, params: dict, batch: dict,
 
 def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
                      seq_len: int) -> dict:
-    """An empty decode cache on the parameters' device."""
+    """An empty decode cache for ``seq_len`` positions (it sizes the
+    attention ring buffers) on the parameters' device."""
     _token_only(cfg)
     return T.init_cache(cfg, batch_size, seq_len,
                         params["embed/tok"].device)
@@ -50,6 +51,8 @@ def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
 
 def model_decode_step(cfg: ModelConfig, params: dict, cache: dict,
                       token: torch.Tensor, pos):
+    """One decode step at each row's position ``pos`` ((B,) or a scalar);
+    writes ``cache`` in place (see `transformer.decode_step`)."""
     _token_only(cfg)
     return T.decode_step(cfg, params, cache, token, pos)
 

@@ -1,13 +1,14 @@
-"""Primitive layers (mirrors ``repro/models/layers.py``, the parts the
-Mamba2 slice runs): init, RMSNorm, embeddings.
+"""Primitive layers (mirrors ``repro/models/layers.py``): init, RMSNorm,
+MLPs, RoPE, embeddings.
 
 Parameters are flat dicts of tensors.  Matmul inputs stay in ``cfg.dtype``
-(bf16 at full width) with fp32 normalization statistics, as in the
-reference.  The MLP and RoPE come with the attention slice.
+(bf16 at full width) with fp32 normalization statistics and RoPE angles, as
+in the reference.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .base import ModelConfig
 
@@ -36,6 +37,67 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ MLPs ----
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
+             n_blocks: int | None = None) -> dict:
+    """One MLP's parameters; with ``n_blocks`` every leaf gets that leading
+    axis (the stacked block layout)."""
+    d, f = cfg.d_model, cfg.d_ff
+    lead = () if n_blocks is None else (n_blocks,)
+    s_in, s_out = d ** -0.5, f ** -0.5
+
+    def normal(shape, scale):
+        return _init(gen, lead + shape, scale, cfg.cdtype, device)
+
+    p = {"w_down": normal((f, d), s_out)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = normal((d, f), s_in)
+        p["w_up"] = normal((d, f), s_in)
+    else:  # gelu
+        p["w_up"] = normal((d, f), s_in)
+        p["b_up"] = torch.zeros(lead + (f,), dtype=cfg.cdtype, device=device)
+        p["b_down"] = torch.zeros(lead + (d,), dtype=cfg.cdtype,
+                                  device=device)
+    return p
+
+
+def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif cfg.act == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    out = h @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
+
+
+# ------------------------------------------------------------------ RoPE ----
+def rope_freqs(cfg: ModelConfig, positions: torch.Tensor):
+    """positions: (...,) int -> cos/sin of shape (..., hd/2) in fp32."""
+    hd = cfg.hd
+    inv = 1.0 / (cfg.rope_theta ** (torch.arange(
+        0, hd, 2, dtype=F32, device=positions.device) / hd))
+    ang = positions.to(F32)[..., None] * inv                 # (..., hd/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (S, hd/2) or (B, S, hd/2).  The rotation
+    of the two halves is computed in fp32 and cast back to x's dtype."""
+    xf = x.to(F32)
+    x1, x2 = xf.chunk(2, dim=-1)
+    if cos.dim() == 2:                      # (S, hd/2) -> over B and H
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                                   # (B, S, hd/2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 

@@ -1,20 +1,24 @@
 """Decoder stack (mirrors ``repro/models/transformer.py``), for the block
-patterns whose sub-layers the port has: ``("mamba", "none")``.
+patterns whose sub-layers the port has: the attention and Mamba mixers,
+the MLP or no FFN (the dense family's ``("attn", "mlp")`` and Mamba2's
+``("mamba", "none")``); the MoE FFN raises.
 
 A model is ``cfg.n_blocks`` repetitions of ``cfg.pattern``.  Block
 parameters keep the reference's stacked leading ``n_blocks`` axis
-(``blocks/s0_mix/w_z`` is (n_blocks, d_model, d_inner)); the passes loop
-over it in Python where the reference runs ``lax.scan``.
+(``blocks/s0_mix/wq`` is (n_blocks, d_model, heads * head_dim)); the
+passes loop over it in Python where the reference runs ``lax.scan``.
 
 Execution modes:
   * ``lm_logits``    - full-sequence logits
   * ``prefill``      - full-sequence forward that also builds the decode cache
-  * ``decode_step``  - one token against the O(1) SSM state
+  * ``decode_step``  - one token against a ring-buffer KV cache / SSM state,
+    every row at its own position, the cache written in place
 
 Every Mamba mixer's within-chunk block goes through K5
 (`kernels.ops.ssd_chunk`, its plain version on CPU tensors) unless
 ``use_ssd_kernel=False`` asks for the differentiable `ssm._chunk_local`,
 the reference's switch (training runs that route: K5 has no backward).
+Attention and the MLP are plain PyTorch, as in the reference.
 Where autograd records, each block is a checkpoint
 (``torch.utils.checkpoint``, the reference's ``remat``): the backward
 recomputes it.
@@ -24,22 +28,18 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .attention import (attn_decode_step, attn_forward, init_attn,
+                        init_kv_cache, ring_layout)
 from .base import ModelConfig
-from .layers import embed, init_embed, init_rmsnorm, rmsnorm, sub, unembed
+from .layers import (embed, init_embed, init_mlp, init_rmsnorm, mlp, rmsnorm,
+                     sub, unembed)
 from .ssm import init_mamba, init_ssm_cache, mamba_decode_step, mamba_forward
 
-_LATER = {"attn": "the attention mixer", "mlp": "the MLP FFN",
-          "moe": "the MoE FFN"}
-
-
 def _check_pattern(cfg: ModelConfig) -> None:
-    for mixer, ffn in cfg.pattern:
-        for part in (mixer, ffn):
-            if part in _LATER:
-                raise NotImplementedError(
-                    f"{cfg.name}: {_LATER[part]} is not ported yet (a later "
-                    f"slice of the port); this slice runs the "
-                    f"('mamba', 'none') pattern")
+    if any(ffn == "moe" for _, ffn in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN is not ported yet (a later slice of "
+            f"the port); the attention and Mamba mixers and the MLP run")
 
 
 def _block(params: dict, i: int) -> dict:
@@ -53,30 +53,55 @@ def _block(params: dict, i: int) -> dict:
 # ------------------------------------------------------------------- init ----
 def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Flat parameters: ``embed/tok``, ``blocks/s{i}_n1/scale``,
-    ``blocks/s{i}_mix/<leaf>`` with the leading n_blocks axis, and
-    ``final_norm/scale``."""
+    ``blocks/s{i}_mix/<leaf>`` (and ``blocks/s{i}_n2/scale``,
+    ``blocks/s{i}_ffn/<leaf>`` where the pattern has an FFN) with the
+    leading n_blocks axis, and ``final_norm/scale``."""
     _check_pattern(cfg)
     nb = cfg.n_blocks
     params = {f"embed/{k}": v for k, v in init_embed(gen, cfg, device).items()}
-    for i in range(len(cfg.pattern)):
-        params[f"blocks/s{i}_n1/scale"] = torch.ones(
+
+    def norm(name):
+        params[f"blocks/{name}/scale"] = torch.ones(
             (nb, cfg.d_model), dtype=torch.float32, device=device)
-        for k, v in init_mamba(gen, cfg, device, n_blocks=nb).items():
+
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
+        norm(f"s{i}_n1")
+        init_mix = init_attn if mixer == "attn" else init_mamba
+        for k, v in init_mix(gen, cfg, device, n_blocks=nb).items():
             params[f"blocks/s{i}_mix/{k}"] = v
+        if ffn != "none":
+            norm(f"s{i}_n2")
+            for k, v in init_mlp(gen, cfg, device, n_blocks=nb).items():
+                params[f"blocks/s{i}_ffn/{k}"] = v
     params["final_norm/scale"] = init_rmsnorm(cfg.d_model, device)["scale"]
     return params
 
 
 # --------------------------------------------------------------- forward ----
+def _ffn(cfg: ModelConfig, bp: dict, i: int, ffn: str,
+         x: torch.Tensor) -> torch.Tensor:
+    """Sub-layer i's FFN residual step (none for ``"none"``)."""
+    if ffn == "none":
+        return x
+    h = rmsnorm(sub(bp, f"s{i}_n2"), x, cfg.norm_eps)
+    return x + mlp(sub(bp, f"s{i}_ffn"), cfg, h)
+
+
 def _block_forward(cfg: ModelConfig, bp: dict, x: torch.Tensor,
                    use_ssd_kernel: bool = True):
     """One pattern-repeat in full-sequence mode.  Returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, _ in enumerate(cfg.pattern):
+    S = x.shape[1]
+    c = 1024 if S >= 2048 else S        # the reference backbone's chunks
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
         h = rmsnorm(sub(bp, f"s{i}_n1"), x, cfg.norm_eps)
-        out = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h,
-                            use_ssd_kernel=use_ssd_kernel)
-        x = x + out
+        if mixer == "attn":
+            out = attn_forward(sub(bp, f"s{i}_mix"), cfg, h, q_chunk=c,
+                               kv_chunk=c)
+        else:
+            out = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h,
+                                use_ssd_kernel=use_ssd_kernel)
+        x = _ffn(cfg, bp, i, ffn, x + out)
     return x, aux
 
 
@@ -115,71 +140,100 @@ def lm_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 # ----------------------------------------------------------------- decode ----
+def _window(cfg: ModelConfig, seq_len: int) -> int:
+    """Ring-buffer slots of an attention sub-layer for ``seq_len``."""
+    return min(seq_len, cfg.sliding_window or seq_len)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
-    """Decode cache: the O(1) SSM state and conv windows of every Mamba
-    sub-layer, ``s{i}/<leaf>`` with the leading n_blocks axis.  ``seq_len``
-    sizes attention ring buffers, which this slice does not have."""
+    """Decode cache for ``seq_len`` positions, ``s{i}/<leaf>`` with the
+    leading n_blocks axis: attention sub-layers get ring buffers ``k`` and
+    ``v`` of (n_blocks, batch, W, Kh, hd), W = min(seq_len, sliding_window);
+    Mamba sub-layers the O(1) SSM state and conv windows."""
     _check_pattern(cfg)
-    del seq_len
     cache = {}
-    for i in range(len(cfg.pattern)):
-        for k, v in init_ssm_cache(cfg, batch, device).items():
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        one = (init_kv_cache(cfg, batch, _window(cfg, seq_len), device)
+               if mixer == "attn" else init_ssm_cache(cfg, batch, device))
+        for k, v in one.items():
             cache[f"s{i}/{k}"] = v[None].expand(
                 (cfg.n_blocks,) + tuple(v.shape)).contiguous()
     return cache
 
 
-def _block_decode(cfg: ModelConfig, bp: dict, bc: dict, x: torch.Tensor):
-    new_cache = {}
-    for i, _ in enumerate(cfg.pattern):
+def _block_decode(cfg: ModelConfig, bp: dict, bc: dict, x: torch.Tensor,
+                  pos: torch.Tensor):
+    """One pattern-repeat of decode; writes its cache views ``bc`` in
+    place."""
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
         h = rmsnorm(sub(bp, f"s{i}_n1"), x, cfg.norm_eps)
-        out, nc = mamba_decode_step(sub(bp, f"s{i}_mix"), cfg, h,
-                                    sub(bc, f"s{i}"))
-        new_cache.update({f"s{i}/{k}": v for k, v in nc.items()})
-        x = x + out
-    return x, new_cache
+        mine = sub(bc, f"s{i}")
+        if mixer == "attn":
+            out, _ = attn_decode_step(sub(bp, f"s{i}_mix"), cfg, h, mine, pos)
+        else:
+            out, new = mamba_decode_step(sub(bp, f"s{i}_mix"), cfg, h, mine)
+            for k, v in new.items():
+                mine[k].copy_(v)
+        x = _ffn(cfg, bp, i, ffn, x + out)
+    return x
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 token: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
-    """One decode step.  token: (B,) int; ``pos`` is the position the
-    attention sub-layers would read (Mamba reads none).  Returns
-    (logits (B, V), new cache); the cache passed in is not written."""
-    del pos
+    """One decode step.  token: (B,) int; ``pos``: each row's position,
+    (B,) or one scalar for every row.  Returns (logits (B, V), cache).
+
+    The cache passed in is written in place and returned: each attention
+    ring buffer (``s{i}/k``, ``s{i}/v``) at slot pos % W of each row, and
+    every Mamba leaf (``state``, ``conv_*``) whole.  A caller that needs
+    the cache as it was clones it first."""
     x = embed(sub(params, "embed"), cfg, token[:, None])
-    new_cache = {k: torch.empty_like(v) for k, v in cache.items()}
+    pos = torch.as_tensor(pos, device=x.device)
     for b in range(cfg.n_blocks):
-        x, nc = _block_decode(cfg, _block(params, b),
-                              {k: v[b] for k, v in cache.items()}, x)
-        for k, v in nc.items():
-            new_cache[k][b] = v
+        x = _block_decode(cfg, _block(params, b),
+                          {k: v[b] for k, v in cache.items()}, x, pos)
     x = rmsnorm(sub(params, "final_norm"), x, cfg.norm_eps)
-    return unembed(sub(params, "embed"), cfg, x)[:, 0], new_cache
+    return unembed(sub(params, "embed"), cfg, x)[:, 0], cache
 
 
 # ---------------------------------------------------------------- prefill ----
-def _block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor):
+def _block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+                   seq_len: int):
     """Full-seq forward that also emits this block's decode cache."""
     cache = {}
-    for i, _ in enumerate(cfg.pattern):
+    S = x.shape[1]
+    c = min(1024, S)
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
         h = rmsnorm(sub(bp, f"s{i}_n1"), x, cfg.norm_eps)
-        out, c = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h,
-                               return_cache=True)
-        cache.update({f"s{i}/{k}": v for k, v in c.items()})
-        x = x + out
+        if mixer == "attn":
+            W = _window(cfg, seq_len)
+            out, k, v = attn_forward(sub(bp, f"s{i}_mix"), cfg, h,
+                                     q_chunk=c, kv_chunk=c, return_kv=True)
+            cache[f"s{i}/k"] = ring_layout(k, W)
+            cache[f"s{i}/v"] = ring_layout(v, W)
+        else:
+            out, mc = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h,
+                                    return_cache=True)
+            cache.update({f"s{i}/{k}": v for k, v in mc.items()})
+        x = _ffn(cfg, bp, i, ffn, x + out)
     return x, cache
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             seq_len: int | None = None):
-    """Prefill: returns (last-token logits (B, V), decode cache)."""
+    """Prefill: returns (last-token logits (B, V), decode cache).
+    ``seq_len`` (default: the prompt's length) sizes the attention ring
+    buffers.  Each block's cache lands in the stacked (n_blocks, ...)
+    leaves as it is made, so no second copy of the cache is held."""
     _check_pattern(cfg)
-    del seq_len                     # sizes attention caches only
+    seq_len = seq_len or tokens.shape[1]
     x = embed_inputs(cfg, params, tokens)
-    caches = []
+    cache = {}
     for b in range(cfg.n_blocks):
-        x, c = _block_prefill(cfg, _block(params, b), x)
-        caches.append(c)
-    cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        x, c = _block_prefill(cfg, _block(params, b), x, seq_len)
+        for k, v in c.items():
+            if b == 0:
+                cache[k] = v.new_empty((cfg.n_blocks,) + tuple(v.shape))
+            cache[k][b] = v
     x = rmsnorm(sub(params, "final_norm"), x[:, -1:], cfg.norm_eps)
     return unembed(sub(params, "embed"), cfg, x)[:, 0], cache

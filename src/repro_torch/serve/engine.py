@@ -2,14 +2,17 @@
 ``repro/serve/engine.py``).
 
 `ServeEngine` holds a fixed-capacity decode batch — ``slots`` lanes of the
-O(1) SSM decode cache (`models.api`) — and drives it with:
+decode cache (`models.api`): ring-buffer KV caches of ``seq_budget``
+positions for attention archs, the O(1) SSM state for Mamba — and drives
+it with:
 
   * one **decode step** for all slots at once: the slot axis is the batch
-    axis of the cache, greedy argmax on the device.  Free slots compute
-    garbage lanes that nothing reads, so admitting and evicting requests
-    never changes a shape.  (Mamba decode reads no position; each slot's
-    position is still kept, as the reference keeps it, for the attention
-    sub-layers of a later slice.)
+    axis of the cache, each slot at its own position (the reference vmaps
+    one scalar position over the slots), greedy argmax on the device.  The
+    step writes each slot's new K/V into its ring buffer in place (the
+    reference donates the cache).  Free slots compute garbage lanes that
+    nothing reads, so admitting and evicting requests never changes a
+    shape.
   * a **fused decode chunk**: ``step(now, decode_chunk=d)`` runs d decode
     steps back to back on device tensors — token, position, tokens still
     owed and prompt-tail tokens still to force — and syncs the host
@@ -19,8 +22,9 @@ O(1) SSM decode cache (`models.api`) — and drives it with:
     d single steps; mid-chunk finishers are stamped at their true virtual
     sub-step time (``now + j * step_dt``).
   * a **prefill-insert** per request: prefill the largest bucket-length
-    *prefix* of the prompt in one full-sequence shot, write the resulting
-    one-request cache into the claimed slot, and feed the prompt tail
+    *prefix* of the prompt in one full-sequence shot (its ring buffers
+    sized by ``seq_budget``), write the resulting one-request cache into
+    the claimed slot in place, and feed the prompt tail
     through the decode step as forced tokens.  No prompt padding enters the
     model, so a request decodes token-identically to serving it alone.
     Bucket 1 is always a bucket, so a prompt shorter than every configured
@@ -32,8 +36,9 @@ O(1) SSM decode cache (`models.api`) — and drives it with:
     the port runs eagerly and prefills exactly the m rows.
 
 Per-slot bookkeeping (prompt tail, generated tokens, timestamps) is plain
-host Python.  Every prefill's within-chunk SSD blocks go through K5
-(`kernels.ops.ssd_chunk`).
+host Python.  Every Mamba prefill's within-chunk SSD blocks go through K5
+(`kernels.ops.ssd_chunk`); attention is plain PyTorch, as in the
+reference.
 
 The reference's compiled-program counts (``compile_counts``) have no
 counterpart here yet: the port runs eagerly, and CUDA-graph capture counts
@@ -147,9 +152,10 @@ class ServeEngine:
                              {"tokens": self._dev(toks)}, self.seq_budget)
 
     def reset(self) -> None:
-        """Drop all in-flight requests and re-zero the cache and positions."""
-        self.cache = model_init_cache(self.cfg, self.params, self.slots,
-                                      self.seq_budget)
+        """Drop all in-flight requests and re-zero the cache (in place) and
+        positions."""
+        for v in self.cache.values():
+            v.zero_()
         self.tok[:] = 0
         self.pos[:] = 0
         self.tasks = [None] * self.slots
@@ -209,7 +215,7 @@ class ServeEngine:
         logits, one = self._prefill(np.asarray(req.tokens[:n],
                                                np.int64)[None])
         for k, full in self.cache.items():
-            full[:, slot] = one[k][:, 0].to(full.dtype)
+            full[:, slot].copy_(one[k][:, 0])
         first = int(torch.argmax(logits[0]))
         self.n_inserts += 1
         self.n_prefill_shots += 1
@@ -247,7 +253,7 @@ class ServeEngine:
         logits, many = self._prefill(toks)
         lanes = self._dev(np.asarray(claimed, np.int64))
         for k, full in self.cache.items():
-            full[:, lanes] = many[k].to(full.dtype)
+            full.index_copy_(1, lanes, many[k])
         firsts = torch.argmax(logits, dim=-1).cpu().numpy()
         self.n_inserts += m
         self.n_prefill_shots += 1

@@ -5,13 +5,18 @@ own invariants, mirroring tests/test_serve.py: staggered requests decode as
 each alone, ``insert_batch`` as single inserts, ``decode_chunk=d`` as d
 single steps (mid-chunk finishers included), a swap lands at a chunk
 boundary, and a prompt shorter than every bucket (bucket-1 prefill, tail
-forced through decode) as an exact-length prefill.
+forced through decode) as an exact-length prefill.  As the reference's
+tests do, the engine tests run on both families: ``arch`` ``"qwen"``
+(qwen1.5-4b's ring-buffer KV cache, each slot at its own position) and
+``"mamba"`` (mamba2-2.7b's O(1) SSM state).
 
-Weights: the reference's ``init_lm`` of mamba2-2.7b at smoke size with the
-embedding scaled by 0.1 (at unit scale the residual stream is the input
-token's embedding and greedy decoding repeats the last prompt token, which
-would make token identity a weak check).  Tokens must match exactly."""
+Weights: the reference's ``init_lm`` at smoke size with the embedding
+scaled by 0.1 for mamba and 0.03 for qwen (at unit scale the residual
+stream is the input token's embedding and greedy decoding repeats the last
+prompt token, which would make token identity a weak check; qwen's smoke
+model still repeats it at 0.1).  Tokens must match exactly."""
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -33,27 +38,43 @@ from repro_torch.serve import (AdmissionQueue, Request, ServeEngine,
 from test_torch_convert import to_port
 
 CPU = "cpu"
-JCFG = jget_config("mamba2-2.7b").smoke()
+ARCHS = {"qwen": "qwen1.5-4b", "mamba": "mamba2-2.7b"}
+EMBED_SCALE = {"qwen": 0.03, "mamba": 0.1}
 CFG = get_config("mamba2-2.7b").smoke()
 BUCKETS = (8, 16)
 BUDGET = 48
 
 
-def _scaled_init(seed):
-    p = jax.jit(lambda k: JT.init_lm(JCFG, k))(jax.random.PRNGKey(seed))
-    p["embed"]["tok"] = p["embed"]["tok"] * 0.1
+def _scaled_init(arch, jcfg, seed):
+    p = jax.jit(lambda k: JT.init_lm(jcfg, k))(jax.random.PRNGKey(seed))
+    p["embed"]["tok"] = p["embed"]["tok"] * EMBED_SCALE[arch]
     return p
+
+
+def _model(arch):
+    jcfg = jget_config(ARCHS[arch]).smoke()
+    jp = _scaled_init(arch, jcfg, 0)
+    return SimpleNamespace(arch=arch, jcfg=jcfg,
+                           cfg=get_config(ARCHS[arch]).smoke(), jp=jp,
+                           tp=to_port(jp))
+
+
+@pytest.fixture(scope="module", params=list(ARCHS))
+def model(request):
+    """Each family's smoke model: reference config and weights, the port's
+    config and the same weights."""
+    return _model(request.param)
 
 
 @pytest.fixture(scope="module")
 def weights():
-    jp = _scaled_init(0)
-    return jp, to_port(jp)
+    """mamba2-2.7b's smoke model, for the tests that run one family."""
+    return _model("mamba")
 
 
-def _params(weights):
+def _params(model):
     """A private copy of the port's weights (a swap writes in place)."""
-    return {k: v.clone() for k, v in weights[1].items()}
+    return {k: v.clone() for k, v in model.tp.items()}
 
 
 def _prompts(lens, seed=3):
@@ -71,8 +92,8 @@ def _drain(engine, now=0.0, d=1):
     return out
 
 
-def _solo(params, tokens, max_new, buckets=BUCKETS):
-    eng = ServeEngine(CFG, params, slots=1, seq_budget=BUDGET,
+def _solo(params, tokens, max_new, buckets=BUCKETS, cfg=CFG):
+    eng = ServeEngine(cfg, params, slots=1, seq_budget=BUDGET,
                       buckets=buckets, device=CPU)
     eng.insert(Request(id=0, tokens=tokens, max_new_tokens=max_new))
     (r,) = _drain(eng)
@@ -120,20 +141,21 @@ def _fields(items):
 
 
 # ------------------------------------------------------- parity with JAX --
-def test_engine_matches_reference_lockstep(weights):
+def test_engine_matches_reference_lockstep(model):
     """Bucket-exact prompts: the port's engine (one prefill per request,
     decode over the slot batch) and the port's own lockstep path give the
     reference lockstep path's greedy tokens exactly."""
-    jp, _ = weights
+    cfg = model.cfg
     B, S, gen = 3, 16, 8
-    tokens = np.random.default_rng(0).integers(0, CFG.vocab, size=(B, S))
-    base, _ = j_lockstep(JCFG, jp, {"tokens": jnp.asarray(tokens, jnp.int32)},
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(B, S))
+    base, _ = j_lockstep(model.jcfg, model.jp,
+                         {"tokens": jnp.asarray(tokens, jnp.int32)},
                          gen, S + gen)
     base = np.asarray(base)
     assert len(set(base.ravel().tolist())) > gen      # not a repeated token
 
-    params = _params(weights)
-    eng = ServeEngine(CFG, params, slots=B, seq_budget=S + gen,
+    params = _params(model)
+    eng = ServeEngine(cfg, params, slots=B, seq_budget=S + gen,
                       buckets=(S,), device=CPU)
     for i in range(B):
         eng.insert(Request(id=i, tokens=tuple(int(t) for t in tokens[i]),
@@ -142,7 +164,7 @@ def test_engine_matches_reference_lockstep(weights):
     for i in range(B):
         assert got[i] == tuple(int(t) for t in base[i])
 
-    toks, times = t_lockstep(CFG, params,
+    toks, times = t_lockstep(cfg, params,
                              {"tokens": torch.from_numpy(tokens)}, gen,
                              S + gen)
     np.testing.assert_array_equal(toks.numpy(), base)
@@ -150,12 +172,14 @@ def test_engine_matches_reference_lockstep(weights):
 
 
 # -------------------------------------------------------------- invariants --
-def test_staggered_requests_match_each_alone(weights):
-    params = _params(weights)
+def test_staggered_requests_match_each_alone(model):
+    """Slots at different depths decode in one step: the queue admits the
+    fourth request while the others are mid-generation."""
+    params, cfg = _params(model), model.cfg
     prompts = _prompts(lens=(5, 12, 20, 16))
     max_new = 6
-    solo = [_solo(params, p, max_new) for p in prompts]
-    eng = ServeEngine(CFG, params, slots=3, seq_budget=BUDGET,
+    solo = [_solo(params, p, max_new, cfg=cfg) for p in prompts]
+    eng = ServeEngine(cfg, params, slots=3, seq_budget=BUDGET,
                       buckets=BUCKETS, device=CPU)
     q = AdmissionQueue(buckets=BUCKETS)
     for i, p in enumerate(prompts):            # staggered arrivals
@@ -171,24 +195,25 @@ def test_staggered_requests_match_each_alone(weights):
     assert eng.stats()["inserts"] == 4 and eng.n_prefill_shots == 4
 
 
-def test_short_prompt_through_bucket_one_matches_exact_prefill(weights):
+def test_short_prompt_through_bucket_one_matches_exact_prefill(model):
     """Prompts of 1, 2 and 5 tokens (shorter than every bucket) prefill
     their first token and force the rest through decode; the tokens equal
     an engine whose bucket is the exact prompt length."""
-    params = _params(weights)
+    params, cfg = _params(model), model.cfg
     for p in _prompts(lens=(1, 2, 5), seed=4):
-        eng = ServeEngine(CFG, params, slots=1, seq_budget=BUDGET,
+        eng = ServeEngine(cfg, params, slots=1, seq_budget=BUDGET,
                           buckets=BUCKETS, device=CPU)
         assert eng.buckets == (1, 8, 16) and eng.prefill_len(len(p)) == 1
-        assert _solo(params, p, 4) == _solo(params, p, 4, buckets=(len(p),))
+        assert _solo(params, p, 4, cfg=cfg) == _solo(
+            params, p, 4, buckets=(len(p),), cfg=cfg)
 
 
-def test_insert_batch_matches_single_insert(weights):
-    params = _params(weights)
+def test_insert_batch_matches_single_insert(model):
+    params, cfg = _params(model), model.cfg
     prompts = _prompts(lens=(9, 12, 15), seed=6)
     max_new = 5
-    solo = [_solo(params, p, max_new) for p in prompts]
-    eng = ServeEngine(CFG, params, slots=4, seq_budget=BUDGET,
+    solo = [_solo(params, p, max_new, cfg=cfg) for p in prompts]
+    eng = ServeEngine(cfg, params, slots=4, seq_budget=BUDGET,
                       buckets=BUCKETS, device=CPU)
     shots, prefill = [], eng._prefill
     eng._prefill = lambda toks: shots.append(toks.shape) or prefill(toks)
@@ -213,8 +238,8 @@ def test_insert_batch_matches_single_insert(weights):
     assert eng.insert_batch([]) == []
 
 
-def _drive_chunked(params, prompts, max_news, d, eos_id=None, dt=0.5):
-    eng = ServeEngine(CFG, params, slots=len(prompts), seq_budget=BUDGET,
+def _drive_chunked(cfg, params, prompts, max_news, d, eos_id=None, dt=0.5):
+    eng = ServeEngine(cfg, params, slots=len(prompts), seq_budget=BUDGET,
                       buckets=BUCKETS, eos_id=eos_id, device=CPU)
     for i, (p, m) in enumerate(zip(prompts, max_news)):
         eng.insert(Request(id=i, tokens=p, max_new_tokens=m), now=0.0)
@@ -227,20 +252,21 @@ def _drive_chunked(params, prompts, max_news, d, eos_id=None, dt=0.5):
     return {r.id: r for r in out}, eng
 
 
-def test_fused_decode_chunk_matches_single_step(weights):
+def test_fused_decode_chunk_matches_single_step(model):
     """Tokens, timestamps and accounted steps of decode_chunk=d equal d
     single steps, with requests finishing mid-chunk (max tokens 2/6/9
     against d=4), prompt tails crossing chunk boundaries, and an EOS
     finisher."""
-    params = _params(weights)
+    params, cfg = _params(model), model.cfg
     prompts = _prompts(lens=(3, 12, 20), seed=5)
     max_news = (2, 6, 9)
-    base, beng = _drive_chunked(params, prompts, max_news, d=1)
+    base, beng = _drive_chunked(cfg, params, prompts, max_news, d=1)
     eos = base[2].tokens[3]                  # req 2 stops at or before it
-    base_eos, _ = _drive_chunked(params, prompts, max_news, d=1, eos_id=eos)
+    base_eos, _ = _drive_chunked(cfg, params, prompts, max_news, d=1,
+                                 eos_id=eos)
     assert len(base_eos[2].tokens) < 9
     for ref, eos_id in ((base, None), (base_eos, eos)):
-        got, eng = _drive_chunked(params, prompts, max_news, d=4,
+        got, eng = _drive_chunked(cfg, params, prompts, max_news, d=4,
                                   eos_id=eos_id)
         if eos_id is None:
             assert eng.n_steps == beng.n_steps
@@ -251,14 +277,15 @@ def test_fused_decode_chunk_matches_single_step(weights):
             assert got[i].finished_at == ref[i].finished_at
 
 
-def test_hot_swap_lands_at_chunk_boundary(weights):
+def test_hot_swap_lands_at_chunk_boundary(model):
     """A swap between fused chunks equals the same swap between single
     steps at the same token index, and stamps the same version."""
-    new = to_port(_scaled_init(9))
+    cfg = model.cfg
+    new = to_port(_scaled_init(model.arch, model.jcfg, 9))
     prompt = _prompts(lens=(8,), seed=8)[0]
 
     def run(d):
-        eng = ServeEngine(CFG, _params(weights), slots=1, seq_budget=BUDGET,
+        eng = ServeEngine(cfg, _params(model), slots=1, seq_budget=BUDGET,
                           buckets=BUCKETS, device=CPU)
         eng.insert(Request(id=0, tokens=prompt, max_new_tokens=9))
         while eng.n_steps < 4:
@@ -276,14 +303,16 @@ def test_hot_swap_lands_at_chunk_boundary(weights):
     for k, v in new.items():
         torch.testing.assert_close(eng.params[k], v, atol=0, rtol=0)
     # the swap changed the tokens
-    assert _solo(_params(weights), prompt, 9) != single.tokens
+    assert _solo(_params(model), prompt, 9, cfg=cfg) != single.tokens
 
     bad = dict(new)
-    bad["blocks/s0_mix/w_z"] = bad["blocks/s0_mix/w_z"][..., :1]
+    leaf = {"qwen": "blocks/s0_mix/wq", "mamba": "blocks/s0_mix/w_z"}[
+        model.arch]
+    bad[leaf] = bad[leaf][..., :1]
     del bad["final_norm/scale"]
     with pytest.raises(ValueError, match="do not match") as err:
         eng.swap_weights(bad)
-    assert "blocks/s0_mix/w_z: shape" in str(err.value)
+    assert f"{leaf}: shape" in str(err.value)
     assert "missing leaf final_norm/scale" in str(err.value)
 
 

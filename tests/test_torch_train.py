@@ -67,6 +67,16 @@ def test_train_asks_for_the_card_by_default(monkeypatch):
             train.main(["--smoke", "--mode", mode, "--steps", "1"])
 
 
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "gemma-7b"])
+def test_train_refuses_the_dense_family_until_its_slice(arch):
+    """Training a dense arch raises before it builds anything, naming the
+    slice it waits for, on the CPU as on the card."""
+    for mode in ("dsfl", "local"):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            train.main(["--arch", arch, "--smoke", "--mode", mode,
+                        "--device", "cpu", "--steps", "1"])
+
+
 # ----------------------------------------------------------------- data -----
 def test_token_lm_shapes_range_and_chain():
     V, n, S = 97, 64, 40
