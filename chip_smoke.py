@@ -8,9 +8,11 @@ participation-sparse and two-level, FD and FedAvg), the federation
 simulator and the million-client cohort plane, serving mamba2-2.7b at full
 width (its SSD kernel K5 runs on the tensor cores), serving qwen1.5-4b at
 full width (the dense family: attention and MLPs in plain PyTorch, no
-kernel of K1-K5 on its path), and training mamba2-2.7b at full width with
-LLM-scale DS-FL and FedAvg (K1/K2, K3/K4 and K5 on its path).  Phases, in order; any failure exits non-zero and
-prints no result:
+kernel of K1-K5 on its path), and training mamba2-2.7b and qwen1.5-4b at
+full width with LLM-scale DS-FL and FedAvg (K1/K2, K3/K4 and, for Mamba,
+K5 on its path; qwen1.5-4b's 151,936-class rows take K1/K2's wide-row
+route).  Phases, in order; any failure exits non-zero and prints no
+result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
              off for matmuls and convolutions, so float32 means float32.
@@ -23,7 +25,12 @@ prints no result:
              32768) in f32 and bf16, zero-weight clients of +-1e30 rows
              (bitwise), two launches bitwise equal, the wrappers' refusals,
              and K2's weighted mean on the edge shards of (7, 13, 10) in 3
-             edges, two of them not 16-byte aligned;
+             edges, two of them not 16-byte aligned; the wide-row route
+             (rows past a block's shared memory) at K in (1, 3) x N in (1,
+             13, 100) x C in (58081, 100352, 151936, 256000) in f32 (atol
+             1e-6) and bf16 (5e-3), flat and peaked rows, zero-weight
+             clients of +-1e30 rows (bitwise) and two launches bitwise
+             equal at C = 151936;
              K3/K4 (distillation loss and gradient) at the round's
              distillation batch (100, 10) f32, at (333, 50001) f32 (no row
              16-byte aligned), at (2048, 151936) bf16 (the vocabulary of
@@ -48,7 +55,10 @@ prints no result:
              the host's launch rate at small shapes), hot (one input, kept
              in the L2 cache where it fits) and cold (cycling over copies
              larger together than the L2 cache), K1/K2 at the round's (100,
-             1000, 10), (100, 1000, 46) and (10, 256, 32768) f32, K3/K4 at
+             1000, 10), (100, 1000, 46) and (10, 256, 32768) f32, on the
+             wide-row route K1 and K2 at (2, 1024, 151936) bf16 (qwen1.5-4b's
+             uploads), K1 at (2, 1024, 256000) bf16 and K2's weighted mean
+             at (2, 1024, 151936) f32, K3/K4 at
              their four shapes, K5 at the prefill's and at the LLM round's
              (8, 128, 80, 64, 1, 128).  The bound is the larger of the
              bytes moved over 3.35 TB/s and the operations over the card's
@@ -79,9 +89,14 @@ prints no result:
              rounds and read just after; each round's own launches are held
              to what its path takes (K1 once a dense ERA round, K2 once a
              weighted, masked or sparse round and 4 times the two-level
-             round, FD and FedAvg none).  The sparse rounds are held to the
-             masked one: the aggregation weights and the 50 absent clients'
-             leaves bitwise, the rest within CARD_VS_CPU_ATOL/RTOL.  The
+             round, FD and FedAvg none).  The masked and sparse rounds run
+             under torch's deterministic algorithms (``deterministic``): with
+             the default ones the sparse round was 1.3e-6 from the masked one
+             in one run of this script and 3.5e-4 (past the limit) in
+             another, and it was not bitwise equal to itself.  The
+             sparse rounds are held to the masked one: the aggregation
+             weights and the 50 absent clients' leaves bitwise, the rest
+             within CARD_VS_CPU_ATOL/RTOL.  The
              round never reaches K3/K4 (its distillation calls the plain
              loss, as the JAX reference's does), so a side check then zeroes
              the counts again and runs the distillation loss of the final
@@ -184,7 +199,7 @@ prints no result:
 10. llm      LLM-scale training, `repro_torch.launch.train`'s code path
              (``setup``, ``run_rounds``, ``run_local``) at mamba2-2.7b's
              full width and 64 layers, bf16, K = 2 clients, batch 8, seq
-             128, open batch 8, the kernels on (``use_kernel``): DS-FL ERA 3
+             128, open batch 8, the kernels on (``use_kernel``): DS-FL ERA 2
              rounds, DS-FL ``--topk 8`` 1 round, DS-FL ``--participation
              0.5`` through ``SimRunner`` (one dense masked round, one
              participation-sparse), FedAvg 2 rounds, ``local`` 2 steps.  Each
@@ -200,7 +215,19 @@ prints no result:
              the bf16 teacher), the route check at full width in f32 (see
              LLM_ROUTE_LAYERS), and a smoke-config DS-FL and FedAvg round on
              the card against the CPU.
-11. the ``{"kernels": [...]}`` line, the card's line, and the result line.
+    llm qwen1.5-4b  the same five windows at qwen1.5-4b's full width and 40
+             layers (3,561,413,120 values a client, asserted; the tied
+             embedding scaled as in phase "serve qwen1.5-4b"): K1 3 / 1 / 0
+             and K2 0 / 0 / 2 in the DS-FL windows, K3/K4 one a client
+             step, K5 0; bytes held to ``CommModel`` (FP16 933,494,784 B,
+             top-k 196,608, FedAvg 42,736,957,440); a profiled client
+             step; K1-K4 at its (2, 1024, 151936) and (1024, 151936)
+             shapes; the route check in f32 at 12 layers (no prediction
+             leg: a dense forward runs no kernel); its smoke config's
+             DS-FL and FedAvg rounds on the card against the CPU.
+11. the ``{"kernels": [...]}`` line (launches on each path, ``wide``
+             timing rows for K1/K2, ``llm_qwen_launches``), the card's
+             line, and the result line.
 """
 from __future__ import annotations
 
@@ -239,6 +266,16 @@ LLM_KERNELS = ("distill_loss_fwd", "distill_loss_bwd")
 # K1/K2 timing shapes (K, N, C) f32: the DS-FL round's, reuters_dnn's 46
 # classes, and the edge of the kernel's regime (C = 32k), beyond the L2 cache
 ERA_SHAPES = ((100, 1000, 10), (100, 1000, 46), (10, 256, 32768))
+# K1/K2's wide-row route (rows of more than SMEM_BYTES / 4 = 58,080 f32
+# values): the classes it is checked at (the first past the narrow route,
+# phi3's, qwen1.5's and gemma's vocabularies), and its timing shapes: the
+# LLM round's uploads of qwen1.5-4b (K1 and K2) and of gemma's vocabulary
+# (K1) in bf16, and K2's weighted mean at qwen's in f32
+WIDE_C = (58_081, 100_352, 151_936, 256_000)
+WIDE_TIMING = (((2, 1024, 151_936), torch.bfloat16,
+                ("era_sharpen", "weighted_era_sharpen")),
+               ((2, 1024, 256_000), torch.bfloat16, ("era_sharpen",)),
+               ((2, 1024, 151_936), torch.float32, ("weighted_mean",)))
 # K3/K4 shapes (N, V, dtype): the round's distillation batch, a ragged f32
 # vocabulary (rows not 16-byte aligned), qwen1.5-4b's vocabulary in bf16,
 # and the LLM round's KD term (batch 8 x seq 128 tokens, mamba2-2.7b's
@@ -430,10 +467,12 @@ def era_calls(es, p, w, T=0.1):
             lambda: es.weighted_era_sharpen_plain(p, w, sharpen=False))}
 
 
-def era_timing(es, K, N, C, seed):
-    """K1, K2 and K2's weighted mean at (K, N, C) f32 (``es`` the module of
-    ``kernels/era_sharpen.py`` of the tree under test): each checked against
-    its plain version at atol 1e-6, then timed by stream events (``ms``, the
+def era_timing(es, K, N, C, seed, dtype=torch.float32,
+               names=("era_sharpen", "weighted_era_sharpen", "weighted_mean")):
+    """K1, K2 and K2's weighted mean (``names`` of them) at (K, N, C) in
+    ``dtype`` (``es`` the module of ``kernels/era_sharpen.py`` of the tree
+    under test): each checked against its plain version at atol 1e-6 (f32)
+    or 5e-3 (bf16), then timed by stream events (``ms``, the
     host's launch rate at small shapes), by a CUDA graph on one input
     (``graph_ms``, hot: the input stays in the L2 cache) and by a CUDA graph
     cycling over copies larger together than the L2 cache (``graph_cold_ms``,
@@ -441,17 +480,22 @@ def era_timing(es, K, N, C, seed):
     yardstick ``torch.mv(p.view(K, N*C).t(), w)`` the same three ways, and
     K1's row the graph time of zeroing the (N, C) output (``fill_graph_ms``:
     what the smallest kernel costs a launch in a graph)."""
-    p = _probs((K, N, C), seed)
+    p = _probs((K, N, C), seed, dtype)
     w = _weights(K, seed + 1)
     copies = [c for (c,) in cold_copies(p)]
-    n_in, n_out = K * N * C * 4, N * C * 4
+    elt = p.element_size()
+    atol = 1e-6 if dtype == torch.float32 else 5e-3
+    n_in, n_out = K * N * C * elt, N * C * 4
     bounds = {"era_sharpen": bound(n_in + n_out, K * N * C + 5 * N * C),
               "weighted_era_sharpen": bound(n_in + K * 4 + n_out,
                                             2 * K * N * C + 5 * N * C),
               "weighted_mean": bound(n_in + K * 4 + n_out, 2 * K * N * C)}
     rows = {}
+    dname = str(dtype).removeprefix("torch.")
     for name, (kern, plain) in era_calls(es, p, w).items():
-        err = check(f"{name} {(K, N, C)} f32", kern(), plain(), 1e-6)
+        if name not in names:
+            continue
+        err = check(f"{name} {(K, N, C)} {dname}", kern(), plain(), atol)
         cold = [era_calls(es, c, w)[name][0] for c in copies]
         b, by = bounds[name]
         rows[name] = dict(
@@ -461,14 +505,18 @@ def era_timing(es, K, N, C, seed):
             max_abs_err=err, ms=time_ms(kern), graph_ms=graph_ms(kern),
             graph_cold_ms=graph_ms(cold), plain_ms=time_ms(plain),
             bound_ms=b, bound_by=by, library_ms=None, shape=[K, N, C],
-            dtype="float32", cold_copies=len(copies))
+            dtype=dname, cold_copies=len(copies),
+            plan=str(es.launch_plan(K, N, C, dtype)))
     # the floor of a launch in a graph: the smallest kernel on the output
-    fill = torch.empty((N, C), device="cuda")
-    rows["era_sharpen"]["fill_graph_ms"] = graph_ms(fill.zero_)
-    lib = lambda q: (lambda: torch.mv(q.view(K, N * C).t(), w))
-    rows["weighted_mean"].update(
-        library_ms=time_ms(lib(p)), library_graph_ms=graph_ms(lib(p)),
-        library_graph_cold_ms=graph_ms([lib(c) for c in copies]))
+    if "era_sharpen" in rows:
+        fill = torch.empty((N, C), device="cuda")
+        rows["era_sharpen"]["fill_graph_ms"] = graph_ms(fill.zero_)
+        del fill
+    if "weighted_mean" in rows and dtype == torch.float32:
+        lib = lambda q: (lambda: torch.mv(q.view(K, N * C).t(), w))
+        rows["weighted_mean"].update(
+            library_ms=time_ms(lib(p)), library_graph_ms=graph_ms(lib(p)),
+            library_graph_cold_ms=graph_ms([lib(c) for c in copies]))
     del copies
     torch.cuda.empty_cache()
     return rows
@@ -538,13 +586,10 @@ def check_era(es):
         if not torch.equal(a, b):
             fail(f"{name}: two launches on one input differ")
     say("check K1/K2/weighted mean (100,1000,10): two launches bitwise equal ok")
-    big = es.SMEM_BYTES // 4 + 1
     before = dict(_build.LAUNCHES)
     refused = (("float64", lambda: es.era_sharpen(p.double(), 0.1)),
                ("not contiguous", lambda: es.era_sharpen(p.transpose(1, 2),
                                                          0.1)),
-               (f"C={big}", lambda: es.era_sharpen(
-                   torch.ones((1, 1, big), device="cuda"), 0.1)),
                ("weights (99,)", lambda: es.weighted_era_sharpen(p, w[:99])),
                ("float64 weights", lambda: es.weighted_era_sharpen(
                    p, w.double())))
@@ -575,6 +620,84 @@ def check_era(es):
               es.weighted_era_sharpen_plain(shard, ws, sharpen=False), 1e-6)
     if min(aligns) >= 16:
         fail("K2 edge shards: no shard started off a 16-byte boundary")
+    check_era_wide(es)
+
+
+def _peaked(shape, seed, dtype=torch.float32):
+    """Probabilities with one class of 0.9 a row that every client agrees
+    on (the rest 0.1 of `_probs`), so the T = 0.1 softmax over a
+    vocabulary-wide row is not flat (its largest value about 0.05 at C =
+    151,936) and atol 1e-6 is a check of the values."""
+    K, N, C = shape
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    hot = torch.randint(0, C, (N,), generator=g, device="cuda")
+    p = 0.1 * _probs(shape, seed)
+    p[:, torch.arange(N, device="cuda"), hot] += 0.9
+    return p.to(dtype)
+
+
+def check_era_wide(es):
+    """K1/K2 on the wide-row route (phase 3): C in WIDE_C, each past what a
+    block's shared memory holds (the first of them the wrapper refused
+    before the route), K in (1, 3) x N in (1, 13, 100), f32 at atol 1e-6
+    and bf16 at 5e-3, on `_probs`'s rows and on `_peaked`'s; at C =
+    151,936 zero-weight clients of +-1e30 rows change no bit of K2 or of
+    its weighted mean, and two launches give the same bits."""
+    if WIDE_C[0] != es.SMEM_BYTES // 4 + 1:
+        fail(f"wide route: the first checked C {WIDE_C[0]} is not the first "
+             f"past the narrow route, {es.SMEM_BYTES // 4 + 1}")
+    for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 5e-3)):
+        for C in WIDE_C:
+            worst, top = 0.0, 0.0
+            for K in (1, 3):
+                for N in (1, 13, 100):
+                    if not es.launch_plan(K, N, C, dtype).wide:
+                        fail(f"K1/K2 {(K, N, C)} {dtype}: not the wide route")
+                    for make in (_probs, _peaked):
+                        p = make((K, N, C), K * N + C, dtype)
+                        for name, (kern, plain) in era_calls(
+                                es, p, _weights(K, N, zeros=())).items():
+                            out, exp = kern(), plain()
+                            torch.cuda.synchronize()
+                            err = max_err(out, exp)
+                            worst = max(worst, err)
+                            if name != "weighted_mean":
+                                top = max(top, float(exp.max()))
+                            if (out.shape != (N, C)
+                                    or not close(out, exp, atol, 0)):
+                                fail(f"{name} wide {(K, N, C)} {dtype} "
+                                     f"({make.__name__}): max_abs_err "
+                                     f"{err:.3e} above {atol}")
+                        del p
+            say(f"check K1/K2/weighted mean wide route, K in (1, 3), N in "
+                f"(1, 13, 100), C={C} {dtype}, flat and peaked rows (largest"
+                f" sharpened value {top:.3g}): max_abs_err={worst:.3e} atol={atol} ok "
+                f"(plan at K=3, N=100: {es.launch_plan(3, 100, C, dtype)})")
+    C = 151_936
+    for dtype in (torch.float32, torch.bfloat16):
+        p = _peaked((3, 13, C), 8, dtype)
+        garbage = p.clone()
+        garbage[0], garbage[2] = 1e30, -1e30
+        w = _weights(3, 9, (0, 2))
+        for name in ("weighted_era_sharpen", "weighted_mean"):
+            kern = era_calls(es, p, w)[name][0]
+            a, b = kern(), kern()
+            c = era_calls(es, garbage, w)[name][0]()
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"{name} wide (3, 13, {C}) {dtype}: two launches differ")
+            if not torch.equal(a, c):
+                fail(f"{name} wide (3, 13, {C}) {dtype}: a zero-weight "
+                     f"client of +-1e30 rows changed the output bits")
+        a, b = es.era_sharpen(p, 0.1), es.era_sharpen(p, 0.1)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"era_sharpen wide (3, 13, {C}) {dtype}: two launches differ")
+        say(f"check K2 and weighted mean wide (3, 13, {C}) {dtype}, clients "
+            f"(0, 2) of weight 0 holding +-1e30: output bitwise equal; K1, K2"
+            f" and weighted mean: two launches bitwise equal ok")
+        del p, garbage
+    torch.cuda.empty_cache()
 
 
 def k3_plan(dl, z, t):
@@ -797,6 +920,15 @@ def phase_kernels_and_timing():
             extra.append(dict(name="weighted_mean", **rows["weighted_mean"]))
         else:
             extra += [dict(name=k, **r) for k, r in rows.items()]
+    wide = []
+    for i, (shape, dtype, names) in enumerate(WIDE_TIMING):
+        rows = era_timing(es, *shape, seed=11 + i, dtype=dtype, names=names)
+        wide += [dict(name=k, **r) for k, r in rows.items()]
+    for r in wide:
+        key = ("weighted_era_sharpen" if r["name"] == "weighted_mean"
+               else r["name"])
+        recs[key].setdefault("wide", []).append(r)
+    extra += wide
 
     # K3 / K4 ---------------------------------------------------------------
     def k34(N, V, dtype, seed, atol_f, tol_b):
@@ -1505,11 +1637,12 @@ def _leaves(state):
 
 def compare_sparse(pre, masked, sparse, mask):
     """The sparse round against the dense masked round from the same state
-    ``pre`` and draws.  Bitwise: the aggregation weights and every leaf of
-    the absent clients (their state before the round).  Within
-    CARD_VS_CPU_ATOL/RTOL: every other leaf and the scalar metrics (the
-    m-lane convolutions may run other cuDNN algorithms than the K-lane
-    ones).  Returns the largest difference and whether all was bitwise."""
+    ``pre`` and draws, both run under ``deterministic``.  Bitwise: the
+    aggregation weights and every leaf of the absent clients (their state
+    before the round).  Within CARD_VS_CPU_ATOL/RTOL: every other leaf and
+    the scalar metrics (the m-lane convolutions may run other cuDNN
+    algorithms than the K-lane ones).  Returns the largest difference and
+    whether all was bitwise."""
     (ms, mm), (ss, sm) = masked, sparse
     if not torch.equal(mm["agg_weights"], sm["agg_weights"]):
         fail("sparse round: the aggregation weights differ from the masked "
@@ -1596,10 +1729,12 @@ def phase_slice(smi):
                        ("weighted_era", algo_w)):
         state, _ = dsfl_round(algo, state, kind)
     pre = state
-    masked = dsfl_round(algo_era, pre, "era masked 50/100", **masked_kw)
-    sparse = [dsfl_round(algo_era, pre, f"era sparse 50/100, budget {BUDGET}"
-                         f" ({tag})", active_budget=BUDGET, **masked_kw)
-              for tag in ("first call at 50 lanes", "warm")]
+    with deterministic():              # rounds held to each other, bit for bit
+        masked = dsfl_round(algo_era, pre, "era masked 50/100", **masked_kw)
+        sparse = [dsfl_round(algo_era, pre, f"era sparse 50/100, budget "
+                             f"{BUDGET} ({tag})", active_budget=BUDGET,
+                             **masked_kw)
+                  for tag in ("first call at 50 lanes", "warm")]
     state, _ = dsfl_round(algo_tree, masked[0],
                           f"era two-level, {EDGES} edges")
     baselines = {}
@@ -1646,8 +1781,8 @@ def phase_slice(smi):
     same = all(torch.equal(a[k], b[k]) for k in a)
     say(f"sparse round run twice [{smi}]: largest difference between the two "
         f"runs {max(max_err(a[k], b[k]) for k in a):.3e} "
-        f"({'bitwise' if same else 'not bitwise'}; the round's own "
-        f"run-to-run spread on the card at {BUDGET} lanes)")
+        f"({'bitwise' if same else 'not bitwise'}; both under torch's "
+        f"deterministic algorithms, at {BUDGET} lanes)")
     for kind in ("fedavg", "fd"):
         rs = [r for r in recs if r["kind"] == kind]
         say(f"{kind} [{smi}]: " + "; ".join(
@@ -2439,8 +2574,6 @@ def phase_sim(smi, tmp):
 
 
 # ------------------------------------------------------------ phase llm ----
-LLM_ARGS = ["--arch", "mamba2-2.7b", "--clients", "2", "--batch", "8",
-            "--seq", "128"]
 LLM_K, LLM_B, LLM_S, LLM_V = 2, 8, 128, 50_280
 LLM_N = LLM_B * LLM_S                  # rows of the teacher and the KD term
 LLM_K5 = (LLM_B, LLM_S, 80, 64, 1, 128)  # a client's prediction, Q = seq
@@ -2473,6 +2606,12 @@ LLM_K5 = (LLM_B, LLM_S, 80, 64, 1, 128)  # a client's prediction, Q = seq
 LLM_ROUTE_LAYERS = 16
 LLM_ROUTE_RTOL = 1e-3
 LLM_ROUND_RTOL = 1e-2
+# Phase "llm qwen1.5-4b": the same windows and checks for the dense family.
+# Its route check runs 12 of the 40 layers in f32 (a client's 5.4 GB; the
+# stack, both routes' updates and a client's gradients about 50 GB) and has
+# no prediction leg (no kernel in a dense forward).
+QWEN_V = 151_936
+QWEN_ROUTE_LAYERS = 12
 
 
 def _llm_window(body):
@@ -2497,21 +2636,31 @@ def _llm_expect(name, launches, want):
     full = dict.fromkeys(launches, 0)
     full.update(want)
     if launches != full:
-        fail(f"llm {name}: launches {launches}, the path takes {full}")
+        fail(f"{name}: launches {launches}, the path takes {full}")
 
 
-def phase_llm(smi):
-    """LLM-scale DS-FL and FedAvg training of mamba2-2.7b at full width
-    through `repro_torch.launch.train`'s code path (phase "llm")."""
+def llm_windows(smi, label, arch, vocab, n_params, k5, teacher_note,
+                era_rounds=3):
+    """The LLM trainer's five windows through `repro_torch.launch.train`'s
+    code path (``parse_args``, ``setup``, ``run_rounds``, ``run_local``) at
+    ``arch``'s full width, K = 2, batch 8, seq 128 (phases "llm" and "llm
+    qwen1.5-4b"): DS-FL ERA ``era_rounds`` rounds (then `llm_step_trace`),
+    top-k 8 1 round, participation 0.5 (dense masked, then sparse), FedAvg 2 rounds,
+    ``local`` 2 steps.  Each window is held to exactly the launches its
+    path takes (``k5`` a prediction: 64 a Mamba layer stack, 0 for the
+    dense family; K1 a dense teacher, K2 a weighted one, K3/K4 a client
+    step), its bytes to `CommModel`, ``n_params`` a client and finite
+    losses.  Returns each window's launches."""
     from repro_torch.core.comm import CommModel
     from repro_torch.launch import train
-    t_phase = time.perf_counter()
+    base = ["--arch", arch, "--clients", str(LLM_K), "--batch", str(LLM_B),
+            "--seq", str(LLM_S)]
     per_window = {}
 
     def fed_rounds(name, argv, schedule, want):
         """Set up a federation from the CLI's flags and run its rounds:
         ``schedule`` is a list of (rounds, active_budget)."""
-        args = train.parse_args(LLM_ARGS + argv)
+        args = train.parse_args(base + argv)
 
         def body():
             fed = train.setup(args)
@@ -2521,8 +2670,8 @@ def phase_llm(smi):
             return fed, recs
 
         (fed, recs), w = _llm_window(body)
-        n_params = fed.params_per_client
-        cm = CommModel(LLM_K, LLM_V, n_params, open_batch=LLM_N)
+        n = fed.params_per_client
+        cm = CommModel(LLM_K, vocab, n, open_batch=LLM_N)
         expect = {"fp16": cm.dsfl_fp16_round(),
                   "topk": cm.dsfl_topk_round(args.topk or 0),
                   "dense_f32": cm.fl_round()}[fed.engine.codec.name]
@@ -2534,27 +2683,28 @@ def phase_llm(smi):
                    comm_model_bytes=expect,
                    fedavg_fp32_bytes=cm.fl_round(),
                    participants=[r.get("participants", LLM_K) for r in recs],
-                   params_per_client=n_params, **w)
-        say(f"llm [{smi}] " + json.dumps(rec))
-        if n_params != 2_702_579_200:
-            fail(f"llm {name}: {n_params} parameters a client")
+                   params_per_client=n, **w)
+        say(f"{label} [{smi}] " + json.dumps(rec))
+        if n != n_params:
+            fail(f"{label} {name}: {n} parameters a client, expected "
+                 f"{n_params}")
         if not all(np.isfinite(losses)):
-            fail(f"llm {name}: a loss is not finite: {losses}")
+            fail(f"{label} {name}: a loss is not finite: {losses}")
         if fed.exchange_bytes != expect:
-            fail(f"llm {name}: measured {fed.exchange_bytes} B a round, "
+            fail(f"{label} {name}: measured {fed.exchange_bytes} B a round, "
                  f"CommModel {expect}")
-        _llm_expect(name, w["launches"], want)
+        _llm_expect(f"{label} {name}", w["launches"], want)
         per_window[name] = w["launches"]
         return fed
 
-    k5 = 64                                   # one launch a Mamba layer
-    # DS-FL ERA: 3 rounds; K5 for each client's prediction and for the
-    # measured payload, K1 once a round, K3/K4 once a client step
-    fed = fed_rounds("dsfl era", ["--mode", "dsfl"], [(3, "auto")],
-                     dict(ssd_chunk=k5 * (1 + 3 * LLM_K), era_sharpen=3,
-                          distill_loss_fwd=3 * LLM_K,
-                          distill_loss_bwd=3 * LLM_K))
-    llm_step_trace(smi, fed)
+    # DS-FL ERA: K5 for each client's prediction and for the measured
+    # payload, K1 once a round, K3/K4 once a client step
+    n = era_rounds
+    fed = fed_rounds("dsfl era", ["--mode", "dsfl"], [(n, "auto")],
+                     dict(ssd_chunk=k5 * (1 + n * LLM_K), era_sharpen=n,
+                          distill_loss_fwd=n * LLM_K,
+                          distill_loss_bwd=n * LLM_K))
+    llm_step_trace(smi, fed, label, teacher_note)
     del fed
     fed_rounds("dsfl topk 8", ["--mode", "dsfl", "--topk", "8"], [(1, "auto")],
                dict(ssd_chunk=k5 * (1 + LLM_K), era_sharpen=1,
@@ -2574,30 +2724,77 @@ def phase_llm(smi):
     fed = fed_rounds("fedavg", ["--mode", "fedavg"], [(2, "auto")], {})
     for k, v in fed.state.clients.params.items():
         if not torch.equal(v[0], v[1]):
-            fail(f"llm fedavg: clients differ at {k} after the broadcast")
+            fail(f"{label} fedavg: clients differ at {k} after the broadcast")
     del fed
     local, w = _llm_window(lambda: train.run_local(train.parse_args(
-        LLM_ARGS + ["--mode", "local", "--steps", "2"])))
+        base + ["--mode", "local", "--steps", "2"])))
     rec = dict(run="local", steps=len(local),
                seconds_first_step=local[0]["seconds"],
                seconds_later_steps=[r["seconds"] for r in local[1:]],
                losses=[r["loss"] for r in local], **w)
-    say(f"llm [{smi}] " + json.dumps(rec))
+    say(f"{label} [{smi}] " + json.dumps(rec))
     if not all(np.isfinite(rec["losses"])):
-        fail(f"llm local: a loss is not finite: {rec['losses']}")
-    _llm_expect("local", w["launches"], {})
+        fail(f"{label} local: a loss is not finite: {rec['losses']}")
+    _llm_expect(f"{label} local", w["launches"], {})
     per_window["local"] = w["launches"]
     torch.cuda.empty_cache()
-    checks = llm_kernel_checks()
-    llm_route_check(smi)
-    llm_card_vs_cpu(smi)
+    return per_window
+
+
+def _totals(per_window):
+    return {k: sum(w[k] for w in per_window.values())
+            for k in next(iter(per_window.values()))}
+
+
+def phase_llm(smi):
+    """LLM-scale DS-FL and FedAvg training of mamba2-2.7b at full width
+    through `repro_torch.launch.train`'s code path (phase "llm")."""
+    t_phase = time.perf_counter()
+    # 2 ERA rounds, not 3: the script passed 700 s when phase "llm
+    # qwen1.5-4b" joined it (714.7 s on an H100 80GB HBM3 at 700 W)
+    per_window = llm_windows(smi, "llm", "mamba2-2.7b", LLM_V,
+                             2_702_579_200, 64,
+                             "2 predictions through K5, the teacher "
+                             "through K1", era_rounds=2)
+    checks = llm_kernel_checks(LLM_V, with_k5=True)
+    llm_route_check(smi, "mamba2-2.7b", LLM_ROUTE_LAYERS)
+    llm_card_vs_cpu(smi, "mamba2-2.7b")
     say(f"llm: phase took {time.perf_counter() - t_phase:.1f} s")
-    total = {k: sum(w[k] for w in per_window.values())
-             for k in next(iter(per_window.values()))}
-    return total, per_window, checks
+    return _totals(per_window), per_window, checks
 
 
-def llm_step_trace(smi, fed):
+def phase_llm_qwen(smi):
+    """Phase "llm qwen1.5-4b": the dense family's LLM training, qwen1.5-4b
+    at full width and depth through the trainer's windows (the seeded
+    embedding scaled as `scale_embedding` does), K1/K2 on the wide-row
+    route and K3/K4 at its shapes, the route check in f32 at a cut depth,
+    and its smoke config's rounds on the card against the CPU."""
+    from unittest import mock
+
+    from repro_torch.launch import train
+    from repro_torch.models.api import model_init
+    t_phase = time.perf_counter()
+
+    def scaled_init(cfg, gen, device):
+        params = model_init(cfg, gen, device)
+        scale_embedding(cfg, params)
+        return params
+
+    with mock.patch.object(train, "model_init", scaled_init):
+        per_window = llm_windows(smi, "llm qwen1.5-4b", "qwen1.5-4b",
+                                 QWEN_V, QWEN_VALUES, 0,
+                                 "2 predictions, the teacher through K1 "
+                                 "on the wide-row route")
+    t_checks = time.perf_counter()
+    checks = llm_kernel_checks(QWEN_V, with_k5=False, label="llm qwen1.5-4b")
+    llm_route_check(smi, "qwen1.5-4b", QWEN_ROUTE_LAYERS)
+    llm_card_vs_cpu(smi, "qwen1.5-4b")
+    say(f"llm qwen1.5-4b: phase took {time.perf_counter() - t_phase:.1f} s "
+        f"(checks {time.perf_counter() - t_checks:.1f} s)")
+    return _totals(per_window), per_window, checks
+
+
+def llm_step_trace(smi, fed, label="llm", teacher_note=""):
     """Where a round's time goes, outside the windows: the round's
     uploads and teacher, then client 0's hybrid step timed alone and once
     more under the profiler (host time, the card's busy time, idle share,
@@ -2619,27 +2816,27 @@ def llm_step_trace(smi, fed):
     torch.cuda.synchronize()
     t_step = time.perf_counter() - t0
     trace = {}
-    _profiled("dsfl client 0 hybrid step", step, smi, trace, phase="llm")
-    say(f"llm trace [{smi}]: exchange (2 predictions through K5, the "
-        f"teacher through K1) {t_ex:.3f} s; client 0's hybrid step "
-        f"{t_step:.3f} s unprofiled; " + json.dumps(trace))
+    _profiled("dsfl client 0 hybrid step", step, smi, trace, phase=label)
+    say(f"{label} trace [{smi}]: exchange ({teacher_note}) {t_ex:.3f} s; "
+        f"client 0's hybrid step {t_step:.3f} s unprofiled; " +
+        json.dumps(trace))
 
 
-def llm_kernel_checks():
+def llm_kernel_checks(V, with_k5, label="llm"):
     """K1-K5 against their plain versions at the shapes the LLM path
-    launches them at: K1 and K2 on the (2, 1024, 50280) bf16 upload stack
-    (K2 with client 1 at weight 0), K1 also on the f32 stack the top-k
-    round densifies its uploads into, K3/K4 on (1024, 50280) bf16 logits and
-    teacher and, through ``ops.distill_loss``, on f32 logits against the
-    bf16 teacher (the smoke configs and the route check), K5 at the
-    prediction's (8, 128, 80, 64, 1, 128)."""
+    launches them at: K1 and K2 on the (2, 1024, V) bf16 upload stack (K2
+    with client 1 at weight 0), K1 also on the f32 stack the top-k round
+    densifies its uploads into, K3/K4 on (1024, V) bf16 logits and teacher
+    and, through ``ops.distill_loss``, on f32 logits against the bf16
+    teacher (the smoke configs and the route check), and with ``with_k5``
+    K5 at the prediction's (8, 128, 80, 64, 1, 128)."""
     from repro_torch.core.aggregation import topk_compress
     from repro_torch.kernels import distill_loss as dl
     from repro_torch.kernels import era_sharpen as es
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as ssd
-    out = {}
-    p = torch.softmax(torch.randn((LLM_K, LLM_N, LLM_V), generator=torch.
+    out = {"ssd_chunk": None}
+    p = torch.softmax(torch.randn((LLM_K, LLM_N, V), generator=torch.
                                   Generator(device="cuda").manual_seed(31),
                                   device="cuda") * 4, -1).to(torch.bfloat16)
     w = torch.tensor([1.0, 0.0], device="cuda")
@@ -2649,27 +2846,27 @@ def llm_kernel_checks():
     dense = torch.zeros(p.shape, dtype=torch.float32, device="cuda").scatter(
         -1, ti.long(), tv.float())
     out["era_sharpen"] = max(
-        check(f"K1 llm {tuple(p.shape)} bf16", es.era_sharpen(p, 0.1),
+        check(f"K1 {label} {tuple(p.shape)} bf16", es.era_sharpen(p, 0.1),
               es.era_sharpen_plain(p, 0.1), 1e-6),
-        check(f"K1 llm {tuple(p.shape)} f32, top-8 densified",
+        check(f"K1 {label} {tuple(p.shape)} f32, top-8 densified",
               es.era_sharpen(dense, 0.1), es.era_sharpen_plain(dense, 0.1),
               1e-6))
     del tv, ti, dense
     out["weighted_era_sharpen"] = check(
-        f"K2 llm {tuple(p.shape)} bf16, client 1 at weight 0",
+        f"K2 {label} {tuple(p.shape)} bf16, client 1 at weight 0",
         es.weighted_era_sharpen(p, w, 0.1),
         es.weighted_era_sharpen_plain(p, w, 0.1), 1e-6)
     del p
-    z, t = _zt(LLM_N, LLM_V, 32, torch.bfloat16)
+    z, t = _zt(LLM_N, V, 32, torch.bfloat16)
     loss, logz = dl.distill_loss_fwd(z, t)
     ploss, plogz = dl.distill_loss_fwd_plain(z, t)
     out["distill_loss_fwd"] = max(
-        check(f"K3 llm ({LLM_N}, {LLM_V}) bf16 loss", loss, ploss, 2e-2),
-        check(f"K3 llm ({LLM_N}, {LLM_V}) bf16 logZ", logz, plogz, 2e-2))
+        check(f"K3 {label} ({LLM_N}, {V}) bf16 loss", loss, ploss, 2e-2),
+        check(f"K3 {label} ({LLM_N}, {V}) bf16 logZ", logz, plogz, 2e-2))
     tmass = t.float().sum(-1)
     gscale = torch.full((1,), 1.0 / LLM_N, device="cuda")
     out["distill_loss_bwd"] = check(
-        f"K4 llm ({LLM_N}, {LLM_V}) bf16",
+        f"K4 {label} ({LLM_N}, {V}) bf16",
         dl.distill_loss_bwd(z, t, plogz, tmass, gscale),
         dl.distill_loss_bwd_plain(z, t, plogz, tmass, gscale), 1e-6 / LLM_N,
         1e-2)
@@ -2680,13 +2877,16 @@ def llm_kernel_checks():
     zp = z.float().requires_grad_(True)
     lp = dl.distill_loss_fwd_plain(zp, t.float())[0].mean()
     (gp,) = torch.autograd.grad(lp, zp)
-    check(f"K3 llm f32 logits, bf16 teacher ({LLM_N}, {LLM_V}) loss",
+    check(f"K3 {label} f32 logits, bf16 teacher ({LLM_N}, {V}) loss",
           lk.detach(), lp.detach(), 1e-4)
     # against autograd of the plain loss, whose logsumexp rounds otherwise:
     # |dz| <= 1/N, so 4e-6/N and 1e-5 of the value (tests/test_torch_cuda.py)
-    check(f"K4 llm f32 logits, bf16 teacher ({LLM_N}, {LLM_V}) dz", gk, gp,
+    check(f"K4 {label} f32 logits, bf16 teacher ({LLM_N}, {V}) dz", gk, gp,
           4e-6 / LLM_N, 1e-5)
     del z, t, zf, zp, gk, gp
+    torch.cuda.empty_cache()
+    if not with_k5:
+        return out
     args = _ssd_inputs(*LLM_K5, seed=33)
     plan = ssd.launch_plan(*LLM_K5[:3], *LLM_K5[4:],
                            torch.cuda.get_device_properties(0)
@@ -2700,28 +2900,30 @@ def llm_kernel_checks():
     return out
 
 
-def _route_report(what, kern, base, fault, rtol):
+def _route_report(what, kern, base, fault, rtol, label="llm routes"):
     """Kernel route against plain route, and the faulty plain route
     against the plain route, each relative to the plain route's largest
     magnitude; fails unless the first is inside ``rtol`` and the second
     outside."""
     scale = float(base.abs().max())
     diff, ferr = max_err(kern, base), max_err(fault, base)
-    say(f"llm routes {what}: kernel route {diff:.4g}, 1% fault {ferr:.4g} "
+    say(f"{label} {what}: kernel route {diff:.4g}, 1% fault {ferr:.4g} "
         f"from the plain route; largest magnitude {scale:.4g}; tolerance "
         f"{rtol} of it")
     if diff > rtol * scale:
-        fail(f"llm routes: {what} differs by {diff:.4g}, above {rtol} of "
+        fail(f"{label}: {what} differs by {diff:.4g}, above {rtol} of "
              f"{scale:.4g}")
     if ferr <= rtol * scale:
-        fail(f"llm routes: a 1% fault in {what} passes the tolerance, so "
+        fail(f"{label}: a 1% fault in {what} passes the tolerance, so "
              f"the check cannot see one")
     return diff / scale
 
 
-def llm_route_check(smi):
-    """The kernel route against the plain route at full width in float32
-    (see LLM_ROUTE_LAYERS)."""
+def llm_route_check(smi, arch, layers, leg_rtol=LLM_ROUTE_RTOL):
+    """The kernel route against the plain route at ``arch``'s full width in
+    float32 and ``layers`` of its depth (see LLM_ROUTE_LAYERS), each kernel
+    leg of (b) held to ``leg_rtol``; the prediction leg (a) only where K5
+    runs in it (Mamba)."""
     from unittest import mock
 
     from repro_torch.configs import get_config
@@ -2733,8 +2935,8 @@ def llm_route_check(smi):
     from repro_torch.models import ssm
     from repro_torch.models.api import model_init, model_logits
     t_check = time.perf_counter()
-    cfg = get_config("mamba2-2.7b").replace(n_layers=LLM_ROUTE_LAYERS,
-                                            dtype="float32")
+    cfg = get_config(arch).replace(n_layers=layers, dtype="float32")
+    label = "llm routes" if arch == "mamba2-2.7b" else f"llm {arch} routes"
     task = build_lm_task(0, LLM_K, LLM_B, LLM_S, cfg.vocab, device="cuda")
     st = stack_init(0, lambda g: model_init(cfg, g, "cuda"), LLM_K, "cuda")
     # The seeded init's tied embedding is unit-normal, which puts the full
@@ -2751,7 +2953,7 @@ def llm_route_check(smi):
     # (a) the prediction leg
     real_local = ssm._chunk_local
     with torch.no_grad():
-        for k in range(LLM_K):
+        for k in range(LLM_K if cfg.arch_type == "ssm" else 0):
             p = llm_dsfl.client(st, k)
             logits = {}
             for route, uk, fn in (("kernel", True, real_local),
@@ -2764,7 +2966,7 @@ def llm_route_check(smi):
             rel[f"logits {k}"] = _route_report(
                 f"client {k}'s open-batch logits (the prediction leg, K5)",
                 logits["kernel"], logits["plain"], logits["fault"],
-                ROUTE_RTOL)
+                ROUTE_RTOL, label)
             del logits
     # (b) the teacher (K1) and the KD term (K3/K4) on the same uploads
     hp_k = llm_dsfl.LLMDsflHP(lr=3e-3, use_kernel=True)
@@ -2773,7 +2975,7 @@ def llm_route_check(smi):
     t_plain = llm_dsfl._aggregate(probs, hp_p, None)
     rel["teacher"] = _route_report(
         "the f32 teacher (K1)", llm_dsfl._aggregate(probs, hp_k, None),
-        t_plain, jitter(t_plain), LLM_ROUTE_RTOL)
+        t_plain, jitter(t_plain), leg_rtol, label)
     teacher = t_plain.to(torch.bfloat16)
     with torch.no_grad():
         z0 = model_logits(cfg, llm_dsfl.client(st, 0), task.open_x,
@@ -2786,10 +2988,10 @@ def llm_route_check(smi):
                         torch.autograd.grad(loss, z)[0])
     rel["kd loss"] = _route_report(
         "the KD loss (K3)", grads["kernel"][0], grads["plain"][0],
-        grads["plain"][0] * (1 + ROUTE_FAULT), LLM_ROUTE_RTOL)
+        grads["plain"][0] * (1 + ROUTE_FAULT), leg_rtol, label)
     rel["kd grad"] = _route_report(
         "the KD gradient (K4)", grads["kernel"][1], grads["plain"][1],
-        jitter(grads["plain"][1]), LLM_ROUTE_RTOL)
+        jitter(grads["plain"][1]), leg_rtol, label)
     del grads, z0, t_plain, teacher
     # (c) the rest of the round on the same uploads
     upd = {}
@@ -2806,9 +3008,9 @@ def llm_route_check(smi):
         r = max_err(upd["kernel"][k], base) / max(scale, 1e-30)
         worst = max(worst, (k, r), key=lambda kv: kv[1])
         if r > LLM_ROUND_RTOL:
-            fail(f"llm routes: the round's {k} differs by {r:.3e} of its "
+            fail(f"{label}: the round's {k} differs by {r:.3e} of its "
                  f"largest magnitude {scale:.4g}, above {LLM_ROUND_RTOL}")
-    say(f"llm routes [{smi}]: f32, {LLM_ROUTE_LAYERS} layers at full width, "
+    say(f"{label} [{smi}]: f32, {layers} layers at full width, "
         f"K={LLM_K}: kernel route vs plain route relative to the largest "
         f"magnitude: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) +
         f"; the round's loss and {len(st)} leaves' updates at most "
@@ -2820,9 +3022,9 @@ def llm_route_check(smi):
     torch.cuda.empty_cache()
 
 
-def llm_smoke_rounds(device):
+def llm_smoke_rounds(device, arch="mamba2-2.7b"):
     """One DS-FL round (``use_kernel`` on: the kernels on the card, their
-    plain versions on the CPU) and one FedAvg round of mamba2-2.7b's smoke
+    plain versions on the CPU) and one FedAvg round of ``arch``'s smoke
     config (K=2, batch 2, seq 32) on ``device``, from weights and data made
     on the CPU from seed 0: [(params, loss), (params, loss)].  Shared with
     tests/test_torch_cuda.py."""
@@ -2832,7 +3034,7 @@ def llm_smoke_rounds(device):
                                            fedavg_round_step)
     from repro_torch.data.pipeline import build_lm_task
     from repro_torch.models.api import model_init
-    cfg = get_config("mamba2-2.7b").smoke()
+    cfg = get_config(arch).smoke()
     task = build_lm_task(0, 2, 2, 32, cfg.vocab, device="cpu")
     st = stack_init(0, lambda g: model_init(cfg, g, "cpu"), 2, "cpu")
     mv = lambda t: {k: v.to(device) for k, v in t.items()}
@@ -2842,19 +3044,21 @@ def llm_smoke_rounds(device):
             fedavg_round_step(cfg, mv(st), mv(task.x_clients), 1e-3)]
 
 
-def llm_card_vs_cpu(smi):
+def llm_card_vs_cpu(smi, arch="mamba2-2.7b"):
     """`llm_smoke_rounds` on the card against the same rounds on the CPU,
     leaf by leaf and in the loss."""
-    runs = {d: [dict(p, loss=l.reshape(1)) for p, l in llm_smoke_rounds(d)]
+    runs = {d: [dict(p, loss=l.reshape(1))
+                for p, l in llm_smoke_rounds(d, arch)]
             for d in ("cuda", "cpu")}
+    label = "llm" if arch == "mamba2-2.7b" else f"llm {arch}"
     worst = 0.0
     for kind, a, b in zip(("dsfl", "fedavg"), runs["cuda"], runs["cpu"]):
         for k in b:
             worst = max(worst, max_err(a[k].cpu(), b[k]))
             if not close(a[k].cpu(), b[k], CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL):
-                fail(f"llm card vs cpu: {kind} {k} differs by "
+                fail(f"{label} card vs cpu: {kind} {k} differs by "
                      f"{max_err(a[k].cpu(), b[k]):.3e}")
-    say(f"llm card vs cpu [{smi}]: mamba2-2.7b's smoke config (f32), K=2: "
+    say(f"{label} card vs cpu [{smi}]: {arch}'s smoke config (f32), K=2: "
         f"a DS-FL round (kernels vs plain versions) and a FedAvg round agree "
         f"leaf by leaf and in the loss (max diff {worst:.3e}; atol "
         f"{CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL})")
@@ -2892,7 +3096,9 @@ def main():
     phase_lm_card_vs_cpu(smi)
     torch.cuda.empty_cache()
     qwen_launches = phase_serve_qwen(smi)
-    llm_launches, llm_windows, llm_errs = phase_llm(smi)
+    llm_launches, llm_runs, llm_errs = phase_llm(smi)
+    torch.cuda.empty_cache()
+    _, qwen_runs, qwen_errs = phase_llm_qwen(smi)
     kernels = []
     for name, r in recs.items():
         serving, llm = name in SERVE_KERNELS, name in LLM_KERNELS
@@ -2906,8 +3112,10 @@ def main():
             serve_qwen_launches=qwen_launches[name],
             side_check_launches=side[name],
             sim_launches={run: v[name] for run, v in sim_launches.items()},
-            llm_launches={run: v[name] for run, v in llm_windows.items()},
-            llm_max_abs_err=llm_errs[name], check="pass", **r))
+            llm_launches={run: v[name] for run, v in llm_runs.items()},
+            llm_qwen_launches={run: v[name] for run, v in qwen_runs.items()},
+            llm_max_abs_err=llm_errs[name],
+            llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {smi}")
     say(json.dumps({"kernels": kernels}))

@@ -22,7 +22,6 @@ engine runs its ordinary rounds over a slab.  The headline run:
   PYTHONPATH=src python examples/torch_sim_stragglers.py --fast --device cpu
 """
 import argparse
-import contextlib
 import sys
 
 from repro_torch.core.algorithms import DSFLAlgorithm
@@ -32,7 +31,7 @@ from repro_torch.core.engine import FedEngine, make_eval_fn
 from repro_torch.core.protocol import DSFLConfig
 from repro_torch.data.pipeline import SyntheticProvider, build_image_task
 from repro_torch.models.smallnets import apply_tiny_mlp, init_tiny_mlp
-from repro_torch.obs import MetricsRegistry, install_registry, trace_to
+from repro_torch.obs import cli as obs_cli
 from repro_torch.sim import (ClientPopulation, CohortRunner, SimRunner,
                              SyncScheduler)
 
@@ -58,19 +57,9 @@ def main(argv=None):
     ap.add_argument("--cohort", action="store_true",
                     help="force the cohort path (automatic for K >= 10000)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--trace", default=None, metavar="OUT.jsonl",
-                    help="write a JSONL span trace here")
-    ap.add_argument("--metrics", default=None, metavar="OUT.json",
-                    help="write a metrics snapshot here on exit")
+    obs_cli.add_args(ap)   # --trace out.jsonl / --metrics out.json
     args = ap.parse_args(argv)
-    with contextlib.ExitStack() as stack:
-        if args.trace:
-            stack.enter_context(trace_to(args.trace))
-        if args.metrics:
-            reg = MetricsRegistry()
-            prev = install_registry(reg)
-            stack.callback(install_registry, prev)
-            stack.callback(reg.to_json, args.metrics)
+    with obs_cli.session(args):
         return run(args)
 
 

@@ -46,6 +46,31 @@
 //    R > 1, L lanes a row (the power of two >= C, at most 32) and shuffle
 //    reductions; with one row a block, the whole block on it (C up to the
 //    shared memory).
+//
+// The wide-row route (era_sharpen_wide_kernel): where a row of C f32 values
+// does not fit a block's shared memory (C > 58,080; qwen1.5's 151,936
+// classes need 607,744 bytes), the plan takes this route instead.
+//  - One block a row, kWideThreads threads.  A row's clients share its
+//    offset from a 16-byte boundary (the plan keeps N*C a multiple of V),
+//    so a thread reads V values of every client with one load each: a
+//    scalar head up to the first boundary, vectors, a scalar tail.
+//  - Pass 1 forms each value's client sum in the narrow route's order with
+//    S = 1 (k ascending from +0, each term rounded before it is added, then
+//    1/K and 1/T), so zero-weight clients change no bit here either, and
+//    keeps an online (max, sum of exp) per thread.  The threads' pairs are
+//    merged in a fixed butterfly, with every product and sum rounded on its
+//    own, so each lane gets the same bits and two launches agree.
+//  - Pass 2 writes exp(s - m) / l.  It gets s one of two ways, whichever
+//    moves fewer bytes: by running pass 1's sum again on the inputs (K*elt
+//    bytes a value; the same bits, since it is the same arithmetic), or by
+//    reading back what pass 1 stored in ``out`` (4 bytes written, 4 read).
+//    The plan rereads where K*elt <= 8: at the LLM round's K = 2 bf16
+//    that is 4 bytes a value against 8.
+//  - Bound: bytes.  At (2, 1024, 151936) bf16 the call reads 622 MB and
+//    writes 622 MB, 0.3715 ms at 3.35 TB/s; the reread adds 622 MB, so the
+//    route moves 1.5x what the bound counts, less what the L2 cache keeps.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -253,6 +278,212 @@ int launch(const void* p, const void* w, void* out, int K, int N, int C, int R, 
   }
 }
 
+constexpr int kWideThreads = 512;  // kernels/era_sharpen.WIDE_THREADS
+
+// The merge of two online softmax partials (max, sum of exp(x - max)).
+// Every product and sum is rounded on its own (no fused multiply-add), so
+// the merge is symmetric and both lanes of a butterfly get the same bits.
+__device__ __forceinline__ void merge_ml(float& m, float& l, float m2, float l2) {
+  const float mm = fmaxf(m, m2);
+  if (mm == -INFINITY) return;  // both empty
+  l = __fadd_rn(__fmul_rn(l, expf(m - mm)), __fmul_rn(l2, expf(m2 - mm)));
+  m = mm;
+}
+
+// One block a row; see "The wide-row route" above.
+template <typename T, int V, bool kWeighted>
+__global__ void __launch_bounds__(kWideThreads)
+    era_sharpen_wide_kernel(const T* __restrict__ p, const float* __restrict__ w,
+                            float* __restrict__ out, int K, int N, int C, float scale,
+                            float inv_temp, int sharpen, int reread) {
+  constexpr int U = V >= 16 ? 1 : 16 / V;  // vectors a thread loads at once
+  __shared__ float red_m[32], red_l[32];
+  const int t = threadIdx.x, T_ = blockDim.x;
+  const size_t ks = static_cast<size_t>(N) * C;
+  const T* row = p + static_cast<size_t>(blockIdx.x) * C;
+  float* dst = out + static_cast<size_t>(blockIdx.x) * C;
+  // the row's values before its first V-aligned one (every client alike)
+  const int mis = static_cast<int>((reinterpret_cast<size_t>(row) / sizeof(T)) % V);
+  const int head = min(C, (V - mis) % V);
+  const int nvec = (C - head) / V;
+  const int tail0 = head + nvec * V;
+
+  auto finish = [&](float x) {
+    if (!kWeighted) x *= scale;
+    if (sharpen) x *= inv_temp;
+    return x;
+  };
+  auto term = [&](int k, float x) {
+    return kWeighted ? __fmul_rn(__ldg(w + k), x) : x;
+  };
+  // fn(c, xs): the values xs (a float[1] or float[V]) from c on, in order;
+  // a thread's values are its head value, its vectors g = t, t + T, ...
+  // and its tail value.  With from_out the values are read back from dst
+  // instead of summed again.
+  auto walk = [&](bool from_out, auto&& fn) {
+    if (t < head) {
+      float acc = 0.f;
+      if (from_out) acc = dst[t];
+      else {
+        for (int k = 0; k < K; ++k)
+          acc = __fadd_rn(acc, term(k, to_f32(row[k * ks + t])));
+        acc = finish(acc);
+      }
+      float one[1] = {acc};
+      fn(t, one);
+    }
+    for (int g0 = t; g0 < nvec; g0 += U * T_) {
+      float acc[U][V];
+      if (from_out) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (g0 + u * T_ < nvec) {
+            const int c = head + (g0 + u * T_) * V;
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[u][v] = dst[c + v];
+          }
+      } else {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[u][v] = 0.f;
+        for (int k = 0; k < K; ++k) {
+          Vec<T, V> buf[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (g0 + u * T_ < nvec)
+              buf[u] = *reinterpret_cast<const Vec<T, V>*>(row + k * ks + head +
+                                                           static_cast<size_t>(g0 + u * T_) * V);
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (g0 + u * T_ < nvec) {
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                acc[u][v] = __fadd_rn(acc[u][v], term(k, to_f32(buf[u].v[v])));
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[u][v] = finish(acc[u][v]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (g0 + u * T_ < nvec) fn(head + (g0 + u * T_) * V, acc[u]);
+    }
+    if (tail0 + t < C) {
+      const int c = tail0 + t;
+      float acc = 0.f;
+      if (from_out) acc = dst[c];
+      else {
+        for (int k = 0; k < K; ++k)
+          acc = __fadd_rn(acc, term(k, to_f32(row[k * ks + c])));
+        acc = finish(acc);
+      }
+      float one[1] = {acc};
+      fn(c, one);
+    }
+  };
+  // xs to dst + c: 16-byte stores where dst + c is 16-byte aligned
+  auto store = [&](int c, const auto& xs) {
+    constexpr int n = std::extent_v<std::remove_reference_t<decltype(xs)>>;
+    float* d = dst + c;
+    if (n % 4 == 0 && (reinterpret_cast<size_t>(d) & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < n; i += 4)
+        *reinterpret_cast<float4*>(d + i) = make_float4(xs[i], xs[i + 1], xs[i + 2], xs[i + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < n; ++i) d[i] = xs[i];
+    }
+  };
+
+  if (!sharpen) {  // the weighted mean itself: one pass
+    walk(false, store);
+    return;
+  }
+  // pass 1: each thread's online (max, sum of exp)
+  float m = -INFINITY, l = 0.f;
+  walk(false, [&](int c, const auto& xs) {
+    constexpr int n = std::extent_v<std::remove_reference_t<decltype(xs)>>;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float x = xs[i];
+      if (x > m) {
+        l = __fadd_rn(__fmul_rn(l, expf(m - x)), 1.f);
+        m = x;
+      } else {
+        l = __fadd_rn(l, expf(x - m));
+      }
+    }
+    if (!reread) store(c, xs);
+  });
+  // the block's (m, l): a butterfly in each warp, then warp 0 over the warps
+  for (int o = 16; o > 0; o >>= 1)
+    merge_ml(m, l, __shfl_xor_sync(0xffffffffu, m, o), __shfl_xor_sync(0xffffffffu, l, o));
+  const int lane = t & 31, warp = t >> 5, n_warps = T_ >> 5;
+  if (lane == 0) red_m[warp] = m, red_l[warp] = l;
+  __syncthreads();
+  if (warp == 0) {
+    m = lane < n_warps ? red_m[lane] : -INFINITY;
+    l = lane < n_warps ? red_l[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1)
+      merge_ml(m, l, __shfl_xor_sync(0xffffffffu, m, o), __shfl_xor_sync(0xffffffffu, l, o));
+    if (lane == 0) red_m[0] = m, red_l[0] = l;
+  }
+  __syncthreads();
+  m = red_m[0];
+  l = red_l[0];
+  // pass 2: every value once more, sharpened and written
+  walk(!reread, [&](int c, const auto& xs) {
+    constexpr int n = std::extent_v<std::remove_reference_t<decltype(xs)>>;
+    float e[n];
+#pragma unroll
+    for (int i = 0; i < n; ++i) e[i] = expf(xs[i] - m) / l;
+    store(c, e);
+  });
+}
+
+template <typename T, int V, bool kWeighted>
+int launch_wide_v(const void* p, const void* w, void* out, int K, int N, int C, int threads,
+                  float scale, float inv_temp, int sharpen, int reread, void* stream) {
+  era_sharpen_wide_kernel<T, V, kWeighted><<<N, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(p), static_cast<const float*>(w), static_cast<float*>(out), K, N,
+      C, scale, inv_temp, sharpen, reread);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide route's plan: one block a row, V values a load (every client's
+// row at the same offset from a V-element boundary: N*C a multiple of V).
+template <typename T, bool kWeighted>
+int launch_wide(const void* p, const void* w, void* out, int K, int N, int C, int V,
+                int threads, float scale, float inv_temp, int sharpen, int reread,
+                void* stream) {
+  const size_t vb = static_cast<size_t>(V) * sizeof(T);
+  if (K < 1 || N < 1 || C < 1 || threads % 32 != 0 || threads > kWideThreads || threads < 32 ||
+      vb > 16 || (static_cast<size_t>(N) * C) % V != 0 ||
+      reinterpret_cast<size_t>(p) % sizeof(T) != 0 || reinterpret_cast<size_t>(out) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (V) {
+    case 1:
+      return launch_wide_v<T, 1, kWeighted>(p, w, out, K, N, C, threads, scale, inv_temp,
+                                            sharpen, reread, stream);
+    case 2:
+      return launch_wide_v<T, 2, kWeighted>(p, w, out, K, N, C, threads, scale, inv_temp,
+                                            sharpen, reread, stream);
+    case 4:
+      return launch_wide_v<T, 4, kWeighted>(p, w, out, K, N, C, threads, scale, inv_temp,
+                                            sharpen, reread, stream);
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return launch_wide_v<T, 8, kWeighted>(p, w, out, K, N, C, threads, scale, inv_temp,
+                                              sharpen, reread, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -281,6 +512,27 @@ int weighted_era_sharpen(const void* p, const void* w, void* out, int K, int N, 
                                        threads, 1.f, inv_temp, sharpen, stream);
   return launch<float, true>(p, w, out, K, N, C, rows, slices, group_threads, vec, threads,
                              1.f, inv_temp, sharpen, stream);
+}
+
+// K1 and K2 on the wide-row route (rows wider than a block's shared
+// memory): (vec, threads, reread) is the wrapper's plan; the rest as above.
+int era_sharpen_wide(const void* p, void* out, int K, int N, int C, int dtype, float scale,
+                     float inv_temp, int vec, int threads, int reread, void* stream) {
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16, false>(p, nullptr, out, K, N, C, vec, threads, scale,
+                                             inv_temp, 1, reread, stream);
+  return launch_wide<float, false>(p, nullptr, out, K, N, C, vec, threads, scale, inv_temp, 1,
+                                   reread, stream);
+}
+
+int weighted_era_sharpen_wide(const void* p, const void* w, void* out, int K, int N, int C,
+                              int dtype, float inv_temp, int sharpen, int vec, int threads,
+                              int reread, void* stream) {
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16, true>(p, w, out, K, N, C, vec, threads, 1.f, inv_temp,
+                                            sharpen, reread, stream);
+  return launch_wide<float, true>(p, w, out, K, N, C, vec, threads, 1.f, inv_temp, sharpen,
+                                  reread, stream);
 }
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

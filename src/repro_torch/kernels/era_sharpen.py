@@ -7,9 +7,12 @@ threads own 16-byte vectors of that tile where it is aligned (narrower ones
 where it is not) and split the client axis into S contiguous slices where
 the tile has fewer vectors than threads, so every lane loads and the whole
 tile is in flight at once; the slices' fp32 partials are added in order,
-then each row is sharpened inside the block.  `launch_plan` picks R, the
-vector width, S and the threads from the shape.  The note in the source
-gives the bound and the summation order.  A wrapper given a CPU tensor
+then each row is sharpened inside the block.  A row wider than a block's
+shared memory (C > 58,080 f32 values) takes the wide-row route instead:
+one block a row in two passes, an online (max, sum of exp) in the first,
+the sharpened values written in the second.  `launch_plan` picks the route,
+R, the vector width, S and the threads from the shape.  The note in the
+source gives the bound and the summation order.  A wrapper given a CPU tensor
 computes the plain version; given a CUDA tensor it launches the kernel or
 raises.
 """
@@ -35,13 +38,19 @@ MAX_THREADS = 512                  # csrc kMaxThreads
 THREADS = 256                      # at most, where two blocks fit an SM
 UNROLL = 4                         # loads a thread has in flight (csrc kUnroll)
 TILE_BYTES = 16 * 1024             # input a block aims to own
+WIDE_THREADS = 512                 # a block of the wide-row route (csrc kWideThreads)
+WIDE_BLOCKS_PER_SM = 2             # its 64 registers a thread (ptxas, sm_90a)
 VECTORS_PER_THREAD = 4             # loads per thread the thread count aims at
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PLAN = [_CI] * 5                  # rows, slices, group_threads, vec, threads
+_WIDE = [_CI] * 3                  # vec, threads, reread
 _SIGNATURES = {
     "era_sharpen": [_VP, _VP, _CI, _CI, _CI, _CI, _CF, _CF, *_PLAN, _VP],
     "weighted_era_sharpen": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CF, _CI,
                              *_PLAN, _VP],
+    "era_sharpen_wide": [_VP, _VP, _CI, _CI, _CI, _CI, _CF, _CF, *_WIDE, _VP],
+    "weighted_era_sharpen_wide": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CF,
+                                  _CI, *_WIDE, _VP],
 }
 
 
@@ -55,8 +64,12 @@ class LaunchPlan:
     blocks: int
     smem_bytes: int          # the slices' partials, (S, R*C) floats
     inflight_bytes_per_sm: int   # loads issued before any is used, per SM
+    wide: bool = False       # the wide-row route: one block a row, two passes
+    reread: bool = False     # wide: pass 2 sums the inputs again (else reads out)
 
     def args(self):
+        if self.wide:
+            return (self.vec, self.threads, int(self.reread))
         return (self.rows, self.slices, self.group_threads, self.vec,
                 self.threads)
 
@@ -65,10 +78,42 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def wide_plan(K: int, N: int, C: int, dtype=torch.float32,
+              n_sms: int = H100_SMS) -> LaunchPlan:
+    """The wide-row route's launch (rows of more than SMEM_BYTES / 4
+    values): one block of WIDE_THREADS a row.  The load width is the widest
+    of 16, 8, 4 and 2 bytes (one element at least) that divides N*C*elt, so
+    every client's row sits at the same offset from a boundary and
+    `wide_row_split` cuts them alike; pass 2 sums the inputs again where
+    that reads no more than the 8 bytes a value that storing the sums in
+    ``out`` and reading them back would move (K*elt <= 8)."""
+    elt = 4 if dtype == torch.float32 else 2
+    V = next(vb // elt for vb in (16, 8, 4, 2, elt)
+             if vb >= elt and (N * C) % (vb // elt) == 0)
+    U = max(1, 16 // V)                       # csrc: vectors loaded at once
+    per_block = WIDE_THREADS * min(U, -(-C // (V * WIDE_THREADS))) * V * elt
+    resident = min(-(-N // n_sms), WIDE_BLOCKS_PER_SM)
+    return LaunchPlan(1, V, 1, WIDE_THREADS, WIDE_THREADS, N, 0,
+                      per_block * resident, wide=True, reread=K * elt <= 8)
+
+
+def wide_row_split(C: int, vec: int, row_elem_offset: int):
+    """How the wide route cuts a row whose first value sits
+    ``row_elem_offset`` elements past a ``vec``-element boundary: (head
+    scalars, vectors, tail scalars), as csrc/era_sharpen.cu computes
+    them."""
+    mis = row_elem_offset % vec
+    head = min(C, (vec - mis) % vec)
+    nvec = (C - head) // vec
+    return head, nvec, C - head - nvec * vec
+
+
 def launch_plan(K: int, N: int, C: int, dtype=torch.float32,
                 ptr_align: int = 256, n_sms: int = H100_SMS) -> LaunchPlan:
     """The kernel's launch for a contiguous (K, N, C) input whose pointer is
-    a multiple of ``ptr_align`` bytes.
+    a multiple of ``ptr_align`` bytes.  Rows that a block's shared memory
+    cannot hold (C*4 > SMEM_BYTES) take the wide-row route (`wide_plan`);
+    the rest:
 
     - The load width is the widest of 16, 8, 4 and 2 bytes (one element at
       least) that divides the pointer and N*C*elt, with which rows of a
@@ -80,6 +125,8 @@ def launch_plan(K: int, N: int, C: int, dtype=torch.float32,
       block per SM only); where the tile has fewer vectors than that, the
       client axis splits into S slices, one group of threads each, as far
       as K and the shared memory for the partials allow."""
+    if C * 4 > SMEM_BYTES:
+        return wide_plan(K, N, C, dtype, n_sms)
     elt = 4 if dtype == torch.float32 else 2
     for vb in (16, 8, 4, 2, elt):    # one element always fits
         V = vb // elt
@@ -153,9 +200,6 @@ def _check_probs(p: torch.Tensor, what: str):
     K, N, C = p.shape
     if K == 0 or N == 0 or C == 0:
         raise ValueError(f"{what}: empty shape {tuple(p.shape)}")
-    if C * 4 > SMEM_BYTES:
-        raise ValueError(f"{what}: C={C} classes need {C * 4} bytes of shared "
-                         f"memory per row, above the block limit {SMEM_BYTES}")
     ptr = p.data_ptr()
     return K, N, C, launch_plan(K, N, C, p.dtype, ptr & -ptr,
                                 _build.sm_count(p.device))
@@ -169,10 +213,10 @@ def era_sharpen(local_probs: torch.Tensor, temperature: float) -> torch.Tensor:
     K, N, C, plan = _check_probs(local_probs, "era_sharpen")
     out = torch.empty((N, C), dtype=F32, device=local_probs.device)
     lib = _lib()
-    err = lib.era_sharpen(_build.ptr(local_probs), _build.ptr(out), K, N, C,
-                          _DTYPE_CODE[local_probs.dtype], 1.0 / K,
-                          1.0 / temperature, *plan.args(),
-                          _build.stream_of(out))
+    fn = lib.era_sharpen_wide if plan.wide else lib.era_sharpen
+    err = fn(_build.ptr(local_probs), _build.ptr(out), K, N, C,
+             _DTYPE_CODE[local_probs.dtype], 1.0 / K, 1.0 / temperature,
+             *plan.args(), _build.stream_of(out))
     _build.check(lib, err, "era_sharpen")
     _build.LAUNCHES["era_sharpen"] += 1
     return out
@@ -197,10 +241,11 @@ def weighted_era_sharpen(local_probs: torch.Tensor, weights: torch.Tensor,
                          f"{weights.device}")
     out = torch.empty((N, C), dtype=F32, device=local_probs.device)
     lib = _lib()
-    err = lib.weighted_era_sharpen(
-        _build.ptr(local_probs), _build.ptr(weights), _build.ptr(out), K, N, C,
-        _DTYPE_CODE[local_probs.dtype], 1.0 / temperature, int(sharpen),
-        *plan.args(), _build.stream_of(out))
+    fn = (lib.weighted_era_sharpen_wide if plan.wide
+          else lib.weighted_era_sharpen)
+    err = fn(_build.ptr(local_probs), _build.ptr(weights), _build.ptr(out),
+             K, N, C, _DTYPE_CODE[local_probs.dtype], 1.0 / temperature,
+             int(sharpen), *plan.args(), _build.stream_of(out))
     _build.check(lib, err, "weighted_era_sharpen")
     _build.LAUNCHES["weighted_era_sharpen"] += 1
     return out

@@ -16,6 +16,7 @@ decoding in lockstep — which the tests hold the engine to.
 On the card a Mamba prefill's within-chunk SSD blocks run K5; attention
 is plain PyTorch.
 Weights are random, drawn from ``--seed`` on the chosen device.
+``--trace out.jsonl`` / ``--metrics out.json`` record the run (`obs.cli`).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from ..configs import get_config, list_archs
 from ..device import generator, resolve_device
 from ..models.api import model_decode_step, model_init, model_prefill
+from ..obs import cli as obs_cli
 from ..serve import AdmissionQueue, ServeEngine
 
 
@@ -122,7 +124,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where to run (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
-    run(ap.parse_args(argv))
+    obs_cli.add_args(ap)
+    args = ap.parse_args(argv)
+    with obs_cli.session(args):
+        run(args)
 
 
 def run(args):

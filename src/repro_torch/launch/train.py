@@ -23,7 +23,13 @@ versions), e.g.
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --mode dsfl --clients 2 --steps 2 [--topk 8]
-  PYTHONPATH=src python -m repro_torch.launch.train    # mamba2-2.7b, card
+  PYTHONPATH=src python -m repro_torch.launch.train    # qwen1.5-4b, card
+
+Every arch of the dense family (qwen1.5-4b, the reference's default,
+gemma-7b, phi3-medium-14b, qwen1.5-110b) and mamba2-2.7b trains; at full
+width one card holds K = 2 stacks of qwen1.5-4b or mamba2-2.7b.
+``--trace out.jsonl`` / ``--metrics out.json`` record the run
+(`obs.cli`).
 """
 from __future__ import annotations
 
@@ -46,11 +52,12 @@ from ..data.pipeline import build_lm_task, lm_open_batch
 from ..device import generator, resolve_device
 from ..models.api import model_init
 from ..models.base import param_count
+from ..obs import cli as obs_cli
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-2.7b", choices=list_archs())
+    ap.add_argument("--arch", default="qwen1.5-4b", choices=list_archs())
     ap.add_argument("--mode", default="dsfl",
                     choices=["dsfl", "fedavg", "local"])
     ap.add_argument("--smoke", action="store_true",
@@ -82,11 +89,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="where to run (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
+    obs_cli.add_args(ap)
     return ap.parse_args(argv)
 
 
 def main(argv=None):
-    run(parse_args(argv))
+    args = parse_args(argv)
+    with obs_cli.session(args):
+        run(args)
 
 
 @dataclass
@@ -114,11 +124,6 @@ def _config(args):
     """The model config (``--smoke`` cuts it) and the device; prints the
     arch line."""
     cfg = get_config(args.arch)
-    if cfg.arch_type == "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the dense family comes with the next "
-            f"slice of the port (K1/K2 streaming a {cfg.vocab}-class row "
-            f"through shared memory in tiles); mamba2-2.7b trains today")
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)

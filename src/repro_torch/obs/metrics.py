@@ -1,10 +1,11 @@
 """Metrics: counters, gauges, fixed-bucket histograms, and the registry (a
-host-only copy of ``repro/obs/metrics.py``, without the provenance stamp).
+host-only copy of ``repro/obs/metrics.py``).
 
 Everything is plain host Python over floats — publishing a sample is a
 dict lookup plus arithmetic, cheap enough for per-chunk (train) and
-per-step (serve) cadences, and nothing here reaches the device.  `MetricsRegistry.snapshot()` returns a JSON-ready dict;
-``to_json`` writes it to a file.
+per-step (serve) cadences, and nothing here reaches the device.
+`MetricsRegistry.snapshot()` returns a JSON-ready dict; ``to_json`` writes
+it to a file with the run's provenance (`provenance.RunProvenance`).
 
 Percentiles are `Histogram.percentile`'s streaming estimates from fixed
 log-spaced buckets (linear interpolation inside the bucket, exact min/max
@@ -172,9 +173,13 @@ class MetricsRegistry:
         return {name: m.snapshot()
                 for name, m in sorted(self._metrics.items())}
 
-    def to_json(self, path: str) -> dict:
-        """Write ``{"metrics": snapshot()}`` to ``path`` and return it."""
-        doc = {"metrics": self.snapshot()}
+    def to_json(self, path: str, provenance: Optional[dict] = None) -> dict:
+        """Write ``{"provenance": ..., "metrics": snapshot()}`` to ``path``
+        and return it."""
+        if provenance is None:
+            from .provenance import RunProvenance
+            provenance = RunProvenance.collect().asdict()
+        doc = {"provenance": provenance, "metrics": self.snapshot()}
         with open(path, "w") as f:
             json.dump(doc, f, indent=2, default=float)
         return doc

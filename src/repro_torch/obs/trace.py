@@ -1,11 +1,11 @@
 """Structured JSONL tracing: spans, instants, and the global install point
-(a host-only copy of the parts of ``repro/obs/trace.py`` the simulator
-uses; the run-provenance stamp and the compile listener are left out).
+(a host-only copy of the parts of ``repro/obs/trace.py`` the port uses;
+the compile listener is left out).
 
 A `Tracer` appends one JSON object per line to a file:
 
 * header (first line): ``{"type": "meta", "clock": "perf_counter_ns",
-  "t0_ns": ..., "wall_iso": ...}``.
+  "t0_ns": ..., "wall_iso": ..., "provenance": {...}}`` (`RunProvenance`).
 * spans: ``{"type": "span", "name", "cat", "ts_us", "dur_us", "pid",
   "tid", "args"}`` — closed intervals, written at span exit.  Timestamps
   are microseconds of monotonic host time since the header's ``t0_ns``,
@@ -77,7 +77,8 @@ class Tracer:
     every host-side phase of a run (a span costs two ``perf_counter_ns``
     reads and one buffered ``json.dumps`` line)."""
 
-    def __init__(self, path: str, buffer_lines: int = 256):
+    def __init__(self, path: str, provenance: Optional[dict] = None,
+                 buffer_lines: int = 256):
         self.path = path
         self._f = open(path, "w")
         self._lock = threading.Lock()
@@ -85,10 +86,14 @@ class Tracer:
         self._buffer_lines = int(buffer_lines)
         self.t0_ns = time.perf_counter_ns()
         self.n_records = 0
+        if provenance is None:
+            from .provenance import RunProvenance
+            provenance = RunProvenance.collect().asdict()
         self._emit({"type": "meta", "clock": "perf_counter_ns",
                     "t0_ns": self.t0_ns,
                     "wall_iso": datetime.datetime.now(
-                        datetime.timezone.utc).isoformat()})
+                        datetime.timezone.utc).isoformat(),
+                    "provenance": provenance})
 
     # ------------------------------------------------------------ writing ----
     def _emit(self, rec: dict) -> None:

@@ -42,8 +42,11 @@ reference.
 
 The reference's compiled-program counts (``compile_counts``) have no
 counterpart here yet: the port runs eagerly, and CUDA-graph capture counts
-take their place in a later slice.  Its telemetry spans come with the
-telemetry slice.
+take their place in a later slice.  Its telemetry is the reference's:
+``serve.prefill`` and ``serve.decode`` spans (host time around a shot or a
+step through its host sync) and the ``serve.*`` counters, gauge and
+histograms, published where a tracer or registry is installed
+(`obs.cli`).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..models.api import model_decode_step, model_init_cache, model_prefill
 from ..models.base import ModelConfig
@@ -212,13 +216,19 @@ class ServeEngine:
         self._check_request(req)
         slot = free[0]
         n = self.prefill_len(req.prompt_len)
-        logits, one = self._prefill(np.asarray(req.tokens[:n],
-                                               np.int64)[None])
-        for k, full in self.cache.items():
-            full[:, slot].copy_(one[k][:, 0])
-        first = int(torch.argmax(logits[0]))
+        with obs.span("serve.prefill", "serve", req=req.id, bucket=n,
+                      slot=slot):
+            logits, one = self._prefill(np.asarray(req.tokens[:n],
+                                                   np.int64)[None])
+            for k, full in self.cache.items():
+                full[:, slot].copy_(one[k][:, 0])
+            first = int(torch.argmax(logits[0]))
         self.n_inserts += 1
         self.n_prefill_shots += 1
+        reg = obs.current_registry()
+        if reg is not None:
+            reg.counter("serve.inserts").inc()
+            reg.histogram("serve.prefill_batch_size").observe(1)
         self._admit_task(req, slot, n, first, now)
         return slot
 
@@ -250,13 +260,19 @@ class ServeEngine:
         m = len(reqs)
         claimed = free[:m]
         toks = np.asarray([req.tokens[:n] for req in reqs], np.int64)
-        logits, many = self._prefill(toks)
-        lanes = self._dev(np.asarray(claimed, np.int64))
-        for k, full in self.cache.items():
-            full.index_copy_(1, lanes, many[k])
-        firsts = torch.argmax(logits, dim=-1).cpu().numpy()
+        with obs.span("serve.prefill", "serve", bucket=n, batch=m,
+                      slots=list(map(int, claimed))):
+            logits, many = self._prefill(toks)
+            lanes = self._dev(np.asarray(claimed, np.int64))
+            for k, full in self.cache.items():
+                full.index_copy_(1, lanes, many[k])
+            firsts = torch.argmax(logits, dim=-1).cpu().numpy()
         self.n_inserts += m
         self.n_prefill_shots += 1
+        reg = obs.current_registry()
+        if reg is not None:
+            reg.counter("serve.inserts").inc(m)
+            reg.histogram("serve.prefill_batch_size").observe(m)
         for row, (req, slot) in enumerate(zip(reqs, claimed)):
             self._admit_task(req, slot, n, int(firsts[row]), now)
         return claimed
@@ -275,10 +291,15 @@ class ServeEngine:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         if d > 1:
             return self._step_chunk(now, d, float(step_dt))
-        nxt = self._decode(self._dev(self.tok), self._dev(self.pos))
-        nxt = nxt.cpu().numpy()     # the per-step host sync: (N,) tokens
+        with obs.span("serve.decode", "serve", active=self.n_active, chunk=1):
+            nxt = self._decode(self._dev(self.tok), self._dev(self.pos))
+            nxt = nxt.cpu().numpy()     # the per-step host sync: (N,) tokens
         self.n_steps += 1
         self.n_dispatches += 1
+        reg = obs.current_registry()
+        if reg is not None:
+            reg.counter("serve.decode_steps").inc()
+            reg.gauge("serve.active_slots").set(self.n_active)
         done_before = len(self.completed)
         for i, task in enumerate(self.tasks):
             if task is None:
@@ -308,26 +329,27 @@ class ServeEngine:
             forced[:len(tail), i] = tail
             forced_len[i] = len(tail)
             remaining[i] = task.req.max_new_tokens - len(task.generated)
-        tok, pos = self._dev(self.tok), self._dev(self.pos)
-        rem, fl, forced_t = (self._dev(remaining), self._dev(forced_len),
-                             self._dev(forced))
-        mat = torch.empty((d, N), dtype=torch.int64, device=self.device)
-        for j in range(d):
-            nxt = self._decode(tok, pos)
-            mat[j] = nxt
-            done = rem <= 0             # finished before this sub-step
-            is_forced = ~done & (fl > 0)
-            emitting = ~done & (fl <= 0)
-            rem = torch.where(emitting, rem - 1, rem)
-            if self.eos_id is not None:
-                rem = torch.where(emitting & (nxt == self.eos_id), 0, rem)
-            finishing = emitting & (rem <= 0)
-            tok = torch.where(is_forced, forced_t[j],
-                              torch.where(emitting & ~finishing, nxt, tok))
-            pos = torch.where(done, pos, pos + 1)
-            fl = torch.where(is_forced, fl - 1, fl)
-        mat = mat.cpu().numpy()         # the chunk's one host sync
-        tok, pos = tok.cpu().numpy(), pos.cpu().numpy()
+        with obs.span("serve.decode", "serve", active=self.n_active, chunk=d):
+            tok, pos = self._dev(self.tok), self._dev(self.pos)
+            rem, fl, forced_t = (self._dev(remaining), self._dev(forced_len),
+                                 self._dev(forced))
+            mat = torch.empty((d, N), dtype=torch.int64, device=self.device)
+            for j in range(d):
+                nxt = self._decode(tok, pos)
+                mat[j] = nxt
+                done = rem <= 0             # finished before this sub-step
+                is_forced = ~done & (fl > 0)
+                emitting = ~done & (fl <= 0)
+                rem = torch.where(emitting, rem - 1, rem)
+                if self.eos_id is not None:
+                    rem = torch.where(emitting & (nxt == self.eos_id), 0, rem)
+                finishing = emitting & (rem <= 0)
+                tok = torch.where(is_forced, forced_t[j],
+                                  torch.where(emitting & ~finishing, nxt, tok))
+                pos = torch.where(done, pos, pos + 1)
+                fl = torch.where(is_forced, fl - 1, fl)
+            mat = mat.cpu().numpy()         # the chunk's one host sync
+            tok, pos = tok.cpu().numpy(), pos.cpu().numpy()
         self.n_dispatches += 1
         done_before = len(self.completed)
         used = 0
@@ -347,6 +369,11 @@ class ServeEngine:
         # just applied (finished lanes frozen), so these ARE the d=1 state
         self.tok, self.pos = tok, pos
         self.n_steps += used
+        reg = obs.current_registry()
+        if reg is not None:
+            reg.counter("serve.decode_steps").inc(used)
+            reg.counter("serve.decode_chunks").inc()
+            reg.gauge("serve.active_slots").set(self.n_active)
         return self.completed[done_before:]
 
     def _emit(self, slot: int, token: int, now: float) -> None:
@@ -354,6 +381,11 @@ class ServeEngine:
         task = self.tasks[slot]
         if task.first_token_at is None:
             task.first_token_at = float(now)
+            reg = obs.current_registry()
+            if reg is not None:
+                # admit -> first token, in the caller's clock
+                reg.histogram("serve.admit_to_first_token_s").observe(
+                    task.first_token_at - task.admitted_at)
         task.generated.append(token)
         done = (len(task.generated) >= task.req.max_new_tokens
                 or (self.eos_id is not None and token == self.eos_id))

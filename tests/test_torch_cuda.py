@@ -125,10 +125,8 @@ def test_era_kernels_repeat_bitwise(cuda_device):
 def test_era_wrappers_refuse_without_launching(cuda_device):
     p = _probs(cuda_device, (4, 8, 10), 10)
     w = _weights(cuda_device, 4, 11)
-    big = torch.ones((1, 1, tes.SMEM_BYTES // 4 + 1), device=cuda_device)
     _build.reset_launches()
-    for call, match in ((lambda: tes.era_sharpen(big, 0.1), "shared memory"),
-                        (lambda: tes.era_sharpen(p.half(), 0.1), "dtype"),
+    for call, match in ((lambda: tes.era_sharpen(p.half(), 0.1), "dtype"),
                         (lambda: tes.weighted_era_sharpen(p, w[:3]), "weights"),
                         (lambda: tes.weighted_era_sharpen(p, w.double()),
                          "weights"),
@@ -138,6 +136,38 @@ def test_era_wrappers_refuse_without_launching(cuda_device):
             call()
     assert _build.LAUNCHES["era_sharpen"] == 0
     assert _build.LAUNCHES["weighted_era_sharpen"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [tes.SMEM_BYTES // 4 + 1, 151_936])
+@pytest.mark.parametrize("K,N", [(1, 1), (3, 13), (2, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_era_wide_route_matches_plain(cuda_device, K, N, C, dtype):
+    """Rows wider than a block's shared memory take the wide route (one
+    block a row, two passes): K1, K2 and the weighted mean against their
+    plain versions, peaked rows included, a zero-weight client of +-1e30
+    rows changing no bit and two launches giving the same bits."""
+    p = _probs(cuda_device, (K, N, C), K + N + C, dtype, scale=8.0)
+    assert tes.launch_plan(K, N, C, dtype).wide
+    w = _weights(cuda_device, K, K) if K > 1 else torch.ones(
+        (1,), device=cuda_device)
+    atol = ATOL_ERA[dtype]
+    calls = ((lambda q: tes.era_sharpen(q, 0.1),
+              lambda q: tes.era_sharpen_plain(q, 0.1)),
+             (lambda q: tes.weighted_era_sharpen(q, w, 0.1),
+              lambda q: tes.weighted_era_sharpen_plain(q, w, 0.1)),
+             (lambda q: tes.weighted_era_sharpen(q, w, sharpen=False),
+              lambda q: tes.weighted_era_sharpen_plain(q, w, sharpen=False)))
+    for kern, plain in calls:
+        a, b = kern(p), kern(p)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, plain(p), atol=atol, rtol=0)
+    if K > 1:                                   # client 0 has weight 0
+        garbage = p.clone()
+        garbage[0] = 1e30
+        for kern, _ in calls[1:]:
+            assert torch.equal(kern(p), kern(garbage))
 
 
 @pytest.mark.cuda
@@ -667,12 +697,14 @@ def test_distill_loss_f32_logits_bf16_teacher(cuda_device, N, V):
 
 
 @pytest.mark.cuda
-def test_llm_smoke_round_card_against_cpu(cuda_device):
-    """One LLM DS-FL round and one FedAvg round on ``mamba2-2.7b``'s smoke
-    config (K=2, batch 2, seq 32) from the same weights and data on the
-    card (K1, K3, K4, K5) and on the CPU (their plain versions): leaves
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen1.5-4b"])
+def test_llm_smoke_round_card_against_cpu(cuda_device, arch):
+    """One LLM DS-FL round and one FedAvg round on ``arch``'s smoke config
+    (K=2, batch 2, seq 32) from the same weights and data on the card (K1,
+    K3, K4, and K5 for Mamba) and on the CPU (their plain versions): leaves
     and loss within 2e-4 + 1e-3 |x|.  The rounds are chip_smoke.py's
-    ``llm_smoke_rounds``, which its phase "llm" compares the same way."""
+    ``llm_smoke_rounds``, which its phases "llm" and "llm qwen1.5-4b"
+    compare the same way."""
     import importlib.util
     from pathlib import Path
 
@@ -681,16 +713,17 @@ def test_llm_smoke_round_card_against_cpu(cuda_device):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    n_layers = get_config("mamba2-2.7b").smoke().n_layers
+    cfg = get_config(arch).smoke()
+    k5 = 2 * cfg.n_layers if cfg.arch_type == "ssm" else 0
     out = {}
     for device in (cuda_device, torch.device("cpu")):
         _build.reset_launches()
-        out[device.type] = smoke.llm_smoke_rounds(device)
+        out[device.type] = smoke.llm_smoke_rounds(device, arch)
         if device.type == "cuda":
             torch.cuda.synchronize()
             for name, n in (("era_sharpen", 1), ("distill_loss_fwd", 2),
                             ("distill_loss_bwd", 2),
-                            ("ssd_chunk", 2 * n_layers)):
+                            ("ssd_chunk", k5)):
                 assert _build.LAUNCHES[name] == n, name
     for (cuda_p, cuda_l), (cpu_p, cpu_l) in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(cuda_l.cpu(), cpu_l, atol=2e-4, rtol=1e-3)

@@ -155,3 +155,191 @@ def test_emulated_order_zero_weight_changes_no_bit(K, N, C, zeros):
     for sharpen in (True, False):
         np.testing.assert_array_equal(emulate(p, w, plan, 0.1, sharpen),
                                       emulate(garbage, w, plan, 0.1, sharpen))
+
+
+# ------------------------------------------------------ the wide-row route --
+WIDE_C = [58_080, 58_081, 100_352, 151_936, 256_000]
+
+
+def _thread_values(C, vec, row_offset, threads=tes.WIDE_THREADS):
+    """(threads, L) value indices of one row in each thread's order on the
+    wide route (csrc ``walk``: its head value, its vectors g = t, t + T,
+    ..., its tail value), -1 where a thread has none."""
+    head, nvec, tail = tes.wide_row_split(C, vec, row_offset)
+    t = np.arange(threads)[:, None]
+    per = -(-nvec // threads)
+    g = t + threads * np.arange(per)[None, :]                  # (T, per)
+    vecs = head + g[:, :, None] * vec + np.arange(vec)         # (T, per, V)
+    vecs = np.where((g < nvec)[:, :, None], vecs, -1).reshape(threads, -1)
+    cols = [np.where(t < head, t, -1), vecs,
+            np.where(t < tail, head + nvec * vec + t, -1)]
+    return np.concatenate(cols, axis=1)
+
+
+@pytest.mark.parametrize("C", WIDE_C)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ptr_align", [256, "one element"])
+def test_wide_route_exactly_where_a_row_does_not_fit(C, dtype, ptr_align):
+    """The narrow plan holds a row of C f32 values in shared memory up to C
+    = SMEM_BYTES / 4 = 58,080; past it launch_plan takes the wide route,
+    one block a row.  Every client's row of N*C-aligned loads sits at the
+    same offset from a vector boundary, and the threads' head, vectors and
+    tail cover each value of a row exactly once, with aligned vectors."""
+    elt = _elt(dtype)
+    off = 0 if ptr_align == 256 else 1            # elements past 256 bytes
+    K, N = 3, 13
+    plan = tes.launch_plan(K, N, C, dtype, 256 if off == 0 else elt)
+    assert plan.wide == (C * 4 > tes.SMEM_BYTES) == (C > 58_080)
+    if not plan.wide:
+        assert plan.smem_bytes + 32 * 4 <= 232_448
+        return
+    V = plan.vec
+    assert (plan.blocks, plan.threads, plan.smem_bytes) == (N, 512, 0)
+    assert V * elt <= 16 and (N * C) % V == 0
+    assert plan.reread == (K * elt <= 8)
+    assert plan.args() == (V, 512, int(plan.reread))
+    for n in (0, 1, N - 1):
+        splits = {tes.wide_row_split(C, V, off + k * N * C + n * C)
+                  for k in range(K)}
+        assert len(splits) == 1                   # every client cut alike
+        head, nvec, tail = splits.pop()
+        assert head < V and tail < V and head + nvec * V + tail == C
+        assert (off + n * C + head) % V == 0      # vectors start aligned
+        idx = _thread_values(C, V, off + n * C)
+        seen = np.sort(idx[idx >= 0])
+        np.testing.assert_array_equal(seen, np.arange(C))
+
+
+def test_wide_plan_at_the_llm_round():
+    """qwen1.5-4b's (2, 1024, 151936) bf16 uploads: 16-byte loads, a block a
+    row, and pass 2 sums the 4 bytes of inputs again rather than storing
+    and rereading 8 bytes of sums; a K=3 f32 stack stores them instead."""
+    plan = tes.launch_plan(2, 1024, 151_936, torch.bfloat16)
+    assert (plan.wide, plan.vec, plan.blocks, plan.reread) == (True, 8, 1024,
+                                                               True)
+    assert plan.inflight_bytes_per_sm >= 24 * 1024
+    assert not tes.launch_plan(3, 1024, 151_936).reread
+
+
+def _merge(m, l, m2, l2):
+    """csrc merge_ml, elementwise in float32 (every product and sum rounded
+    on its own)."""
+    mm = np.maximum(m, m2)
+    empty = mm == -np.inf
+    with np.errstate(invalid="ignore"):
+        new_l = (l * np.exp(m - mm)) + (l2 * np.exp(m2 - mm))
+    return np.where(empty, m, mm), np.where(empty, l, new_l).astype(F32)
+
+
+def _butterfly(m, l):
+    """The xor butterfly of each warp of 32 lanes; every lane ends equal."""
+    lanes = np.arange(m.shape[0])
+    for o in (16, 8, 4, 2, 1):
+        m, l = _merge(m, l, m[lanes ^ o], l[lanes ^ o])
+    return m, l
+
+
+def emulate_wide(p, w, temperature, vec, sharpen=True, elem_offset=0,
+                 threads=tes.WIDE_THREADS):
+    """csrc/era_sharpen.cu's wide route in numpy float32: each value's
+    client sum in the narrow route's order (S = 1), then per row each
+    thread's online (max, sum of exp) over its values in order, the warps'
+    butterflies, warp 0's over the warps, and exp(s - m) / l."""
+    K, N, C = p.shape
+    p = p.astype(F32)
+    s = np.zeros((N, C), F32)
+    for k in range(K):
+        s = s + (p[k] if w is None else F32(w[k]) * p[k])
+    if w is None:
+        s = s * F32(1.0 / K)
+    if not sharpen:
+        return s
+    s = s * F32(1.0 / temperature)
+    out = np.empty_like(s)
+    for n in range(N):
+        idx = _thread_values(C, vec, elem_offset + n * C, threads)
+        m = np.full(threads, -np.inf, F32)
+        l = np.zeros(threads, F32)
+        for j in range(idx.shape[1]):
+            live = idx[:, j] >= 0
+            x = np.where(live, s[n][idx[:, j]], F32(0))
+            with np.errstate(invalid="ignore", over="ignore"):
+                up = live & (x > m)
+                l_up = (l * np.exp(m - x)) + F32(1)
+                l_add = l + np.exp(x - m)
+            l = np.where(up, l_up, np.where(live, l_add, l)).astype(F32)
+            m = np.where(up, x, m).astype(F32)
+        m, l = zip(*(_butterfly(m[i:i + 32], l[i:i + 32])
+                     for i in range(0, threads, 32)))
+        wm = np.full(32, -np.inf, F32)
+        wl = np.zeros(32, F32)
+        wm[:len(m)] = [v[0] for v in m]
+        wl[:len(l)] = [v[0] for v in l]
+        wm, wl = _butterfly(wm, wl)
+        out[n] = np.exp(s[n] - wm[0]) / wl[0]
+    return out
+
+
+def _peaked(seed, shape):
+    """Probabilities with one class of 0.9 a row (the clients agree on it),
+    so the T = 0.1 softmax over a vocabulary-wide row is not flat."""
+    K, N, C = shape
+    rng = np.random.default_rng(seed)
+    p = 0.1 * _probs(seed, shape)
+    p[:, np.arange(N), rng.integers(0, C, N)] += 0.9
+    return p.astype(F32)
+
+
+@pytest.mark.parametrize("K,N,C,dtype,off", [
+    (2, 3, 151_936, torch.float32, 0), (2, 3, 151_936, torch.float32, 1),
+    (3, 2, 58_081, torch.bfloat16, 3), (1, 2, 100_352, torch.float32, 0)])
+def test_wide_emulation_matches_plain(K, N, C, dtype, off):
+    p = _peaked(C + K, (K, N, C))
+    pt = torch.from_numpy(p).to(dtype)
+    p = pt.float().numpy()
+    w = np.random.default_rng(K).uniform(size=K).astype(F32)
+    w = (w / w.sum()).astype(F32)
+    V = tes.launch_plan(K, N, C, dtype).vec
+    wt = torch.from_numpy(w)
+    k1 = emulate_wide(p, None, 0.1, V, elem_offset=off)
+    assert k1.max() > 0.01                 # the check is not on flat rows
+    np.testing.assert_allclose(k1, tes.era_sharpen_plain(pt, 0.1).numpy(),
+                               atol=1e-6, rtol=0)
+    for sharpen in (True, False):
+        np.testing.assert_allclose(
+            emulate_wide(p, w, 0.1, V, sharpen, elem_offset=off),
+            tes.weighted_era_sharpen_plain(pt, wt, 0.1, sharpen).numpy(),
+            atol=1e-6, rtol=0)
+
+
+def test_wide_emulation_matches_pallas_and_ref():
+    """At (2, 3, 151936) f32, the reference's Pallas kernels in interpret
+    mode (which keep the whole row in VMEM) and its jnp oracles."""
+    from repro.kernels import ref
+    p = _peaked(5, (2, 3, 151_936))
+    w = np.array([0.3, 0.7], F32)
+    V = tes.launch_plan(2, 3, 151_936).vec
+    k1 = emulate_wide(p, None, 0.1, V)
+    for theirs in (era_sharpen_pallas(jnp.asarray(p), 0.1, interpret=True),
+                   ref.era_sharpen_ref(jnp.asarray(p), 0.1)):
+        np.testing.assert_allclose(k1, np.asarray(theirs), atol=1e-6, rtol=0)
+    for sharpen in (True, False):
+        k2 = emulate_wide(p, w, 0.1, V, sharpen)
+        for theirs in (weighted_era_sharpen_pallas(
+                jnp.asarray(p), jnp.asarray(w), 0.1, sharpen=sharpen,
+                interpret=True),
+                ref.weighted_era_sharpen_ref(jnp.asarray(p), jnp.asarray(w),
+                                             0.1, sharpen)):
+            np.testing.assert_allclose(k2, np.asarray(theirs), atol=1e-6,
+                                       rtol=0)
+
+
+def test_wide_emulation_zero_weight_changes_no_bit():
+    p = _peaked(9, (3, 2, 151_936))
+    garbage = p.copy()
+    garbage[0], garbage[2] = 1e30, -1e30
+    w = np.array([0.0, 1.0, 0.0], F32)
+    for sharpen in (True, False):
+        np.testing.assert_array_equal(
+            emulate_wide(p, w, 0.1, 4, sharpen),
+            emulate_wide(garbage, w, 0.1, 4, sharpen))

@@ -4,7 +4,8 @@ task (`repro_torch.data.pipeline.build_lm_task`).
 The entry point runs every mode on ``mamba2-2.7b``'s smoke config on the CPU
 (``--device cpu``; the kernels' plain versions), through the direct engine,
 chunks, the simulator and a checkpoint, and raises without a card when the
-card is asked for.  The task's draws come from ``torch.Generator`` (the
+card is asked for (the dense family's runs are in
+tests/test_torch_dense_train.py).  The task's draws come from ``torch.Generator`` (the
 reference's from ``jax.random``), so it is held to the reference's
 invariants rather than its values: shapes, the token range, the chain's
 structure, domain d <-> client d after the stable sort, and the open set's
@@ -20,8 +21,8 @@ from repro_torch.data.pipeline import (build_lm_task, lm_open_batch,
 from repro_torch.launch import train
 
 CPU = "cpu"
-SMOKE = ["--smoke", "--device", CPU, "--clients", "2", "--batch", "2",
-         "--seq", "16", "--steps", "2"]
+SMOKE = ["--arch", "mamba2-2.7b", "--smoke", "--device", CPU, "--clients",
+         "2", "--batch", "2", "--seq", "16", "--steps", "2"]
 
 
 @pytest.mark.parametrize("extra", [
@@ -65,16 +66,6 @@ def test_train_asks_for_the_card_by_default(monkeypatch):
     for mode in ("dsfl", "fedavg", "local"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--smoke", "--mode", mode, "--steps", "1"])
-
-
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "gemma-7b"])
-def test_train_refuses_the_dense_family_until_its_slice(arch):
-    """Training a dense arch raises before it builds anything, naming the
-    slice it waits for, on the CPU as on the card."""
-    for mode in ("dsfl", "local"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            train.main(["--arch", arch, "--smoke", "--mode", mode,
-                        "--device", "cpu", "--steps", "1"])
 
 
 # ----------------------------------------------------------------- data -----
