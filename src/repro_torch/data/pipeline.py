@@ -11,7 +11,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core import prng
+from ..core import attacks, prng
 from ..device import generator, resolve_device
 from . import partition, synthetic
 
@@ -28,11 +28,14 @@ class FederatedImageTask:
 
 def build_image_task(seed: int, K: int, n_private: int, n_open: int,
                      n_test: int, distribution: str = "non_iid",
-                     hw: int = 16, n_classes: int = 10,
+                     hw: int = 16, n_classes: int = 10, noisy_open: int = 0,
                      device="cuda") -> FederatedImageTask:
     """Private, open and test sets of the ``digits`` task, made on
     ``device`` from one generator seeded with ``seed``, and the private
-    set dealt to K clients (``"iid"`` or the paper's ``"non_iid"``)."""
+    set dealt to K clients: ``"iid"``, the paper's ``"non_iid"`` or
+    ``"dirichlet:<alpha>"``.  ``noisy_open=N`` mixes N foreign samples
+    (``make_fashion_noise``) into the open set, shuffled (the noisy-open
+    attack)."""
     gen = generator(device, seed)
     x, y = synthetic.make_digits(gen, n_private, n_classes, hw)
     open_x, _ = synthetic.make_digits(gen, n_open, n_classes, hw)
@@ -42,11 +45,15 @@ def build_image_task(seed: int, K: int, n_private: int, n_open: int,
     elif distribution == "non_iid":
         idx = partition.shard_non_iid(gen, y, K, 2)
     elif distribution.startswith("dirichlet"):
-        raise NotImplementedError(
-            "the dirichlet partition is not ported yet: ROADMAP Queue 1, data")
+        alpha = float(distribution.split(":")[1])
+        idx = partition.dirichlet(gen, y, K, alpha, n_classes)
     else:
         raise ValueError(distribution)
     xc, yc = partition.gather_clients(x, y, idx)
+    if noisy_open:
+        noise_x, _ = synthetic.make_fashion_noise(gen, noisy_open, n_classes,
+                                                  hw)
+        open_x = attacks.mix_noisy_open(open_x, noise_x, gen)
     return FederatedImageTask(xc, yc, open_x, x_test, y_test, n_classes)
 
 

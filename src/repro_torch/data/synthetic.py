@@ -1,12 +1,20 @@
-"""Synthetic data (mirrors the image and token parts of
-``repro/data/synthetic.py``): the MNIST stand-in ``digits``, smooth
-per-class templates with a random shift and pixel noise, and the token LM
-corpus ``make_token_lm``.
+"""Synthetic data (mirrors ``repro/data/synthetic.py``; the real datasets
+are replaced by procedural stand-ins):
 
-The class templates are numpy-exact copies of the reference's (the same
-``np.random.default_rng`` stream and arithmetic); labels, shifts and noise
-come from a ``torch.Generator`` on the data's device, so they differ from
-the reference's ``jax.random`` draws."""
+* ``make_digits``        - the MNIST stand-in: smooth per-class templates
+                           with a random shift and pixel noise.
+* ``make_fashion_noise`` - a foreign image family (another template seed,
+                           a sharper texture): the noisy open set's and
+                           the backdoor's data.
+* ``make_bow``           - the Reuters stand-in: class-conditional sparse
+                           binary bags of words.
+* ``make_token_lm``      - the token LM corpus (the IMDb stand-in, with two
+                           domains as the label).
+
+The class templates and the domain unigrams are numpy-exact copies of the
+reference's (the same ``np.random.default_rng`` stream and arithmetic);
+every other draw comes from a ``torch.Generator`` on the data's device, so
+it differs from the reference's ``jax.random`` draws."""
 from __future__ import annotations
 
 import numpy as np
@@ -47,6 +55,54 @@ def make_digits(gen: torch.Generator, n: int, n_classes: int = 10,
     imgs = templates[y[:, None, None], ri[:, :, None], ci[:, None, :]]
     imgs = imgs + noise * torch.randn(imgs.shape, generator=gen, device=dev)
     return imgs[..., None].to(torch.float32), y
+
+
+def make_fashion_noise(gen: torch.Generator, n: int, n_classes: int = 10,
+                       hw: int = 16):
+    """Foreign images: ``make_digits`` of the template seed 777 at noise
+    0.5, plus 0.3 times the sign of a normal texture."""
+    x, y = make_digits(gen, n, n_classes, hw, template_seed=777, noise=0.5)
+    texture = torch.randn(x.shape, generator=gen, device=gen.device) * 0.4
+    return (x + torch.sign(texture) * 0.3).to(torch.float32), y
+
+
+# ------------------------------------------------------------------- bow -----
+def _log_gamma_draws(gen: torch.Generator, alpha: float, shape) -> torch.Tensor:
+    """log of Gamma(alpha, 1) draws for alpha < 1 (Marsaglia and Tsang's
+    method at alpha + 1, with the boost ``U ** (1 / alpha)`` taken in
+    logs so that draws far below the smallest float32 keep their order)."""
+    dev = gen.device
+    d = alpha + 1.0 - 1.0 / 3.0
+    c = 1.0 / (9.0 * d) ** 0.5
+    out = torch.empty(shape, device=dev)
+    todo = torch.ones(shape, dtype=torch.bool, device=dev)
+    while bool(todo.any()):
+        x = torch.randn(shape, generator=gen, device=dev)
+        u = torch.rand(shape, generator=gen, device=dev)
+        v = (1.0 + c * x) ** 3
+        ok = todo & (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
+                               + d * torch.log(v.clamp_min(1e-30)))
+        out = torch.where(ok, torch.log(d * v.clamp_min(1e-30)), out)
+        todo &= ~ok
+    u = torch.rand(shape, generator=gen, device=dev)
+    return out + torch.log(u) / alpha
+
+
+def make_bow(gen: torch.Generator, n: int, n_classes: int = 20,
+             vocab: int = 1000, words_per_doc: int = 40):
+    """Class-conditional sparse binary bags of words: a Dirichlet(0.05)
+    topic over the vocabulary per class; each document sets the words of
+    ``words_per_doc`` draws (with replacement) from its class's topic.
+    Returns x: (n, vocab) float32 and y: (n,) int64 on the generator's
+    device."""
+    dev = gen.device
+    topic = torch.softmax(_log_gamma_draws(gen, 0.05, (n_classes, vocab)),
+                          dim=-1)
+    y = torch.randint(0, n_classes, (n,), generator=gen, device=dev)
+    words = torch.multinomial(topic[y], words_per_doc, replacement=True,
+                              generator=gen)
+    docs = torch.zeros((n, vocab), device=dev).scatter_(1, words, 1.0)
+    return docs, y
 
 
 # --------------------------------------------------------------- token LM ----

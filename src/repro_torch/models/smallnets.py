@@ -4,6 +4,12 @@ flat dicts of tensors (mirrors ``repro/models/smallnets.py``).
   * MNIST CNN: 582,410 values at ``image_hw=28, widths=(32, 64), fc=512``,
     counting the BatchNorm running statistics as Keras does; 582,218 of them
     are trainable.
+  * F-MNIST CNN: six 3x3 SAME convolutions with BatchNorm, 2,759,976 values
+    (2,759,080 trainable).
+  * IMDb LSTM: a 20,000 x 32 embedding, a final-state LSTM of 32 units and
+    a dense layer to 2 classes, 648,386 values.
+  * Reuters DNN: a bag-of-words of 10,000 through dense 512 and 128 with
+    BatchNorm to 46 classes, 5,194,670 values (the paper's count).
   * tiny MLP: the beyond-paper micro model of the simulation smoke runs.
 
 ``init(gen) -> (params, state)`` draws from a ``torch.Generator`` on the
@@ -47,10 +53,12 @@ def _bn(p, s, name, c, device):
     s[f"{name}/var"] = torch.ones((c,), dtype=F32, device=device)
 
 
-def conv2d(p, name, x):
-    """VALID convolution of an NCHW activation with an HWIO weight."""
+def conv2d(p, name, x, padding="VALID"):
+    """Stride-1 convolution of an NCHW activation with an HWIO weight,
+    ``"VALID"`` or ``"SAME"`` (odd kernels: (k - 1) / 2 zeros each side)."""
     w = p[f"{name}/w"].permute(3, 2, 0, 1)
-    return F.conv2d(x, w) + p[f"{name}/b"][:, None, None]
+    pad = {"VALID": 0, "SAME": "same"}[padding]
+    return F.conv2d(x, w, padding=pad) + p[f"{name}/b"][:, None, None]
 
 
 def batchnorm(p, s, name, x, train: bool, momentum=0.9, eps=1e-5):
@@ -102,6 +110,75 @@ def apply_mnist_cnn(p, s, x, train: bool):
     return h @ p["d2/w"] + p["d2/b"], ns
 
 
+# ------------------------------------------------------------ F-MNIST CNN ----
+_FM_WIDTHS = (32, 32, 64, 64, 128, 128)
+
+
+def init_fmnist_cnn(gen: torch.Generator, n_classes=10, image_hw=28,
+                    fc=(382, 192), device="cuda"):
+    device = resolve_device(device)
+    p, s = {}, {}
+    cin = 1
+    for i, c in enumerate(_FM_WIDTHS):
+        _conv(p, f"c{i}", gen, 3, 3, cin, c, device)
+        _bn(p, s, f"bn{i}", c, device)
+        cin = c
+    hw = image_hw // 4               # SAME convs; pools after pairs 1, 2
+    _dense(p, "d1", gen, hw * hw * _FM_WIDTHS[-1], fc[0], device)
+    _dense(p, "d2", gen, fc[0], fc[1], device)
+    _dense(p, "d3", gen, fc[1], n_classes, device)
+    return p, s
+
+
+def apply_fmnist_cnn(p, s, x, train: bool):
+    ns = {}
+    h = x.permute(0, 3, 1, 2)
+    for i in range(len(_FM_WIDTHS)):
+        h = conv2d(p, f"c{i}", h, padding="SAME")
+        h, bn = batchnorm(p, s, f"bn{i}", h, train)
+        ns.update(bn)
+        h = torch.relu(h)
+        if i in (1, 3):                      # pools after conv pairs 1 and 2
+            h = F.max_pool2d(h, 2, 2)
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # NHWC flatten order
+    h = torch.relu(h @ p["d1/w"] + p["d1/b"])
+    h = torch.relu(h @ p["d2/w"] + p["d2/b"])
+    return h @ p["d3/w"] + p["d3/b"], ns
+
+
+# -------------------------------------------------------------- IMDb LSTM ----
+def init_imdb_lstm(gen: torch.Generator, vocab=20_000, emb=32, hidden=32,
+                   n_classes=2, device="cuda"):
+    device = resolve_device(device)
+    rn = lambda *shape: torch.randn(shape, generator=gen, dtype=F32,
+                                    device=device)
+    p = {"embed": rn(vocab, emb) * 0.05,
+         "wx": rn(emb, 4 * hidden) * emb ** -0.5,
+         "wh": rn(hidden, 4 * hidden) * hidden ** -0.5,
+         "b": torch.zeros((4 * hidden,), dtype=F32, device=device)}
+    _dense(p, "out", gen, hidden, n_classes, device)
+    return p, {}
+
+
+def apply_imdb_lstm(p, s, tokens, train: bool):
+    """tokens: (B, S) integers.  A final-state LSTM, then a dense layer.
+    The gates are (i, f, g, o) in that order of ``z = x wx + h wh + b``;
+    the input products of all S steps are one product ahead of the loop
+    over the tokens (the reference's ``lax.scan``)."""
+    x = p["embed"][tokens]                           # (B, S, E)
+    H = p["wh"].shape[0]
+    xw = x @ p["wx"] + p["b"]                        # (B, S, 4H)
+    h = c = torch.zeros(xw.shape[:1] + (H,), dtype=xw.dtype,
+                        device=xw.device)
+    for t in range(xw.shape[1]):
+        z = xw[:, t] + h @ p["wh"]
+        gates = torch.sigmoid(z)
+        g = torch.tanh(z[:, 2 * H:3 * H])
+        c = gates[:, H:2 * H] * c + gates[:, :H] * g
+        h = gates[:, 3 * H:] * torch.tanh(c)
+    return h @ p["out/w"] + p["out/b"], s
+
+
 # ---------------------------------------------------------------- tiny MLP ---
 def init_tiny_mlp(gen: torch.Generator, n_classes=10, image_hw=16, hidden=32,
                   device="cuda"):
@@ -118,6 +195,32 @@ def apply_tiny_mlp(p, s, x, train: bool):
     return h @ p["d2/w"] + p["d2/b"], s
 
 
+# ----------------------------------------------------------- Reuters DNN -----
+def init_reuters_dnn(gen: torch.Generator, vocab=10_000, n_classes=46,
+                     widths=(512, 128), device="cuda"):
+    device = resolve_device(device)
+    p, s = {}, {}
+    _dense(p, "d1", gen, vocab, widths[0], device)
+    _bn(p, s, "bn1", widths[0], device)
+    _dense(p, "d2", gen, widths[0], widths[1], device)
+    _bn(p, s, "bn2", widths[1], device)
+    _dense(p, "d3", gen, widths[1], n_classes, device)
+    return p, s
+
+
+def apply_reuters_dnn(p, s, x, train: bool):
+    ns = {}
+    h = x @ p["d1/w"] + p["d1/b"]
+    h, bn1 = batchnorm(p, s, "bn1", h, train)
+    h = torch.relu(h)
+    h = h @ p["d2/w"] + p["d2/b"]
+    h, bn2 = batchnorm(p, s, "bn2", h, train)
+    h = torch.relu(h)
+    ns.update(bn1)
+    ns.update(bn2)
+    return h @ p["d3/w"] + p["d3/b"], ns
+
+
 def param_count(*trees) -> int:
     return sum(int(v.numel()) for t in trees for v in t.values())
 
@@ -132,17 +235,18 @@ class SmallNet:
     n_classes: int
 
 
-_NOT_PORTED = ("fmnist_cnn", "imdb_lstm", "reuters_dnn")
+_REGISTRY = {
+    "mnist_cnn": (init_mnist_cnn, apply_mnist_cnn, "image", 10),
+    "fmnist_cnn": (init_fmnist_cnn, apply_fmnist_cnn, "image", 10),
+    "imdb_lstm": (init_imdb_lstm, apply_imdb_lstm, "tokens", 2),
+    "reuters_dnn": (init_reuters_dnn, apply_reuters_dnn, "bow", 46),
+    "tiny_mlp": (init_tiny_mlp, apply_tiny_mlp, "image", 10),
+}
 
 
 def make_smallnet(name: str, **kw) -> SmallNet:
-    if name == "mnist_cnn":
-        return SmallNet("mnist_cnn", functools.partial(init_mnist_cnn, **kw),
-                        apply_mnist_cnn, "image", kw.get("n_classes", 10))
-    if name == "tiny_mlp":
-        return SmallNet("tiny_mlp", functools.partial(init_tiny_mlp, **kw),
-                        apply_tiny_mlp, "image", kw.get("n_classes", 10))
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1, small models)")
-    raise ValueError(name)
+    if name not in _REGISTRY:
+        raise ValueError(name)
+    init, apply, kind, n_classes = _REGISTRY[name]
+    return SmallNet(name, functools.partial(init, **kw), apply, kind,
+                    kw.get("n_classes", n_classes))

@@ -263,9 +263,10 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What is still refused: the models and the partition not ported yet,
-    and the pipelined schedule for an algorithm without round halves (FD,
-    as in the reference).  Fused chunks and ``overlap`` are ported."""
+    """What is still refused: the pipelined schedule for an algorithm
+    without round halves (FD, as in the reference).  Fused chunks and
+    ``overlap`` are ported, and so are the paper's four models and the
+    Dirichlet partition: they build where they once raised."""
     from repro_torch.core.algorithms import FDAlgorithm, FDConfig
     from repro_torch.core.engine import FedEngine
     from repro_torch.data.pipeline import build_image_task
@@ -273,8 +274,7 @@ def test_unported_options_raise():
     eng = FedEngine(FDAlgorithm(apply_tiny_mlp, FDConfig(), device=CPU))
     with pytest.raises(ValueError, match="round_start"):
         eng.run(None, None, chunk_rounds=2, overlap=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_smallnet("fmnist_cnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_image_task(0, 2, 20, 10, 10, distribution="dirichlet:0.5",
-                         device=CPU)
+    assert make_smallnet("fmnist_cnn", device=CPU).input_kind == "image"
+    task = build_image_task(0, 2, 20, 10, 10, distribution="dirichlet:0.5",
+                            device=CPU)
+    assert task.x_clients.shape[0] == 2

@@ -69,7 +69,7 @@ def test_era_kernels_match_plain(cuda_device, K, N, C, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [1, 3])
 @pytest.mark.parametrize("N", [1, 13, 100])
-@pytest.mark.parametrize("C", [10, 46, 151, 32768])
+@pytest.mark.parametrize("C", [2, 10, 46, 151, 32768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_era_kernels_ragged_tiles(cuda_device, K, N, C, dtype):
     """Tail tiles of fewer rows than the plan's R, one client, and 16-, 8-,
@@ -730,3 +730,49 @@ def test_llm_smoke_round_card_against_cpu(cuda_device, arch):
         for k, v in cpu_p.items():
             torch.testing.assert_close(cuda_p[k].cpu(), v, atol=2e-4,
                                        rtol=1e-3)
+
+
+# ----------------------------------------------------------- paper models --
+def _paper_inputs(name, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    if name == "fmnist_cnn":
+        return torch.randn((n, 28, 28, 1), generator=g)
+    if name == "reuters_dnn":
+        return (torch.rand((n, 10_000), generator=g) < 0.004).float()
+    return torch.randint(0, 20_000, (n, 80), generator=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fmnist_cnn", "reuters_dnn", "imdb_lstm"])
+def test_paper_model_card_against_cpu(cuda_device, name):
+    """Each new paper model at full width, the same weights and inputs on
+    the card and on the CPU: logits in train and eval mode, the new
+    BatchNorm state, and the training loss's gradients, within 1e-4 +
+    1e-3 |x|."""
+    from torch.func import grad_and_value
+
+    from repro_torch.core.losses import xent_int_labels
+    from repro_torch.models.smallnets import make_smallnet
+    net = make_smallnet(name, device="cpu")
+    p, s = net.init(torch.Generator().manual_seed(0))
+    s = {k: v + 0.1 for k, v in s.items()}
+    x = _paper_inputs(name, 8, 1)
+    y = torch.arange(8) % net.n_classes
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        mv = lambda t: {k: v.to(device) for k, v in t.items()}
+        xd, yd, sd = x.to(device), y.to(device), mv(s)
+
+        def loss(p_):
+            logits, ns = net.apply(p_, sd, xd, True)
+            return xent_int_labels(logits, yd), ns
+
+        grads, (value, ns) = grad_and_value(loss, has_aux=True)(mv(p))
+        with torch.no_grad():
+            evals = net.apply(mv(p), sd, xd, False)[0]
+        out[device.type] = {"loss": value.reshape(1), "eval": evals,
+                            **{f"grad/{k}": v for k, v in grads.items()},
+                            **{f"state/{k}": v for k, v in ns.items()}}
+    for k, v in out["cpu"].items():
+        torch.testing.assert_close(out["cuda"][k].cpu(), v, atol=1e-4,
+                                   rtol=1e-3, msg=k)

@@ -57,6 +57,7 @@ def test_build_image_task_shapes_and_non_iid_skew():
     iid = build_image_task(0, K=5, n_private=300, n_open=40, n_test=30,
                            distribution="iid", device="cpu")
     assert min(len(set(r.tolist())) for r in iid.y_clients) >= 6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_image_task(0, 5, 300, 40, 30, distribution="dirichlet:0.5",
-                         device="cpu")
+    dirichlet = build_image_task(0, 5, 300, 40, 30,
+                                 distribution="dirichlet:0.5", device="cpu")
+    assert dirichlet.x_clients.shape[0] == 5
+    assert dirichlet.y_clients.shape == dirichlet.x_clients.shape[:2]

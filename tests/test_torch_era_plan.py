@@ -28,7 +28,7 @@ F32 = np.float32
 SHAPES = [(100, 1000, 10), (100, 1000, 46), (10, 256, 32768), (3, 13, 151),
           (1, 1, 10), (3, 1, 10), (1, 13, 46), (3, 100, 151), (1000, 1000, 10),
           (1, 100_000, 10), (7, 37, 10), (2, 5, 3000), (1, 1, 58_000),
-          (4, 9, 12)]
+          (4, 9, 12), (10, 1000, 46), (10, 1000, 2), (3, 13, 2)]
 
 
 def _elt(dtype):
@@ -115,7 +115,7 @@ def _probs(seed, shape):
 
 
 @pytest.mark.parametrize("K,N,C", [(100, 40, 10), (10, 100, 46), (3, 13, 151),
-                                   (2, 1, 10), (37, 9, 12)])
+                                   (2, 1, 10), (37, 9, 12), (10, 100, 2)])
 def test_emulated_order_matches_plain_and_pallas(K, N, C):
     p = _probs(K + N + C, (K, N, C))
     w = np.random.default_rng(C).uniform(size=K).astype(F32)
