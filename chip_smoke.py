@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py          # from the root of a checkout; needs one card
 
-Six paths: the federated rounds (DS-FL dense, masked,
+The paths: the federated rounds (DS-FL dense, masked,
 participation-sparse and two-level, FD and FedAvg), DS-FL rounds of the
 paper's F-MNIST CNN, Reuters DNN and IMDb LSTM, the federation
 simulator and the million-client cohort plane, serving mamba2-2.7b at full
 width (its SSD kernel K5 runs on the tensor cores), serving qwen1.5-4b at
 full width (the dense family: attention and MLPs in plain PyTorch, no
-kernel of K1-K5 on its path), and training mamba2-2.7b and qwen1.5-4b at
+kernel of K1-K5 on its path), training mamba2-2.7b and qwen1.5-4b at
 full width with LLM-scale DS-FL and FedAvg (K1/K2, K3/K4 and, for Mamba,
 K5 on its path; qwen1.5-4b's 151,936-class rows take K1/K2's wide-row
-route).  Phases, in order; any failure exits non-zero and prints no
+route), serving the MoE models llama4-scout and llama4-maverick at full
+width (the MoE FFN in plain PyTorch, no kernel on the path) and Jamba at
+its smoke width (K5), hot-swapping a serving qwen1.5-4b from its live
+DS-FL federation (K1, K3/K4) and driving that server with the load
+generator.  Phases, in order; any failure exits non-zero and prints no
 result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
@@ -251,10 +255,50 @@ result:
              shapes; the route check in f32 at 12 layers (no prediction
              leg: a dense forward runs no kernel); its smoke config's
              DS-FL and FedAvg rounds on the card against the CPU.
+    moe      (a) llama4-scout-17b-a16e at its full widths (d 5120, 40
+             heads of 128 over 8 KV heads, 16 experts top-1 of d_ff 8192,
+             vocabulary 202,048), 12 of its 48 layers (MOE_SCOUT_LAYERS:
+             a layer is 4.15 GB), bf16, seeded, the embedding scaled,
+             through phase 7's engine and window (launch counts zeroed
+             before the first insert and read after the last step: no
+             kernel on this path), then the window once more with every
+             MoE FFN's dropped (token, choice) pairs counted in the (4,
+             2048) shot, the single inserts and decode (each slot's
+             token routed as a group of its own, as the reference's vmap
+             over the slots does), and phase 7's trace of it; (b)
+             llama4-maverick-400b-a17b at its full widths and one block (a
+             dense layer and a layer of 128 experts), the same window and
+             drop counts; (c) one MoE FFN at scout's full width in float32
+             on 512 tokens, card against CPU: expert, rank and keep equal
+             except where the router's top-two gap is under 1e-5 (counted
+             and printed), the output within 1e-4 + 1e-4 |x| in every group
+             whose routes agree; scout's and maverick's smoke configs
+             through one ServeEngine run on the card and on the CPU,
+             tokens equal; (d) jamba-1.5-large-398b's smoke config (a
+             full-width block is 88 GB), a (1, 64) prefill and 8 decode
+             steps on the card (K5 in its 14 Mamba sub-layers, held to
+             exactly 14 launches) against the CPU, logits and every cache
+             leaf within CARD_VS_CPU_ATOL/RTOL.
+    hot swap qwen1.5-4b served at full width (phase 7's engine, the
+             embedding scaled) while `repro_torch.launch.train`'s DS-FL
+             federation of it (phase "llm qwen1.5-4b"'s settings, K = 2)
+             runs 2 rounds with ``serve.attach``: a request served before
+             carries version 0, one after version 2; the served weights
+             are bitwise ``eval_params`` of the final state and share no
+             storage with the trainer; the window's launches held to K1 2,
+             K3/K4 4; swap latencies and the window's peak printed.
+    loadgen  ``serve.run_load`` on those weights (a fresh engine of phase
+             7's shape each run) with ``LoadSpec(n_requests=32, rate=4.0,
+             prompt_len=(4, 48), max_new=(4, 16), vocab=151936, seed=0)``,
+             with the defaults, ``decode_chunk=8`` and
+             ``batch_insert=True``: every request's tokens equal across the
+             three; completed and shed, latency and TTFT p50/p99 (virtual)
+             and tokens per wall second printed; no kernel launched.
 11. the ``{"kernels": [...]}`` line (launches on each path, ``wide``
              timing rows for K1/K2, ``llm_qwen_launches``,
-             ``paper_models_launches`` by model), the card's
-             line, and the result line.
+             ``paper_models_launches`` by model, ``moe_serve_launches``,
+             ``jamba_smoke_launches``, ``hot_swap_launches``,
+             ``loadgen_launches``), the card's line, and the result line.
 """
 from __future__ import annotations
 
@@ -1189,6 +1233,13 @@ QWEN_KV_BYTES = 6_920_601_600       # k and v: 40 x 8 x 2112 x 20 x 128 bf16
 QWEN_ALONE = (5, 4, 7)
 
 
+def serve_prompts(vocab):
+    """The serving window's prompts (SERVE_PROMPTS long), seeded."""
+    g = torch.Generator().manual_seed(5)
+    return [tuple(torch.randint(0, vocab, (n,), generator=g).tolist())
+            for n in SERVE_PROMPTS]
+
+
 def _serve_drain(eng, chunk, times=None):
     """Step ``eng`` until it is empty: decode_chunk 1 for the first
     SERVE_D1_STEPS steps, then ``chunk``; the d=1 calls' seconds go to
@@ -1215,9 +1266,7 @@ def phase_serve(smi, cfg, params, k5_ms=None, chunk=8, label="serve",
     from repro_torch.kernels import _build
     from repro_torch.serve import Request, ServeEngine
     dev = params["embed/tok"].device
-    g = torch.Generator().manual_seed(5)
-    prompts = [tuple(torch.randint(0, cfg.vocab, (n,), generator=g).tolist())
-               for n in SERVE_PROMPTS]
+    prompts = serve_prompts(cfg.vocab)
     reqs = [Request(id=i, tokens=p, max_new_tokens=SERVE_NEW)
             for i, p in enumerate(prompts)]
     eng = ServeEngine(cfg, params, **SERVE_ENGINE, device=dev)
@@ -3310,6 +3359,452 @@ def llm_card_vs_cpu(smi, arch="mamba2-2.7b"):
         f"{CARD_VS_CPU_ATOL}, rtol {CARD_VS_CPU_RTOL})")
 
 
+# ------------------------------------------------------------ phase "moe" --
+# (a) llama4-scout-17b-a16e at its full widths, depth cut from 48 to
+# MOE_SCOUT_LAYERS (a layer is 4.15 GB in bf16: 16 experts of 3 x 5120 x
+# 8192); (b) llama4-maverick-400b-a17b at its full widths and one block (a
+# dense layer and a layer of 128 experts, 32.7 GB).  (c) one MoE FFN at
+# scout's full width in float32 on MOE_ROUTE_TOKENS tokens, card against
+# CPU: the routes equal except where the router's top-two gap is under
+# MOE_ROUTE_GAP, the output within MOE_ROUTE_TOL where a group's routes all
+# agree; scout and maverick smoke configs through a whole ServeEngine run,
+# tokens equal; (d) jamba-1.5-large-398b's smoke config (a full-width
+# block is 88 GB), prefill and decode with K5 in its Mamba sub-layers.
+MOE_SCOUT_LAYERS = 12
+MOE_MAVERICK_LAYERS = 2
+MOE_ROUTE_TOKENS = 512
+MOE_ROUTE_GAP = 1e-5
+MOE_ROUTE_TOL = dict(atol=1e-4, rtol=1e-4)
+JAMBA_SMOKE_K5 = 14         # one a Mamba sub-layer: 7 of 8, 2 blocks
+
+
+def _moe_serving_model(arch, n_layers):
+    """``arch`` at its full widths and ``n_layers``, bf16, seeded on the
+    card, the tied embedding scaled as `scale_embedding` does."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models.api import model_init
+    from repro_torch.models.base import param_count
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = model_init(cfg, generator("cuda", 0), "cuda")
+    scale_embedding(cfg, params)
+    torch.cuda.synchronize()
+    say(f"serve: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, pattern {cfg.pattern}, "
+        f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads} KV heads, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}, "
+        f"capacity factor {cfg.capacity_factor}, groups of "
+        f"{cfg.moe_group_size}, vocab {cfg.vocab}, {cfg.dtype}: "
+        f"{param_count(params)} values, "
+        f"{sum(v.numel() * v.element_size() for v in params.values())} "
+        f"bytes, seeded init in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def moe_drops(smi, cfg, params, label):
+    """The serving window once more (outside its timing), with every MoE
+    FFN's routed and dropped (token, choice) pairs counted on the device:
+    in the (4, 2048) shot, in the four single inserts' shots and in decode
+    (each slot's token a group of its own, as the reference's vmap over
+    the slots routes it)."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+    from repro_torch.serve import Request, ServeEngine
+    counts = {k: [0, torch.zeros((), dtype=torch.int64, device="cuda")]
+              for k in ("shot", "inserts", "decode")}
+    per_layer = []                      # the shot's MoE layers, in order
+    mode = ["shot"]
+    route = moe.route
+
+    def counting(p, c, xg):
+        out = route(p, c, xg)
+        n = counts[mode[0]]
+        n[0] += out[3].numel()
+        n[1] = n[1] + (~out[3]).sum()
+        if mode[0] == "shot":
+            per_layer.append((~out[3]).sum())
+        return out
+
+    reqs = [Request(id=i, tokens=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(serve_prompts(cfg.vocab))]
+    eng = ServeEngine(cfg, params, **SERVE_ENGINE, device="cuda")
+    with mock.patch.object(moe, "route", counting):
+        eng.insert_batch(reqs[:4])
+        mode[0] = "inserts"
+        for r in reqs[4:]:
+            eng.insert(r)
+        mode[0] = "decode"
+        _serve_drain(eng, 8)
+    del eng
+    out = {k: dict(routed=n, dropped=int(d), share=int(d) / max(n, 1))
+           for k, (n, d) in counts.items()}
+    routed = counts["shot"][0] // max(len(per_layer), 1)
+    out["shot_per_layer"] = [int(d) / routed for d in per_layer]
+    say(f"{label} [{smi}]: (token, choice) pairs dropped by capacity: " +
+        "; ".join(f"{k} {v['dropped']} of {v['routed']} ({v['share']:.2%})"
+                  for k, v in out.items() if k != "shot_per_layer") +
+        "; the shot's MoE layers in order: " +
+        ", ".join(f"{x:.1%}" for x in out["shot_per_layer"]))
+    return out
+
+
+def moe_layer_timing(smi, cfg, params, label):
+    """One MoE FFN of ``params``' first block at the (4, 2048) shot's and
+    the 8-slot decode step's token counts (decode: groups of one token),
+    in parts, on CUDA events: the router (`moe.route`), the one-hot
+    dispatch and combine tensors (`moe.dispatch`), the two one-hot einsums
+    that move tokens into and out of the experts' buffers, and the three
+    expert products with the activation; beside the whole `moe.moe_ffn`.
+    Inputs are seeded normal activations, so these routes are not the
+    model's; the einsums' shapes do not depend on the routes."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _block
+    from repro_torch.models.layers import sub
+    p = sub(_block(params, 0), f"s{len(cfg.pattern) - 1}_ffn")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for shape, gs_cfg in (((4, 2048), cfg), ((8, 1), cfg.replace(
+            moe_group_size=1))):
+        x = torch.randn(shape + (cfg.d_model,), generator=g, device="cuda",
+                        dtype=cfg.cdtype)
+        gs = min(gs_cfg.moe_group_size, shape[0] * shape[1])
+        C = moe.capacity(gs_cfg, gs)
+        xg = x.reshape(-1, gs, cfg.d_model)
+        r = moe.route(p, gs_cfg, xg)
+        disp, comb = moe.dispatch(*r[:4], cfg.n_experts, C, x.dtype)
+        xin = torch.einsum("gsec,gsd->egcd", disp, xg)
+
+        def experts():
+            h = (F.silu(torch.einsum("egcd,edf->egcf", xin, p["w_gate"]))
+                 * torch.einsum("egcd,edf->egcf", xin, p["w_up"]))
+            return torch.einsum("egcf,efd->egcd", h, p["w_down"])
+
+        eout = experts()
+        parts = {
+            "route": lambda: moe.route(p, gs_cfg, xg),
+            "dispatch tensors": lambda: moe.dispatch(*r[:4], cfg.n_experts,
+                                                     C, x.dtype),
+            "one-hot einsums": lambda: (
+                torch.einsum("gsec,gsd->egcd", disp, xg),
+                torch.einsum("gsec,egcd->gsd", comb, eout)),
+            "expert products": experts,
+            "moe_ffn": lambda: moe.moe_ffn(p, gs_cfg, x)}
+        ms = {k: time_ms(fn, iters=10, warmup=2) for k, fn in parts.items()}
+        rows = cfg.n_experts * xg.shape[0] * C
+        ms["expert rows"] = rows
+        out[f"{shape[0]}x{shape[1]}"] = ms
+        say(f"{label} moe layer [{smi}]: {shape[0]} x {shape[1]} tokens "
+            f"(groups of {gs}, capacity {C}, {rows} expert rows): " +
+            ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()
+                      if k != "expert rows") +
+            f"; the one-hot einsums {ms['one-hot einsums'] / ms['moe_ffn']:.1%}"
+            f" and the router with the dispatch tensors "
+            f"{(ms['route'] + ms['dispatch tensors']) / ms['moe_ffn']:.1%} "
+            f"of moe_ffn")
+    say(f"{label} moe layer " + json.dumps(out))
+    return out
+
+
+def moe_route_check(smi):
+    """(c) One MoE FFN at llama4-scout's full width in float32 (8.05 GB of
+    experts) on MOE_ROUTE_TOKENS tokens, the same weights and tokens on
+    the card and on the CPU: expert, rank and keep equal except where the
+    router's top-two gap is under MOE_ROUTE_GAP; the output and the
+    load-balance loss within MOE_ROUTE_TOL in every group whose routes all
+    agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import moe
+    cfg = get_config("llama4-scout-17b-a16e").replace(dtype="float32")
+    p = moe.init_moe(generator("cuda", 3), cfg, "cuda")
+    x = torch.randn((2, MOE_ROUTE_TOKENS // 2, cfg.d_model),
+                    generator=generator("cuda", 4), device="cuda")
+    gs = min(cfg.moe_group_size, MOE_ROUTE_TOKENS)
+    runs, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        pd = {k: v.to(device) for k, v in p.items()}
+        xd = x.to(device)
+        t0 = time.perf_counter()
+        r = moe.route(pd, cfg, xd.reshape(-1, gs, cfg.d_model))
+        y, aux = moe.moe_ffn(pd, cfg, xd)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t0
+        runs[device] = [t.cpu() for t in (*r[:4], y, aux)]
+        del pd
+    (_, ci, cr, ck, cy, ca), (_, hi, hr, hk, hy, ha) = runs["cuda"], \
+        runs["cpu"]
+    gates = torch.softmax(x.cpu().reshape(-1, gs, cfg.d_model)
+                          @ p["router"].cpu(), dim=-1)
+    top2 = torch.topk(gates, 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < MOE_ROUTE_GAP
+    same = ((ci == hi) & (cr == hr) & (ck == hk)).all(dim=-1)
+    if bool((~same & ~near).any()):
+        fail(f"moe (c): {int((~same & ~near).sum())} tokens routed "
+             f"differently on the card with a top-two gap >= {MOE_ROUTE_GAP}")
+    agree = same.all(dim=-1)                       # (G,) groups
+    yg, hg = cy.reshape(-1, gs, cfg.d_model), hy.reshape(-1, gs, cfg.d_model)
+    err = max_err(yg[agree], hg[agree]) if bool(agree.any()) else None
+    if err is not None and not close(yg[agree], hg[agree], **MOE_ROUTE_TOL):
+        fail(f"moe (c): outputs differ by {err:.3e}")
+    if bool(agree.all()) and not close(ca, ha, **MOE_ROUTE_TOL):
+        fail(f"moe (c): aux {float(ca)} on the card, {float(ha)} on the CPU")
+    rec = dict(device=smi, arch=cfg.name, tokens=MOE_ROUTE_TOKENS,
+               group_size=gs, capacity=moe.capacity(cfg, gs),
+               near_ties=int(near.sum()), routes_differ=int((~same).sum()),
+               groups_compared=int(agree.sum()), groups=int(agree.numel()),
+               kept=int(hk.sum()), choices=int(hk.numel()),
+               out_max_abs_err=err, out_max_abs=float(hy.abs().max()),
+               aux_card=float(ca), aux_cpu=float(ha),
+               seconds_card=secs["cuda"], seconds_cpu=secs["cpu"],
+               tolerance=MOE_ROUTE_TOL)
+    say(f"moe (c) [{smi}]: {cfg.name} MoE FFN, d {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, {cfg.n_experts} experts, float32, "
+        f"{MOE_ROUTE_TOKENS} tokens: routes differ at {rec['routes_differ']}"
+        f" tokens, {rec['near_ties']} top-two gaps under {MOE_ROUTE_GAP}; "
+        f"{rec['kept']} of {rec['choices']} choices kept; output max diff "
+        f"{err} over {rec['groups_compared']} of {rec['groups']} groups "
+        f"(largest |out| {rec['out_max_abs']:.4g}; atol/rtol "
+        f"{MOE_ROUTE_TOL['atol']}); aux {rec['aux_card']:.6f} / "
+        f"{rec['aux_cpu']:.6f}")
+    say("moe (c) " + json.dumps(rec))
+    return rec
+
+
+def moe_serve_card_vs_cpu(smi, arch):
+    """(c) ``arch``'s smoke config (float32, the embedding scaled) through
+    one ServeEngine run on the card and on the CPU: four prompts (9, 10,
+    17 and 30 tokens; the first two in one ``insert_batch``), 8 new tokens
+    each, decode_chunk 1 then 4; the greedy tokens must be equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import model_init
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config(arch).smoke()
+    params = model_init(cfg, torch.Generator().manual_seed(1), "cpu")
+    scale_embedding(cfg, params)
+    g = torch.Generator().manual_seed(6)
+    reqs = [Request(id=i, tokens=tuple(torch.randint(
+        0, cfg.vocab, (n,), generator=g).tolist()), max_new_tokens=8)
+        for i, n in enumerate((9, 10, 17, 30))]
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = ServeEngine(cfg, {k: v.to(device) for k, v in params.items()},
+                          slots=4, seq_budget=64, buckets=(8, 16),
+                          device=device)
+        eng.insert_batch(reqs[:2])
+        eng.step()
+        eng.insert(reqs[2])
+        eng.step()
+        eng.insert(reqs[3])
+        steps = 0
+        while eng.n_active:
+            eng.step(decode_chunk=1 if steps < 4 else 4)
+            steps += 1
+        out[device] = {r.id: r.tokens for r in eng.pop_completed()}
+    if out["cuda"] != out["cpu"]:
+        fail(f"moe (c) {arch}: the card served {out['cuda']}, the CPU "
+             f"{out['cpu']}")
+    distinct = len({t for v in out["cpu"].values() for t in v})
+    say(f"moe (c) [{smi}]: {arch} smoke config (d {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {cfg.n_experts} experts top-{cfg.top_k}), "
+        f"float32: ServeEngine tokens equal on the card and the CPU "
+        f"({len(out['cpu'])} requests, {distinct} distinct tokens)")
+
+
+def phase_moe(smi):
+    """Phase "moe": (a) llama4-scout and (b) llama4-maverick served at full
+    width through phase 7's engine and window (launch counts zeroed before
+    the first insert and read after the last step: no kernel on this
+    path), their drop shares and (scout) a traced shot; (c) the card
+    against the CPU; (d) Jamba's smoke config with K5.  Returns the
+    launches of each path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    launches = {}
+    for arch, layers, short in (
+            ("llama4-scout-17b-a16e", MOE_SCOUT_LAYERS, "llama4-scout"),
+            ("llama4-maverick-400b-a17b", MOE_MAVERICK_LAYERS,
+             "llama4-maverick")):
+        cfg, params = _moe_serving_model(arch, layers)
+        label = f"serve {short}"
+        launches[short], prompts, rec = phase_serve(smi, cfg, params,
+                                                    label=label)
+        moe_drops(smi, cfg, params, label)
+        moe_layer_timing(smi, cfg, params, label)
+        if short == "llama4-scout":
+            phase_trace(smi, cfg, params, prompts, label=f"trace {short}")
+        del params
+        torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    moe_route_check(smi)
+    torch.cuda.empty_cache()
+    for arch in ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"):
+        moe_serve_card_vs_cpu(smi, arch)
+    jamba = get_config("jamba-1.5-large-398b").smoke()
+    _build.reset_launches()
+    lm_card_vs_cpu(smi, jamba, 64, 8, label="moe (d) jamba smoke card vs cpu",
+                   scaled=True)
+    torch.cuda.synchronize()
+    launches["jamba smoke"] = dict(_build.LAUNCHES)
+    _llm_expect("moe (d) jamba smoke", launches["jamba smoke"],
+                dict(ssd_chunk=JAMBA_SMOKE_K5))
+    say(f"moe (d): jamba smoke launches {json.dumps(launches['jamba smoke'])}")
+    say(f"moe: phase took {time.perf_counter() - t0:.1f} s ((c) and (d) "
+        f"{time.perf_counter() - t_c:.1f} s)")
+    return launches
+
+
+# ------------------------------------------------------- phase "hot swap" --
+# qwen1.5-4b served at full width (phase "serve qwen1.5-4b"'s engine) while
+# `repro_torch.launch.train`'s DS-FL federation of it (phase "llm
+# qwen1.5-4b"'s settings, K = 2) runs HOT_SWAP_ROUNDS rounds with
+# `serve.attach`: K1 (wide-row route) once a round, K3/K4 once a client
+# step.  Then phase "loadgen" drives those weights with LOADGEN_SPEC.
+HOT_SWAP_ROUNDS = 2
+LOADGEN_SPEC = dict(n_requests=32, rate=4.0, prompt_len=(4, 48),
+                    max_new=(4, 16), vocab=QWEN_V, seed=0)
+
+
+def phase_hot_swap(smi):
+    """Phase "hot swap": a request before the run carries version 0, one
+    after it version HOT_SWAP_ROUNDS; the served weights are bitwise
+    ``algo.eval_params`` of the final state.  Returns (the window's
+    launches, the served params)."""
+    from unittest import mock
+
+    from repro_torch.launch import train
+    from repro_torch.models.api import model_init
+    from repro_torch.serve import Request, ServeEngine, attach
+    t0 = time.perf_counter()
+    cfg, params = _serving_model("qwen1.5-4b", QWEN_VALUES)
+    scale_embedding(cfg, params)
+    srv = ServeEngine(cfg, params, **SERVE_ENGINE, device="cuda")
+    prompt = serve_prompts(cfg.vocab)[6]           # 256 tokens, one shot
+
+    def serve_one(rid):
+        srv.insert(Request(id=rid, tokens=prompt, max_new_tokens=8))
+        _serve_drain(srv, 8)
+        (r,) = srv.pop_completed()
+        return r
+
+    before = serve_one(0)
+
+    def scaled_init(cfg_, gen, device):
+        p = model_init(cfg_, gen, device)
+        scale_embedding(cfg_, p)
+        return p
+
+    args = train.parse_args(["--arch", "qwen1.5-4b", "--clients", str(LLM_K),
+                             "--batch", str(LLM_B), "--seq", str(LLM_S),
+                             "--mode", "dsfl"])
+    with mock.patch.object(train, "model_init", scaled_init):
+        fed = train.setup(args)
+    algo = fed.engine.algo
+    sync = attach(fed.engine, srv, algo)
+    recs, w = _llm_window(lambda: train.run_rounds(fed, HOT_SWAP_ROUNDS))
+    after = serve_one(1)
+    want, _ = algo.eval_params(fed.state)
+    differ = [k for k, v in want.items() if not torch.equal(srv.params[k], v)]
+    alias = [k for k, v in srv.params.items()
+             if v.data_ptr() == fed.state.clients.params[k].data_ptr()]
+    # the copy alone: a swap's timer starts when eval_params returns, while
+    # the device may still be computing the mean it launched
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter()
+    srv.swap_weights(want, version=srv.version)
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t_copy
+    rec = dict(device=smi, arch=cfg.name, rounds=HOT_SWAP_ROUNDS,
+               round_seconds=[r["seconds"] for r in recs],
+               losses=[r["loss"] for r in recs],
+               swap_log=sync.swap_log, version_before=before.weights_version,
+               version_after=after.weights_version,
+               tokens_changed=before.tokens != after.tokens,
+               serve_version=srv.version, copy_only_s=t_copy, **w)
+    say(f"hot swap [{smi}] " + json.dumps(rec))
+    if [r for r, _ in sync.swap_log] != list(range(1, HOT_SWAP_ROUNDS + 1)):
+        fail(f"hot swap: swaps at rounds {sync.swap_log}")
+    if (before.weights_version, after.weights_version) != (0,
+                                                           HOT_SWAP_ROUNDS):
+        fail(f"hot swap: versions {before.weights_version} before and "
+             f"{after.weights_version} after the run")
+    if differ or alias:
+        fail(f"hot swap: served weights differ from eval_params at "
+             f"{differ[:3]}, share storage with the trainer at {alias[:3]}")
+    if not all(np.isfinite(rec["losses"])):
+        fail(f"hot swap: a loss is not finite: {rec['losses']}")
+    _llm_expect("hot swap", w["launches"], dict(
+        era_sharpen=HOT_SWAP_ROUNDS, distill_loss_fwd=HOT_SWAP_ROUNDS * LLM_K,
+        distill_loss_bwd=HOT_SWAP_ROUNDS * LLM_K))
+    nbytes = lambda t: sum(v.numel() * v.element_size() for v in t.values())
+    say(f"hot swap [{smi}]: swap latencies " +
+        ", ".join(f"round {r}: {dt * 1e3:.3f} ms" for r, dt in sync.swap_log)
+        + f" (the in-place copy of synchronized weights alone "
+        f"{t_copy * 1e3:.3f} ms); window peak {w['peak_bytes']} B (the trainer, "
+        f"{nbytes(params)} B of served weights, {nbytes(srv.cache)} B of "
+        f"rings); versions 0 -> {after.weights_version}; served weights "
+        f"bitwise eval_params")
+    del fed, srv, want
+    torch.cuda.empty_cache()
+    say(f"hot swap: phase took {time.perf_counter() - t0:.1f} s")
+    return w["launches"], cfg, params
+
+
+def phase_loadgen(smi, cfg, params):
+    """Phase "loadgen": `serve.run_load` on the hot-swapped qwen1.5-4b
+    weights (phase 7's engine, a fresh one each run) with LOADGEN_SPEC,
+    three ways: the defaults, ``decode_chunk=8`` and ``batch_insert=True``.
+    Every request must get the same tokens each way (the paths are
+    token-identical) and the same requests complete and shed.  Prints each
+    virtual summary and the tokens per wall second."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (AdmissionQueue, LoadSpec, ServeEngine,
+                                   run_load)
+    t0 = time.perf_counter()
+    spec = LoadSpec(**LOADGEN_SPEC)
+    runs = {}
+    _build.reset_launches()
+    for name, kw in (("defaults", {}), ("decode_chunk=8",
+                                        dict(decode_chunk=8)),
+                     ("batch_insert", dict(batch_insert=True))):
+        eng = ServeEngine(cfg, params, **SERVE_ENGINE, device="cuda")
+        q = AdmissionQueue(buckets=SERVE_ENGINE["buckets"])
+        torch.cuda.synchronize()
+        rep = run_load(eng, q, spec, **kw)
+        del eng
+        runs[name] = rep
+        summary = {k: v for k, v in rep.items() if k != "responses"}
+        say(f"loadgen {name} [{smi}] " + json.dumps(summary))
+        say(f"loadgen {name} [{smi}]: {rep['completed']} completed, "
+            f"{rep['shed']} shed; latency p50 {rep['latency_p50_s']:.4f} / "
+            f"p99 {rep['latency_p99_s']:.4f} s, TTFT p50 "
+            f"{rep['ttft_p50_s']:.4f} / p99 {rep['ttft_p99_s']:.4f} s "
+            f"(virtual); {rep['throughput_tok_per_wall_s']:.1f} tokens per "
+            f"wall second ({rep['tokens']} tokens in {rep['wall_s']:.2f} s, "
+            f"{rep['decode_steps']} decode steps, {rep['decode_dispatches']} "
+            f"dispatches, {rep['prefill_shots']} prefill shots)")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _llm_expect("loadgen", launches, {})
+    tokens = {k: {r.id: (r.tokens, r.shed) for r in v["responses"]}
+              for k, v in runs.items()}
+    for name, rep in runs.items():
+        if tokens[name] != tokens["defaults"]:
+            fail(f"loadgen: {name} served other tokens than the defaults")
+        for k in ("completed", "shed", "tokens"):
+            if rep[k] != runs["defaults"][k]:
+                fail(f"loadgen: {name} {k} {rep[k]}, defaults "
+                     f"{runs['defaults'][k]}")
+    say(f"loadgen: every request's tokens equal across the three runs; "
+        f"phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script needs one NVIDIA GPU")
@@ -3347,6 +3842,11 @@ def main():
     llm_launches, llm_runs, llm_errs = phase_llm(smi)
     torch.cuda.empty_cache()
     _, qwen_runs, qwen_errs = phase_llm_qwen(smi)
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe(smi)
+    swap_launches, qcfg, qparams = phase_hot_swap(smi)
+    loadgen_launches = phase_loadgen(smi, qcfg, qparams)
+    del qparams
     kernels = []
     for name, r in recs.items():
         serving, llm = name in SERVE_KERNELS, name in LLM_KERNELS
@@ -3364,6 +3864,11 @@ def main():
             llm_qwen_launches={run: v[name] for run, v in qwen_runs.items()},
             paper_models_launches={m: v[name]
                                    for m, v in paper_launches.items()},
+            moe_serve_launches={k: v[name] for k, v in moe_launches.items()
+                                if k != "jamba smoke"},
+            jamba_smoke_launches=moe_launches["jamba smoke"][name],
+            hot_swap_launches=swap_launches[name],
+            loadgen_launches=loadgen_launches[name],
             llm_max_abs_err=llm_errs[name],
             llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,23 +1,22 @@
 """Architecture registry (mirrors ``repro/configs``): ``--arch <id>``
 resolves here.
 
-Every architecture id of the reference is listed, but only the ones whose
-mixers the port has are configs yet; `get_config` of the others raises and
-names what they still need."""
-from . import (gemma_7b, mamba2_2_7b, phi3_medium_14b, qwen1_5_110b,
+Every architecture id of the reference is listed, but only the token-only
+ones are configs yet; `get_config` of the others raises and names what
+they still need."""
+from . import (gemma_7b, jamba_1_5_large_398b, llama4_maverick_400b,
+               llama4_scout_17b, mamba2_2_7b, phi3_medium_14b, qwen1_5_110b,
                qwen1_5_4b)
 from .shapes import LONG_CONTEXT_WINDOW, SHAPES, InputShape  # noqa
 
-_MODULES = [qwen1_5_4b, mamba2_2_7b, qwen1_5_110b, gemma_7b,
+_MODULES = [qwen1_5_4b, mamba2_2_7b, qwen1_5_110b, jamba_1_5_large_398b,
+            llama4_maverick_400b, llama4_scout_17b, gemma_7b,
             phi3_medium_14b]
 
 ARCHS = {m.ARCH_ID: m.make_config for m in _MODULES}
 
 # id -> what the port still lacks to run it
 NOT_PORTED = {
-    "llama4-scout-17b-a16e": "the MoE FFN",
-    "llama4-maverick-400b-a17b": "the MoE FFN",
-    "jamba-1.5-large-398b": "the MoE FFN",
     "phi-3-vision-4.2b": "the VLM patch projector",
     "whisper-small": "the encoder-decoder model",
 }

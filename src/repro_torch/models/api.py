@@ -1,5 +1,6 @@
 """Uniform model API (mirrors ``repro/models/api.py``), token-only
-architectures: the dense family and Mamba2.
+architectures: the dense family, Mamba2, the MoE models (llama4) and the
+Mamba-attention-MoE hybrid (Jamba).
 
 ``batch`` dicts carry ``tokens`` (B, S) int.  The audio (encoder-decoder)
 and VLM (patch prefix) branches come with a later slice and raise.
@@ -33,9 +34,10 @@ def model_init(cfg: ModelConfig, gen: torch.Generator,
 
 def model_logits(cfg: ModelConfig, params: dict, batch: dict,
                  use_ssd_kernel: bool = True):
-    """Full-sequence logits and aux loss.  ``use_ssd_kernel=False`` takes
-    the differentiable SSD route (training), where the backward recomputes
-    each block."""
+    """Full-sequence logits and the aux loss (the MoE FFNs' load-balance
+    loss summed over the layers; zero without one).
+    ``use_ssd_kernel=False`` takes the differentiable SSD route (training),
+    where the backward recomputes each block."""
     _token_only(cfg, batch)
     return T.lm_logits(cfg, params, batch["tokens"], use_ssd_kernel)
 

@@ -3,10 +3,8 @@
 One frozen dataclass describes every architecture family (dense, moe, ssm,
 hybrid, vlm, audio).  A model is a repeated ``block_pattern``: each entry is
 a ``(mixer, ffn)`` pair with ``mixer in {"attn", "mamba"}`` and
-``ffn in {"mlp", "moe", "none"}``.  Mamba2 uses ``[("mamba", "none")]``.
-The port runs the ``("attn", "mlp")`` and ``("mamba", "none")`` patterns
-so far; the MoE FFN comes with a later slice (see
-``models/transformer.py``).
+``ffn in {"mlp", "moe", "none"}``.  Dense archs use ``[("attn", "mlp")]``,
+Mamba2 uses ``[("mamba", "none")]``, Jamba interleaves, etc.
 """
 from __future__ import annotations
 

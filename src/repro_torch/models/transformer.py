@@ -1,7 +1,7 @@
-"""Decoder stack (mirrors ``repro/models/transformer.py``), for the block
-patterns whose sub-layers the port has: the attention and Mamba mixers,
-the MLP or no FFN (the dense family's ``("attn", "mlp")`` and Mamba2's
-``("mamba", "none")``); the MoE FFN raises.
+"""Decoder stack (mirrors ``repro/models/transformer.py``) for every
+token-only block pattern: the attention and Mamba mixers, each followed by
+an MLP, the MoE FFN or no FFN (the dense family's ``("attn", "mlp")``,
+Mamba2's ``("mamba", "none")``, llama4's MoE layers, Jamba's period of 8).
 
 A model is ``cfg.n_blocks`` repetitions of ``cfg.pattern``.  Block
 parameters keep the reference's stacked leading ``n_blocks`` axis
@@ -18,10 +18,14 @@ Every Mamba mixer's within-chunk block goes through K5
 (`kernels.ops.ssd_chunk`, its plain version on CPU tensors) unless
 ``use_ssd_kernel=False`` asks for the differentiable `ssm._chunk_local`,
 the reference's switch (training runs that route: K5 has no backward).
-Attention and the MLP are plain PyTorch, as in the reference.
-Where autograd records, each block is a checkpoint
+Attention, the MLP and the MoE FFN are plain PyTorch, as in the
+reference.  Where autograd records, each block is a checkpoint
 (``torch.utils.checkpoint``, the reference's ``remat``): the backward
-recomputes it.
+recomputes it; in a pattern of more than one sub-layer each mixer and each
+FFN is a checkpoint of its own inside it (the reference's
+``sublayer_remat``), so the backward holds one sub-layer's intermediates.
+The MoE FFN's load-balance loss is summed over the blocks in full-sequence
+mode and dropped in prefill and decode, as in the reference.
 """
 from __future__ import annotations
 
@@ -33,13 +37,8 @@ from .attention import (attn_decode_step, attn_forward, init_attn,
 from .base import ModelConfig
 from .layers import (embed, init_embed, init_mlp, init_rmsnorm, mlp, rmsnorm,
                      sub, unembed)
+from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_ssm_cache, mamba_decode_step, mamba_forward
-
-def _check_pattern(cfg: ModelConfig) -> None:
-    if any(ffn == "moe" for _, ffn in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (a later slice of "
-            f"the port); the attention and Mamba mixers and the MLP run")
 
 
 def _block(params: dict, i: int) -> dict:
@@ -56,7 +55,6 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     ``blocks/s{i}_mix/<leaf>`` (and ``blocks/s{i}_n2/scale``,
     ``blocks/s{i}_ffn/<leaf>`` where the pattern has an FFN) with the
     leading n_blocks axis, and ``final_norm/scale``."""
-    _check_pattern(cfg)
     nb = cfg.n_blocks
     params = {f"embed/{k}": v for k, v in init_embed(gen, cfg, device).items()}
 
@@ -71,37 +69,56 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
             params[f"blocks/s{i}_mix/{k}"] = v
         if ffn != "none":
             norm(f"s{i}_n2")
-            for k, v in init_mlp(gen, cfg, device, n_blocks=nb).items():
+            init_ffn = init_moe if ffn == "moe" else init_mlp
+            for k, v in init_ffn(gen, cfg, device, n_blocks=nb).items():
                 params[f"blocks/s{i}_ffn/{k}"] = v
     params["final_norm/scale"] = init_rmsnorm(cfg.d_model, device)["scale"]
     return params
 
 
 # --------------------------------------------------------------- forward ----
-def _ffn(cfg: ModelConfig, bp: dict, i: int, ffn: str,
-         x: torch.Tensor) -> torch.Tensor:
-    """Sub-layer i's FFN residual step (none for ``"none"``)."""
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _checkpoint(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _ffn(cfg: ModelConfig, bp: dict, i: int, ffn: str, x: torch.Tensor,
+         ckpt=_call):
+    """Sub-layer i's FFN residual step: (x, the MoE's aux loss or None).
+    ``ckpt`` runs the FFN (`_checkpoint` makes it a checkpoint region)."""
     if ffn == "none":
-        return x
+        return x, None
     h = rmsnorm(sub(bp, f"s{i}_n2"), x, cfg.norm_eps)
-    return x + mlp(sub(bp, f"s{i}_ffn"), cfg, h)
+    p = sub(bp, f"s{i}_ffn")
+    if ffn == "moe":
+        out, aux = ckpt(lambda p_, h_: moe_ffn(p_, cfg, h_), p, h)
+        return x + out, aux
+    return x + ckpt(lambda p_, h_: mlp(p_, cfg, h_), p, h), None
 
 
 def _block_forward(cfg: ModelConfig, bp: dict, x: torch.Tensor,
-                   use_ssd_kernel: bool = True):
-    """One pattern-repeat in full-sequence mode.  Returns (x, aux)."""
+                   use_ssd_kernel: bool = True, sublayer_remat: bool = False):
+    """One pattern-repeat in full-sequence mode.  Returns (x, aux).  With
+    ``sublayer_remat`` every mixer and FFN is its own checkpoint region."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt = _checkpoint if sublayer_remat else _call
     S = x.shape[1]
     c = 1024 if S >= 2048 else S        # the reference backbone's chunks
     for i, (mixer, ffn) in enumerate(cfg.pattern):
         h = rmsnorm(sub(bp, f"s{i}_n1"), x, cfg.norm_eps)
         if mixer == "attn":
-            out = attn_forward(sub(bp, f"s{i}_mix"), cfg, h, q_chunk=c,
-                               kv_chunk=c)
+            out = ckpt(lambda p_, h_: attn_forward(
+                p_, cfg, h_, q_chunk=c, kv_chunk=c), sub(bp, f"s{i}_mix"), h)
         else:
-            out = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h,
-                                use_ssd_kernel=use_ssd_kernel)
-        x = _ffn(cfg, bp, i, ffn, x + out)
+            out = ckpt(lambda p_, h_: mamba_forward(
+                p_, cfg, h_, use_ssd_kernel=use_ssd_kernel),
+                sub(bp, f"s{i}_mix"), h)
+        x, a = _ffn(cfg, bp, i, ffn, x + out, ckpt)
+        if a is not None:
+            aux = aux + a
     return x, aux
 
 
@@ -109,15 +126,16 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
              use_ssd_kernel: bool = True):
     """Run the block stack on embeddings x: (B, S, D).  With autograd
     recording, each block is a checkpoint: the backward keeps only the
-    blocks' inputs and recomputes one block at a time."""
-    _check_pattern(cfg)
+    blocks' inputs and recomputes one block at a time (one sub-layer at a
+    time where the pattern has more than one)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ckpt = torch.is_grad_enabled()
+    sublayer = ckpt and len(cfg.pattern) > 1
     for b in range(cfg.n_blocks):
         bp = _block(params, b)
         if ckpt:
-            x, a = checkpoint(lambda h, bp=bp: _block_forward(
-                cfg, bp, h, use_ssd_kernel), x, use_reentrant=False)
+            x, a = _checkpoint(lambda h, bp=bp: _block_forward(
+                cfg, bp, h, use_ssd_kernel, sublayer), x)
         else:
             x, a = _block_forward(cfg, bp, x, use_ssd_kernel)
         aux = aux + a
@@ -150,7 +168,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
     leading n_blocks axis: attention sub-layers get ring buffers ``k`` and
     ``v`` of (n_blocks, batch, W, Kh, hd), W = min(seq_len, sliding_window);
     Mamba sub-layers the O(1) SSM state and conv windows."""
-    _check_pattern(cfg)
     cache = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
         one = (init_kv_cache(cfg, batch, _window(cfg, seq_len), device)
@@ -174,7 +191,7 @@ def _block_decode(cfg: ModelConfig, bp: dict, bc: dict, x: torch.Tensor,
             out, new = mamba_decode_step(sub(bp, f"s{i}_mix"), cfg, h, mine)
             for k, v in new.items():
                 mine[k].copy_(v)
-        x = _ffn(cfg, bp, i, ffn, x + out)
+        x, _ = _ffn(cfg, bp, i, ffn, x + out)
     return x
 
 
@@ -215,7 +232,7 @@ def _block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor,
             out, mc = mamba_forward(sub(bp, f"s{i}_mix"), cfg, h,
                                     return_cache=True)
             cache.update({f"s{i}/{k}": v for k, v in mc.items()})
-        x = _ffn(cfg, bp, i, ffn, x + out)
+        x, _ = _ffn(cfg, bp, i, ffn, x + out)
     return x, cache
 
 
@@ -225,7 +242,6 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``seq_len`` (default: the prompt's length) sizes the attention ring
     buffers.  Each block's cache lands in the stacked (n_blocks, ...)
     leaves as it is made, so no second copy of the cache is held."""
-    _check_pattern(cfg)
     seq_len = seq_len or tokens.shape[1]
     x = embed_inputs(cfg, params, tokens)
     cache = {}

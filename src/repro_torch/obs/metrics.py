@@ -7,16 +7,38 @@ per-step (serve) cadences, and nothing here reaches the device.
 `MetricsRegistry.snapshot()` returns a JSON-ready dict; ``to_json`` writes
 it to a file with the run's provenance (`provenance.RunProvenance`).
 
-Percentiles are `Histogram.percentile`'s streaming estimates from fixed
-log-spaced buckets (linear interpolation inside the bucket, exact min/max
-clamping); the reference's exact ``percentile(s)`` of a sequence are not
-copied (serving's load generator uses them, and it is not ported).
+Percentiles come in two forms, one implementation each:
+
+* ``percentile``/``percentiles`` — exact, over a materialized sequence
+  (numpy float64, linear interpolation); the serving load generator reports
+  p50/p90/p99 through them (`serve.loadgen.summarize`).
+* `Histogram.percentile` — streaming estimate from fixed log-spaced
+  buckets (linear interpolation inside the bucket, exact min/max
+  clamping).
 """
 from __future__ import annotations
 
 import json
 import math
 from typing import Optional, Sequence
+
+import numpy as np
+
+
+# ------------------------------------------------------------- percentiles ---
+def percentile(xs: Sequence[float], q: float, empty: Optional[float] = -1.0
+               ) -> float:
+    """Exact q-th percentile (linear interpolation); ``empty`` on empty
+    input.  The serving reports pass ``empty=None`` so an empty series
+    serializes as JSON null instead of a fake -1.0 latency."""
+    if not len(xs):
+        return empty
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def percentiles(xs: Sequence[float], qs: Sequence[float] = (50, 90, 99),
+                empty: Optional[float] = -1.0) -> dict:
+    return {f"p{q:g}": percentile(xs, q, empty=empty) for q in qs}
 
 
 # ------------------------------------------------------------- instruments ---

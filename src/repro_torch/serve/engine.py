@@ -12,7 +12,10 @@ it with:
     step writes each slot's new K/V into its ring buffer in place (the
     reference donates the cache).  Free slots compute garbage lanes that
     nothing reads, so admitting and evicting requests never changes a
-    shape.
+    shape.  An MoE FFN routes each slot's token as a group of its own
+    (``moe_group_size`` 1 in the decode step's config), as the reference's
+    vmap over the slots does: slots never take each other's expert
+    capacity.
   * a **fused decode chunk**: ``step(now, decode_chunk=d)`` runs d decode
     steps back to back on device tensors — token, position, tokens still
     owed and prompt-tail tokens still to force — and syncs the host
@@ -120,6 +123,9 @@ class ServeEngine:
                              f"{elsewhere[:3]} lie on "
                              f"{params[elsewhere[0]].device}")
         self.cfg = cfg
+        # the reference vmaps its decode step over the slots, so an MoE
+        # FFN sees one token a call: a group of one, whatever the slots do
+        self._decode_cfg = cfg.replace(moe_group_size=1)
         self.params = params
         self.slots = int(slots)
         self.seq_budget = int(seq_budget)
@@ -145,7 +151,7 @@ class ServeEngine:
     def _decode(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """One decode step of every slot; updates the cache, returns the
         (N,) greedy next tokens on the device."""
-        logits, self.cache = model_decode_step(self.cfg, self.params,
+        logits, self.cache = model_decode_step(self._decode_cfg, self.params,
                                                self.cache, tok, pos)
         return torch.argmax(logits, dim=-1)
 

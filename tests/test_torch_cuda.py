@@ -776,3 +776,81 @@ def test_paper_model_card_against_cpu(cuda_device, name):
     for k, v in out["cpu"].items():
         torch.testing.assert_close(out["cuda"][k].cpu(), v, atol=1e-4,
                                    rtol=1e-3, msg=k)
+
+
+# ------------------------------------------------------ MoE and hot swap --
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
+                                  "llama4-maverick-400b-a17b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_ffn_card_against_cpu(cuda_device, arch):
+    """One MoE FFN of each MoE arch's smoke config in f32 on 64 tokens (4
+    groups of 16, tokens dropped at the configs' capacity factor): the
+    routes equal where the router's top-two gap exceeds 1e-5, and the
+    output and load-balance loss within 1e-5 + 1e-4 |x| where they do."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch).smoke()
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.randn((4, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        pd = {k: v.to(device) for k, v in p.items()}
+        xg = x.to(device).reshape(4, 16, -1)
+        out[device.type] = [t.cpu() for t in moe.route(pd, cfg, xg)] + [
+            t.cpu() for t in moe.moe_ffn(pd, cfg, x.to(device))]
+    (g, i, r, k, a, y, aux), cpu = out["cuda"], out["cpu"]
+    assert not bool(cpu[3].all())                   # some choices dropped
+    gates = torch.softmax(x.reshape(4, 16, -1) @ p["router"], dim=-1)
+    top2 = torch.topk(gates, 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < 1e-5
+    same = ((i == cpu[1]) & (r == cpu[2]) & (k == cpu[3])).all(dim=-1)
+    assert bool((same | near).all())
+    if bool(same.all()):
+        torch.testing.assert_close(y, cpu[5], atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(aux, cpu[6], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hot_swap_on_the_card(cuda_device):
+    """A live FedEngine LLM DS-FL run of the smoke qwen1.5-4b on the card
+    hot-swaps a server on the card after each round; the served weights
+    are bitwise ``eval_params`` of the final state, in the server's own
+    storage, and K1, K3 and K4 ran on the trainer's path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import FedEngine
+    from repro_torch.core.llm_algorithms import LLMDSFLAlgorithm
+    from repro_torch.core.llm_dsfl import LLMDsflHP
+    from repro_torch.data.pipeline import build_lm_task
+    from repro_torch.models.api import model_init
+    from repro_torch.serve import Request, ServeEngine, attach
+    cfg = get_config("qwen1.5-4b").smoke()
+    task = build_lm_task(0, 2, 4, 32, cfg.vocab, device="cuda")
+    algo = LLMDSFLAlgorithm(cfg, LLMDsflHP(lr=5e-3, rounds=2, open_batch=4,
+                                           use_kernel=True), device="cuda")
+    fed = FedEngine(algo)
+    state = fed.init(lambda g: model_init(cfg, g, "cuda"), task)
+    srv = ServeEngine(cfg, model_init(cfg, _gen("cuda", 1), "cuda"),
+                      slots=2, seq_budget=48, buckets=(8, 16))
+    prompt = tuple(range(1, 13))
+    srv.insert(Request(id=0, tokens=prompt, max_new_tokens=4))
+    while srv.n_active:
+        srv.step()
+    assert srv.pop_completed()[0].weights_version == 0
+    sync = attach(fed, srv, algo)
+    _build.reset_launches()
+    state = fed.run(state, task, rounds=2)
+    torch.cuda.synchronize()
+    for name in ("era_sharpen", "distill_loss_fwd", "distill_loss_bwd"):
+        assert _build.LAUNCHES[name] > 0, name
+    assert [r for r, _ in sync.swap_log] == [1, 2]
+    srv.insert(Request(id=1, tokens=prompt, max_new_tokens=4))
+    while srv.n_active:
+        srv.step()
+    assert srv.pop_completed()[0].weights_version == 2
+    want, _ = algo.eval_params(state)
+    for k, v in want.items():
+        assert torch.equal(srv.params[k], v), k
+        assert srv.params[k].data_ptr() != \
+            state.clients.params[k].data_ptr(), k

@@ -105,10 +105,7 @@ def test_configs_and_shapes_pinned_to_reference():
     assert shapes.SHAPES == {k: shapes.InputShape(**dataclasses.asdict(v))
                              for k, v in jshapes.SHAPES.items()}
     assert shapes.LONG_CONTEXT_WINDOW == jshapes.LONG_CONTEXT_WINDOW
-    assert set(NOT_PORTED) == {"llama4-scout-17b-a16e",
-                               "llama4-maverick-400b-a17b",
-                               "jamba-1.5-large-398b", "phi-3-vision-4.2b",
-                               "whisper-small"}
+    assert set(NOT_PORTED) == {"phi-3-vision-4.2b", "whisper-small"}
 
 
 def test_qwen_full_width_parameter_count():

@@ -62,8 +62,8 @@ def test_config_registry_and_layout(weights):
         2560, 64, 80, 50280)
     assert full.cdtype == torch.bfloat16 and CFG.cdtype == torch.float32
     assert list_archs() == jlist_archs()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_config("llama4-scout-17b-a16e")
+    with pytest.raises(NotImplementedError, match="VLM"):
+        get_config("phi-3-vision-4.2b")
     # the port's own init has the reference's names, shapes and dtypes
     own = tapi.model_init(CFG, torch.Generator().manual_seed(0), "cpu")
     assert {k: (tuple(v.shape), v.dtype) for k, v in own.items()} == {
@@ -141,9 +141,15 @@ def test_ssd_kernel_route_equals_plain_route_on_cpu(weights):
 
 def test_unported_models_raise(weights, monkeypatch):
     _, tp = weights
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.init_lm(CFG.replace(arch_type="moe", n_experts=4, d_ff=256),
-                   torch.Generator(), "cpu")
+    # the MoE FFN is ported: its init gives the reference's leaves
+    moe = dict(arch_type="moe", block_pattern=(("attn", "moe"),), n_heads=4,
+               n_kv_heads=4, head_dim=32, n_experts=4, d_ff=256)
+    want = jax.eval_shape(lambda k: JT.init_lm(JCFG.replace(**moe), k),
+                          jax.random.PRNGKey(0))
+    own = TT.init_lm(CFG.replace(**moe), torch.Generator(), "cpu")
+    assert {k: tuple(v.shape) for k, v in own.items()} == {
+        "/".join(p.key for p in path): tuple(v.shape)
+        for path, v in jax.tree_util.tree_flatten_with_path(want)[0]}
     with pytest.raises(NotImplementedError, match="audio"):
         tapi.model_init(CFG.replace(arch_type="audio"), torch.Generator(),
                         "cpu")
