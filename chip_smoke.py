@@ -15,8 +15,11 @@ K5 on its path; qwen1.5-4b's 151,936-class rows take K1/K2's wide-row
 route), serving the MoE models llama4-scout and llama4-maverick at full
 width (the MoE FFN in plain PyTorch, no kernel on the path) and Jamba at
 its smoke width (K5), hot-swapping a serving qwen1.5-4b from its live
-DS-FL federation (K1, K3/K4) and driving that server with the load
-generator.  Phases, in order; any failure exits non-zero and prints no
+DS-FL federation (K1, K3/K4), driving that server with the load
+generator, and serving and training the modality families at full width:
+phi-3-vision-4.2b (patch features through a projector) and whisper-small
+(an encoder-decoder), each trained with DS-FL (K1, K3/K4 at their
+vocabularies of 32,064 and 51,865).  Phases, in order; any failure exits non-zero and prints no
 result:
 
  1. device   the card's name and power limit, torch and CUDA versions; TF32
@@ -287,18 +290,46 @@ result:
              are bitwise ``eval_params`` of the final state and share no
              storage with the trainer; the window's launches held to K1 2,
              K3/K4 4; swap latencies and the window's peak printed.
-    loadgen  ``serve.run_load`` on those weights (a fresh engine of phase
-             7's shape each run) with ``LoadSpec(n_requests=32, rate=4.0,
+    loadgen  ``serve.run_load`` on the first 20 of those weights' 40 layers
+             (a fresh engine of phase 7's shape each run) with ``LoadSpec(n_requests=32, rate=4.0,
              prompt_len=(4, 48), max_new=(4, 16), vocab=151936, seed=0)``,
              with the defaults, ``decode_chunk=8`` and
              ``batch_insert=True``: every request's tokens equal across the
              three; completed and shed, latency and TTFT p50/p99 (virtual)
              and tokens per wall second printed; no kernel launched.
+    modality (a) phi-3-vision-4.2b at full width (32 layers, d 3072, 32
+             heads of 96, vocabulary 32,064; 3,732,016,128 values asserted)
+             and (b) whisper-small (12 encoder and 12 decoder layers, d
+             768, 1,500 frames; 263,318,784 values), bf16, seeded, the tied
+             embedding scaled, each through `launch.serve.serve` (the
+             lockstep path both launchers take for these families): 4
+             requests of 576 patches and 512 tokens, 32 new, or of 1,500
+             frames and 64 tokens, 64 new; prefill (and whisper's encoder)
+             timed twice, decode ms a step, peak; no kernel launched; then
+             whisper in f32 at full width: a prefill of 64 tokens and 16
+             teacher-forced decode steps within 1e-4 of the largest
+             teacher-forced logit (the prefill fills the decoder's rings,
+             ROADMAP deviation 16; decoding from empty rings, the
+             reference's prefill, is printed and must fail that check);
+             (c) each model through `launch.train`'s windows at K = 2,
+             batch 8, seq 128 (phi-3-vision's sequences 576 + 128
+             positions): DS-FL ERA 2 rounds (K1 2, K3/K4 4, nothing else)
+             and FedAvg 1 round (none), bytes a round held to `CommModel`
+             (FP16 197,001,216 / 318,658,560; FedAvg 44,784,193,536 /
+             3,159,825,408); (d) K1/K2 at (2, 1024, 32064) and (2, 1024,
+             51865) bf16 and K3/K4 at (1024, 32064) and (1024, 51865) bf16
+             against their plain versions (K3 also against float64) and
+             timed as phase 4's rows, then `llm_kernel_checks` at each
+             vocabulary; (e) both smoke configs' DS-FL and FedAvg rounds
+             on the card against the CPU, and their lockstep serve tokens
+             equal on both.
 11. the ``{"kernels": [...]}`` line (launches on each path, ``wide``
              timing rows for K1/K2, ``llm_qwen_launches``,
              ``paper_models_launches`` by model, ``moe_serve_launches``,
              ``jamba_smoke_launches``, ``hot_swap_launches``,
-             ``loadgen_launches``), the card's line, and the result line.
+             ``loadgen_launches``, ``modality_launches`` by model and
+             window, ``modality`` timing rows for K1-K4), the card's line,
+             and the result line.
 """
 from __future__ import annotations
 
@@ -972,6 +1003,55 @@ def ce_backward_timing(z, t, pairs, tol):
     return rec
 
 
+def k34_timing(dl, N, V, dtype, seed, atol_f, tol_b):
+    """K3 (`k3_timing`, its float64 error held to twice the plain
+    version's) and K4 at (N, V) in ``dtype``: K4 checked against its plain
+    version at ``tol_b`` (which must not pass a zeroed dz), then timed as
+    K3, with the backward of ``F.cross_entropy`` as its yardstick.
+    Returns the two records."""
+    fwd, (z, t, plogz, pairs) = k3_timing(dl, N, V, dtype, seed, atol_f)
+    label = f"({N},{V}) {fwd['dtype']}"
+    if fwd["float64_err"] > 2 * fwd["plain_float64_err"]:
+        fail(f"K3 {label}: float64 error above twice the plain version's")
+    tmass = t.float().sum(-1)
+    gscale = torch.full((1,), 1.0 / N, device="cuda")
+    dz_plain = dl.distill_loss_bwd_plain(z, t, plogz, tmass, gscale)
+    eb = check(f"K4 distill_loss_bwd {label}",
+               dl.distill_loss_bwd(z, t, plogz, tmass, gscale), dz_plain,
+               *tol_b)
+    if close(torch.zeros_like(dz_plain), dz_plain, *tol_b):
+        fail(f"K4 {label}: the tolerance would pass a zeroed dz")
+    del dz_plain
+    bb, byb = bound(3 * N * V * z.element_size() + 2 * N * 4 + 4, 5 * N * V)
+    k4 = lambda z_, t_: (lambda: dl.distill_loss_bwd(z_, t_, plogz, tmass,
+                                                     gscale))
+    bwd = dict(max_abs_err=eb, ms=time_ms(k4(z, t)),
+               graph_ms=graph_ms(k4(z, t)),
+               graph_cold_ms=graph_ms([k4(*p) for p in pairs]),
+               plain_ms=time_ms(lambda: dl.distill_loss_bwd_plain(
+                   z, t, plogz, tmass, gscale)),
+               bound_ms=bb, bound_by=byb,
+               shape=[N, V], dtype=fwd["dtype"], cold_copies=len(pairs))
+    bwd.update(ce_backward_timing(z, t, pairs, tol_b))
+    del pairs
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def say_timing(name, r):
+    """One ``timing`` line of a kernel's record."""
+    say(f"timing {name} {r['shape']} {r['dtype']}: ms={r['ms']:.5f} " +
+        "".join(f"{k}={r[k]:.5f} ({r['bound_ms'] / r[k]:.1%} of the "
+                f"bound) " for k in ("graph_ms", "graph_cold_ms")
+                if k in r) +
+        f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
+        f"({r['bound_by']}) library_ms={r['library_ms']}" +
+        "".join(f" {k}={r[k]:.5f}" for k in ("library_graph_ms",
+                                              "library_graph_cold_ms",
+                                              "fill_graph_ms")
+                if k in r))
+
+
 def phase_kernels_and_timing():
     """Checks (phase 3) and timings (phase 4) of K1-K4.  Returns one record
     per kernel at the main path's shape, plus extra timing rows."""
@@ -1004,38 +1084,9 @@ def phase_kernels_and_timing():
     extra += wide
 
     # K3 / K4 ---------------------------------------------------------------
-    def k34(N, V, dtype, seed, atol_f, tol_b):
-        fwd, (z, t, plogz, pairs) = k3_timing(dl, N, V, dtype, seed, atol_f)
-        label = f"({N},{V}) {fwd['dtype']}"
-        if fwd["float64_err"] > 2 * fwd["plain_float64_err"]:
-            fail(f"K3 {label}: float64 error above twice the plain version's")
-        tmass = t.float().sum(-1)
-        gscale = torch.full((1,), 1.0 / N, device="cuda")
-        dz_plain = dl.distill_loss_bwd_plain(z, t, plogz, tmass, gscale)
-        eb = check(f"K4 distill_loss_bwd {label}",
-                   dl.distill_loss_bwd(z, t, plogz, tmass, gscale), dz_plain,
-                   *tol_b)
-        if close(torch.zeros_like(dz_plain), dz_plain, *tol_b):
-            fail(f"K4 {label}: the tolerance would pass a zeroed dz")
-        del dz_plain
-        bb, byb = bound(3 * N * V * z.element_size() + 2 * N * 4 + 4, 5 * N * V)
-        k4 = lambda z_, t_: (lambda: dl.distill_loss_bwd(z_, t_, plogz, tmass,
-                                                         gscale))
-        bwd = dict(max_abs_err=eb, ms=time_ms(k4(z, t)),
-                   graph_ms=graph_ms(k4(z, t)),
-                   graph_cold_ms=graph_ms([k4(*p) for p in pairs]),
-                   plain_ms=time_ms(lambda: dl.distill_loss_bwd_plain(
-                       z, t, plogz, tmass, gscale)),
-                   bound_ms=bb, bound_by=byb,
-                   shape=[N, V], dtype=fwd["dtype"], cold_copies=len(pairs))
-        bwd.update(ce_backward_timing(z, t, pairs, tol_b))
-        del pairs
-        torch.cuda.empty_cache()
-        return fwd, bwd
-
     for i, (N_, V_, dt) in enumerate(K3_SHAPES):
         atol_f = 1e-4 if dt == torch.float32 else 2e-2
-        f_, b_ = k34(N_, V_, dt, 5 + i, atol_f, dz_tol(N_, dt))
+        f_, b_ = k34_timing(dl, N_, V_, dt, 5 + i, atol_f, dz_tol(N_, dt))
         if (N_, V_, dt) == K3_MAIN:
             recs["distill_loss_fwd"] = dict(
                 source="src/repro_torch/csrc/distill_loss.cu",
@@ -1055,16 +1106,7 @@ def phase_kernels_and_timing():
     del z, t
     torch.cuda.empty_cache()
     for name, r in list(recs.items()) + [(e["name"], e) for e in extra]:
-        say(f"timing {name} {r['shape']} {r['dtype']}: ms={r['ms']:.5f} " +
-            "".join(f"{k}={r[k]:.5f} ({r['bound_ms'] / r[k]:.1%} of the "
-                    f"bound) " for k in ("graph_ms", "graph_cold_ms")
-                    if k in r) +
-            f"plain_ms={r['plain_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}) library_ms={r['library_ms']}" +
-            "".join(f" {k}={r[k]:.5f}" for k in ("library_graph_ms",
-                                                  "library_graph_cold_ms",
-                                                  "fill_graph_ms")
-                    if k in r))
+        say_timing(name, r)
     # the yardsticks' cuBLAS calls leave a workspace on each stream they ran
     # on; free them (where this torch exposes it), so the rounds' peak memory
     # counts the port alone
@@ -1212,8 +1254,15 @@ def _serving_model(arch: str, n_values: int):
                  f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
     else:
         shape = (f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads} KV "
-                 f"heads, d_ff {cfg.d_ff} ({cfg.act}), RoPE theta "
-                 f"{cfg.rope_theta:g}, QKV bias {cfg.qkv_bias}")
+                 f"heads, d_ff {cfg.d_ff} ({cfg.act}), " +
+                 (f"RoPE theta {cfg.rope_theta:g}" if cfg.pos_embed == "rope"
+                  else f"{cfg.pos_embed} positions") +
+                 f", QKV bias {cfg.qkv_bias}")
+        if cfg.arch_type == "vlm":
+            shape += f", {cfg.n_patches} patches"
+        if cfg.arch_type == "audio":
+            shape += (f", {cfg.enc_layers} encoder layers over "
+                      f"{cfg.n_audio_frames} frames")
     say(f"serve: {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
         f"{shape}, vocab {cfg.vocab}, {cfg.dtype}: {n} values, "
         f"{sum(v.numel() * v.element_size() for v in params.values())} bytes,"
@@ -2934,6 +2983,55 @@ def _llm_expect(name, launches, want):
         fail(f"{name}: launches {launches}, the path takes {full}")
 
 
+def fed_window(smi, label, base, vocab, n_params, per_window, name, argv,
+               schedule, want):
+    """One window of the LLM trainer: a federation set up from the CLI's
+    flags ``base + argv`` (``train.setup``) and its rounds
+    (``train.run_rounds``; ``schedule`` is a list of (rounds,
+    active_budget)), with the launch counts zeroed before and read after,
+    held to ``want``; its bytes to `CommModel`, ``n_params`` a client and
+    finite losses.  Prints an ``{label} [...] {...}`` line, records the
+    launches in ``per_window[name]`` and returns the federation."""
+    from repro_torch.core.comm import CommModel
+    from repro_torch.launch import train
+    args = train.parse_args(base + argv)
+
+    def body():
+        fed = train.setup(args)
+        recs = []
+        for n, budget in schedule:
+            recs += train.run_rounds(fed, n, active_budget=budget)
+        return fed, recs
+
+    (fed, recs), w = _llm_window(body)
+    n = fed.params_per_client
+    cm = CommModel(LLM_K, vocab, n, open_batch=LLM_N)
+    expect = {"fp16": cm.dsfl_fp16_round(),
+              "topk": cm.dsfl_topk_round(args.topk or 0),
+              "dense_f32": cm.fl_round()}[fed.engine.codec.name]
+    losses = [r["loss"] for r in recs]
+    rec = dict(run=name, rounds=len(recs),
+               seconds_first_round=recs[0]["seconds"],
+               seconds_later_rounds=[r["seconds"] for r in recs[1:]],
+               losses=losses, exchange_bytes=fed.exchange_bytes,
+               comm_model_bytes=expect,
+               fedavg_fp32_bytes=cm.fl_round(),
+               participants=[r.get("participants", LLM_K) for r in recs],
+               params_per_client=n, **w)
+    say(f"{label} [{smi}] " + json.dumps(rec))
+    if n != n_params:
+        fail(f"{label} {name}: {n} parameters a client, expected "
+             f"{n_params}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label} {name}: a loss is not finite: {losses}")
+    if fed.exchange_bytes != expect:
+        fail(f"{label} {name}: measured {fed.exchange_bytes} B a round, "
+             f"CommModel {expect}")
+    _llm_expect(f"{label} {name}", w["launches"], want)
+    per_window[name] = w["launches"]
+    return fed
+
+
 def llm_windows(smi, label, arch, vocab, n_params, k5, teacher_note,
                 era_rounds=3):
     """The LLM trainer's five windows through `repro_torch.launch.train`'s
@@ -2946,51 +3044,12 @@ def llm_windows(smi, label, arch, vocab, n_params, k5, teacher_note,
     dense family; K1 a dense teacher, K2 a weighted one, K3/K4 a client
     step), its bytes to `CommModel`, ``n_params`` a client and finite
     losses.  Returns each window's launches."""
-    from repro_torch.core.comm import CommModel
     from repro_torch.launch import train
     base = ["--arch", arch, "--clients", str(LLM_K), "--batch", str(LLM_B),
             "--seq", str(LLM_S)]
     per_window = {}
-
-    def fed_rounds(name, argv, schedule, want):
-        """Set up a federation from the CLI's flags and run its rounds:
-        ``schedule`` is a list of (rounds, active_budget)."""
-        args = train.parse_args(base + argv)
-
-        def body():
-            fed = train.setup(args)
-            recs = []
-            for n, budget in schedule:
-                recs += train.run_rounds(fed, n, active_budget=budget)
-            return fed, recs
-
-        (fed, recs), w = _llm_window(body)
-        n = fed.params_per_client
-        cm = CommModel(LLM_K, vocab, n, open_batch=LLM_N)
-        expect = {"fp16": cm.dsfl_fp16_round(),
-                  "topk": cm.dsfl_topk_round(args.topk or 0),
-                  "dense_f32": cm.fl_round()}[fed.engine.codec.name]
-        losses = [r["loss"] for r in recs]
-        rec = dict(run=name, rounds=len(recs),
-                   seconds_first_round=recs[0]["seconds"],
-                   seconds_later_rounds=[r["seconds"] for r in recs[1:]],
-                   losses=losses, exchange_bytes=fed.exchange_bytes,
-                   comm_model_bytes=expect,
-                   fedavg_fp32_bytes=cm.fl_round(),
-                   participants=[r.get("participants", LLM_K) for r in recs],
-                   params_per_client=n, **w)
-        say(f"{label} [{smi}] " + json.dumps(rec))
-        if n != n_params:
-            fail(f"{label} {name}: {n} parameters a client, expected "
-                 f"{n_params}")
-        if not all(np.isfinite(losses)):
-            fail(f"{label} {name}: a loss is not finite: {losses}")
-        if fed.exchange_bytes != expect:
-            fail(f"{label} {name}: measured {fed.exchange_bytes} B a round, "
-                 f"CommModel {expect}")
-        _llm_expect(f"{label} {name}", w["launches"], want)
-        per_window[name] = w["launches"]
-        return fed
+    fed_rounds = functools.partial(fed_window, smi, label, base, vocab,
+                                   n_params, per_window)
 
     # DS-FL ERA: K5 for each client's prediction and for the measured
     # payload, K1 once a round, K3/K4 once a client step
@@ -3321,16 +3380,19 @@ def llm_smoke_rounds(device, arch="mamba2-2.7b"):
     """One DS-FL round (``use_kernel`` on: the kernels on the card, their
     plain versions on the CPU) and one FedAvg round of ``arch``'s smoke
     config (K=2, batch 2, seq 32) on ``device``, from weights and data made
-    on the CPU from seed 0: [(params, loss), (params, loss)].  Shared with
-    tests/test_torch_cuda.py."""
+    on the CPU from seed 0 (a VLM's patches and an audio model's frames
+    from `launch.train.extra_inputs`): [(params, loss), (params, loss)].
+    Shared with tests/test_torch_cuda.py."""
     from repro_torch.configs import get_config
     from repro_torch.core.llm_algorithms import stack_init
     from repro_torch.core.llm_dsfl import (LLMDsflHP, dsfl_round_step,
                                            fedavg_round_step)
     from repro_torch.data.pipeline import build_lm_task
+    from repro_torch.launch.train import extra_inputs
     from repro_torch.models.api import model_init
     cfg = get_config(arch).smoke()
-    task = build_lm_task(0, 2, 2, 32, cfg.vocab, device="cpu")
+    task = build_lm_task(0, 2, 2, 32, cfg.vocab, device="cpu",
+                         extras_fn=lambda b, g: extra_inputs(cfg, b, g))
     st = stack_init(0, lambda g: model_init(cfg, g, "cpu"), 2, "cpu")
     mv = lambda t: {k: v.to(device) for k, v in t.items()}
     return [dsfl_round_step(cfg, mv(st), mv(task.x_clients),
@@ -3339,13 +3401,13 @@ def llm_smoke_rounds(device, arch="mamba2-2.7b"):
             fedavg_round_step(cfg, mv(st), mv(task.x_clients), 1e-3)]
 
 
-def llm_card_vs_cpu(smi, arch="mamba2-2.7b"):
+def llm_card_vs_cpu(smi, arch="mamba2-2.7b", label=None):
     """`llm_smoke_rounds` on the card against the same rounds on the CPU,
     leaf by leaf and in the loss."""
     runs = {d: [dict(p, loss=l.reshape(1))
                 for p, l in llm_smoke_rounds(d, arch)]
             for d in ("cuda", "cpu")}
-    label = "llm" if arch == "mamba2-2.7b" else f"llm {arch}"
+    label = label or ("llm" if arch == "mamba2-2.7b" else f"llm {arch}")
     worst = 0.0
     for kind, a, b in zip(("dsfl", "fedavg"), runs["cuda"], runs["cpu"]):
         for k in b:
@@ -3664,8 +3726,13 @@ def phase_moe(smi):
 # `repro_torch.launch.train`'s DS-FL federation of it (phase "llm
 # qwen1.5-4b"'s settings, K = 2) runs HOT_SWAP_ROUNDS rounds with
 # `serve.attach`: K1 (wide-row route) once a round, K3/K4 once a client
-# step.  Then phase "loadgen" drives those weights with LOADGEN_SPEC.
+# step.  Then phase "loadgen" drives the first LOADGEN_LAYERS of those
+# weights' 40 layers with LOADGEN_SPEC: its decode is host-bound (about 557
+# steps a run, three runs), and at 40 layers the phase took 152-212 s of
+# the script, which passed 1000 s once phase "modality" joined it (1004 s
+# on an H100 80GB HBM3 at 700 W).
 HOT_SWAP_ROUNDS = 2
+LOADGEN_LAYERS = 20
 LOADGEN_SPEC = dict(n_requests=32, rate=4.0, prompt_len=(4, 48),
                     max_new=(4, 16), vocab=QWEN_V, seed=0)
 
@@ -3756,8 +3823,9 @@ def phase_hot_swap(smi):
 
 
 def phase_loadgen(smi, cfg, params):
-    """Phase "loadgen": `serve.run_load` on the hot-swapped qwen1.5-4b
-    weights (phase 7's engine, a fresh one each run) with LOADGEN_SPEC,
+    """Phase "loadgen": `serve.run_load` on the first LOADGEN_LAYERS layers
+    of the hot-swapped qwen1.5-4b weights (views; phase 7's engine, a fresh
+    one each run) with LOADGEN_SPEC,
     three ways: the defaults, ``decode_chunk=8`` and ``batch_insert=True``.
     Every request must get the same tokens each way (the paths are
     token-identical) and the same requests complete and shed.  Prints each
@@ -3766,6 +3834,9 @@ def phase_loadgen(smi, cfg, params):
     from repro_torch.serve import (AdmissionQueue, LoadSpec, ServeEngine,
                                    run_load)
     t0 = time.perf_counter()
+    cfg = cfg.replace(n_layers=LOADGEN_LAYERS)
+    params = {k: v[:LOADGEN_LAYERS] if k.startswith("blocks/") else v
+              for k, v in params.items()}
     spec = LoadSpec(**LOADGEN_SPEC)
     runs = {}
     _build.reset_launches()
@@ -3803,6 +3874,306 @@ def phase_loadgen(smi, cfg, params):
     say(f"loadgen: every request's tokens equal across the three runs; "
         f"phase took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ------------------------------------------------------- phase "modality" --
+# The VLM (phi-3-vision-4.2b: phi3-mini with 576 patch features prepended
+# through its projector) and the encoder-decoder (whisper-small: 1,500
+# frame embeddings through its encoder) at full width, bf16, seeded, the
+# tied embedding scaled as `scale_embedding` does.  Each model: (a)/(b)
+# `launch.serve.serve` (lockstep, the path both launchers take for these
+# families) of MODALITY_B requests; (c) `launch.train`'s DS-FL ERA window
+# of MODALITY_ERA_ROUNDS rounds and FedAvg window of 1 round at K = 2,
+# batch 8, seq 128 (phi-3-vision's sequences 576 + 128 positions), bytes
+# held to the values below (`CommModel`'s: FP16 3 x 1024 x V x 2, FedAvg
+# 3 x params x 4); (d) K1-K4 at the teachers' (2, 1024, V) and the KD
+# terms' (1024, V) bf16; (e) the smoke configs' rounds and lockstep serve
+# on the card against the CPU.  whisper's prefill then decode is held in
+# f32 at full width to its teacher-forced decoder (ROADMAP, deviation 16).
+MODALITY = {
+    "phi-3-vision-4.2b": dict(values=3_732_016_128, vocab=32_064, prompt=512,
+                              new=32, fp16_bytes=197_001_216,
+                              fedavg_bytes=44_784_193_536),
+    "whisper-small": dict(values=263_318_784, vocab=51_865, prompt=64,
+                          new=64, fp16_bytes=318_658_560,
+                          fedavg_bytes=3_159_825_408)}
+MODALITY_B = 4
+MODALITY_ERA_ROUNDS = 2
+MODALITY_F32_PROMPT, MODALITY_F32_STEPS = 64, 16
+MODALITY_F32_RTOL = 1e-4            # of the teacher-forced logits' largest
+
+
+def _modality_batch(cfg, B, S, seed, device="cuda"):
+    """B prompts of S tokens and the model's stub inputs
+    (`launch.train.extra_inputs`), drawn from one seeded generator."""
+    from repro_torch.launch.train import extra_inputs
+    g = torch.Generator(device=device).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     device=device)}
+    batch.update(extra_inputs(cfg, B, g))
+    return batch
+
+
+def _clock_ms(fn, n=2) -> list:
+    """Host milliseconds of ``fn()`` over a synchronized device, ``n``
+    times (the first call apart from the warm ones)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        del r
+    return out
+
+
+def modality_serve(smi, arch):
+    """(a)/(b): ``arch`` at full width through `launch.serve.serve`:
+    MODALITY_B requests of its prompt (and 576 patches or 1,500 frames),
+    its new tokens each.  The prefill (and whisper's encoder alone) is
+    timed twice before; the launch counts are zeroed just before the serve
+    and read after it (no kernel on this path).  Returns (the launches,
+    cfg, params)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import encdec
+    from repro_torch.models.api import model_prefill
+    spec = MODALITY[arch]
+    cfg, params = _serving_model(arch, spec["values"])
+    scale_embedding(cfg, params)
+    batch = _modality_batch(cfg, MODALITY_B, spec["prompt"], 21)
+    extra = cfg.n_patches if cfg.arch_type == "vlm" else 0
+    budget = spec["prompt"] + spec["new"] + extra
+    rec = dict(device=smi, arch=arch, requests=MODALITY_B,
+               prompt=spec["prompt"], new_tokens=spec["new"],
+               seq_budget=budget)
+    with torch.no_grad():
+        if cfg.arch_type == "audio":
+            rec["encode_ms"] = _clock_ms(
+                lambda: encdec.encode(cfg, params, batch["frames"]))
+        rec["prefill_ms"] = _clock_ms(
+            lambda: model_prefill(cfg, params, batch, budget))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    toks, times = lserve.serve(cfg, params, batch, spec["new"], budget)
+    torch.cuda.synchronize()
+    rec["serve_s"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    step_ms = lserve.steady_ms_per_step(times)
+    rec.update(decode_ms_per_step=step_ms,
+               decode_tokens_per_s=MODALITY_B * 1e3 / step_ms,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               distinct_tokens=len(set(toks.flatten().tolist())),
+               launches=launches)
+    say(f"modality serve {arch} [{smi}] " + json.dumps(rec))
+    if tuple(toks.shape) != (MODALITY_B, spec["new"]) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"modality serve {arch}: tokens {tuple(toks.shape)} out of "
+             f"the vocabulary")
+    _llm_expect(f"modality serve {arch}", launches, {})
+    enc = (f"encode {rec['encode_ms'][1]:.1f} ms (first "
+           f"{rec['encode_ms'][0]:.1f}), " if "encode_ms" in rec else "")
+    say(f"modality serve {arch} [{smi}]: {MODALITY_B} requests of "
+        f"{spec['prompt']} tokens" +
+        (f" and {cfg.n_patches} patches" if extra else
+         f" and {cfg.n_audio_frames} frames") +
+        f": {enc}prefill {rec['prefill_ms'][1]:.1f} ms (first "
+        f"{rec['prefill_ms'][0]:.1f}), decode {step_ms:.2f} ms a step "
+        f"({rec['decode_tokens_per_s']:.1f} tokens/s), peak "
+        f"{rec['peak_bytes']} B; no kernel launched")
+    return launches, cfg, params
+
+
+def whisper_f32_check(smi, params):
+    """(b) deviation 16 on the card: whisper-small at full width in
+    float32, a prefill of MODALITY_F32_PROMPT tokens then
+    MODALITY_F32_STEPS teacher-forced decode steps, each step's logits
+    within MODALITY_F32_RTOL of the largest teacher-forced logit; beside
+    it, the first step decoded from empty rings (the reference's prefill)
+    is printed, which the check must catch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.api import model_decode_step, model_prefill
+    cfg = get_config("whisper-small").replace(dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    S0, n = MODALITY_F32_PROMPT, MODALITY_F32_STEPS
+    batch = _modality_batch(cfg, 2, S0 + n, 22)
+    toks, frames = batch["tokens"], batch["frames"]
+    with torch.no_grad():
+        enc = encdec.encode(cfg, p32, frames)
+        full = encdec.decoder_logits(cfg, p32, toks, enc)
+        logits, cache = model_prefill(
+            cfg, p32, {"tokens": toks[:, :S0], "frames": frames}, S0 + n)
+        errs = [max_err(logits, full[:, S0 - 1])]
+        for i in range(n):
+            logits, cache = model_decode_step(cfg, p32, cache,
+                                              toks[:, S0 + i], S0 + i)
+            errs.append(max_err(logits, full[:, S0 + i]))
+        empty = encdec.init_encdec_cache(cfg, p32, 2, S0 + n, enc)
+        lg_empty, _ = encdec.encdec_decode_step(cfg, p32, empty, toks[:, S0],
+                                                S0)
+        err_empty = max_err(lg_empty, full[:, S0])
+    top = float(full.abs().max())
+    limit = MODALITY_F32_RTOL * top
+    say(f"modality (b) whisper-small f32 [{smi}]: prefill of {S0} then {n} "
+        f"decode steps against the teacher-forced decoder: max diff "
+        f"{max(errs):.3e} (limit {limit:.3e}, {MODALITY_F32_RTOL} of the "
+        f"largest logit {top:.4g}); decoding from empty rings instead (the "
+        f"reference's audio prefill) is {err_empty:.4g} off")
+    if max(errs) > limit:
+        fail(f"modality (b): whisper prefill+decode {max(errs):.3e} from "
+             f"the teacher-forced decoder, limit {limit:.3e}")
+    if err_empty <= limit:
+        fail("modality (b): decoding from empty rings passes the check")
+    del p32, enc, full, cache, empty
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), limit=limit, empty_rings_err=err_empty)
+
+
+def modality_train(smi, arch):
+    """(c) `launch.train`'s DS-FL ERA window (MODALITY_ERA_ROUNDS rounds;
+    K1 a round, K3/K4 a client step, nothing else) and FedAvg window (1
+    round, no kernel) of ``arch`` at full width, the embedding scaled;
+    bytes a round held to `CommModel` and to MODALITY's values."""
+    from unittest import mock
+
+    from repro_torch.launch import train
+    from repro_torch.models.api import model_init
+    spec = MODALITY[arch]
+    base = ["--arch", arch, "--clients", str(LLM_K), "--batch", str(LLM_B),
+            "--seq", str(LLM_S)]
+    per_window = {}
+    window = functools.partial(fed_window, smi, f"modality {arch}", base,
+                               spec["vocab"], spec["values"], per_window)
+
+    def scaled_init(cfg, gen, device):
+        params = model_init(cfg, gen, device)
+        scale_embedding(cfg, params)
+        return params
+
+    n = MODALITY_ERA_ROUNDS
+    with mock.patch.object(train, "model_init", scaled_init):
+        fed = window("dsfl era", ["--mode", "dsfl"], [(n, "auto")],
+                     dict(era_sharpen=n, distill_loss_fwd=n * LLM_K,
+                          distill_loss_bwd=n * LLM_K))
+        dsfl_bytes = fed.exchange_bytes
+        del fed
+        fed = window("fedavg", ["--mode", "fedavg"], [(1, "auto")], {})
+        fedavg_bytes = fed.exchange_bytes
+        for k, v in fed.state.clients.params.items():
+            if not torch.equal(v[0], v[1]):
+                fail(f"modality {arch} fedavg: clients differ at {k}")
+        del fed
+    torch.cuda.empty_cache()
+    if (dsfl_bytes, fedavg_bytes) != (spec["fp16_bytes"],
+                                      spec["fedavg_bytes"]):
+        fail(f"modality {arch}: bytes a round {dsfl_bytes} / "
+             f"{fedavg_bytes}, expected {spec['fp16_bytes']} / "
+             f"{spec['fedavg_bytes']}")
+    return per_window
+
+
+def modality_kernel_timing(smi):
+    """(d) K1/K2 at (2, 1024, V) bf16 and K3/K4 at (1024, V) bf16 for both
+    vocabularies: checked against their plain versions (K3 also against
+    float64), timed as phase 4's rows; then `llm_kernel_checks` at each
+    (K1 on the top-8 densified f32 stack, K2 with a client at weight 0,
+    K3/K4 on f32 logits).  Returns each kernel's rows and largest error."""
+    from repro_torch.kernels import distill_loss as dl
+    from repro_torch.kernels import era_sharpen as es
+    rows = {k: [] for k in ("era_sharpen", "weighted_era_sharpen",
+                            "distill_loss_fwd", "distill_loss_bwd")}
+    errs = dict.fromkeys(rows, 0.0)
+    bf16 = torch.bfloat16
+    for i, (arch, spec) in enumerate(MODALITY.items()):
+        V = spec["vocab"]
+        era = era_timing(es, LLM_K, LLM_N, V, seed=41 + i, dtype=bf16,
+                         names=("era_sharpen", "weighted_era_sharpen"))
+        fwd, bwd = k34_timing(dl, LLM_N, V, bf16, 43 + i, 2e-2,
+                              dz_tol(LLM_N, bf16))
+        for name, r in list(era.items()) + [("distill_loss_fwd", fwd),
+                                            ("distill_loss_bwd", bwd)]:
+            r = dict(r, arch=arch, device=smi)
+            rows[name].append(r)
+            say_timing(name, r)
+        for name, e in llm_kernel_checks(V, with_k5=False,
+                                         label=f"modality {arch}").items():
+            if name in errs:
+                errs[name] = max(errs[name], e)
+        for name in rows:
+            errs[name] = max(errs[name], rows[name][-1]["max_abs_err"])
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
+def modality_serve_card_vs_cpu(smi, arch):
+    """(e) ``arch``'s smoke config (float32, the embedding scaled) through
+    `launch.serve.serve` on the card and on the CPU: 3 prompts of 9 tokens
+    with their stub inputs, 8 new tokens each; the tokens must be
+    equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.api import model_init
+    cfg = get_config(arch).smoke()
+    params = model_init(cfg, torch.Generator().manual_seed(1), "cpu")
+    scale_embedding(cfg, params)
+    batch = _modality_batch(cfg, 3, 9, 7, device="cpu")
+    budget = 9 + 8 + (cfg.n_patches if cfg.arch_type == "vlm" else 0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        mv = lambda t: {k: v.to(device) for k, v in t.items()}
+        out[device] = lserve.serve(cfg, mv(params), mv(batch), 8,
+                                   budget)[0].cpu()
+    if not torch.equal(out["cuda"], out["cpu"]):
+        fail(f"modality (e) {arch}: lockstep serve gave {out['cuda']} on "
+             f"the card, {out['cpu']} on the CPU")
+    say(f"modality (e) [{smi}]: {arch} smoke config (d {cfg.d_model}, "
+        f"{cfg.n_layers} layers), float32: lockstep serve tokens equal on "
+        f"the card and the CPU ({len(set(out['cpu'].flatten().tolist()))} "
+        f"distinct tokens)")
+
+
+def phase_modality(smi):
+    """Phase "modality": (a) phi-3-vision-4.2b and (b) whisper-small
+    served at full width (whisper also in f32, `whisper_f32_check`), (c)
+    each trained through `launch.train`'s windows, (d) K1-K4 at their
+    training shapes, (e) the smoke configs on the card against the CPU.
+    Returns the launches of each model's path by window, and (d)'s rows
+    and errors."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    launches, secs = {}, {}
+    for arch in MODALITY:
+        t = time.perf_counter()
+        serve_launches, cfg, params = modality_serve(smi, arch)
+        if cfg.arch_type == "audio":
+            whisper_f32_check(smi, params)
+        del params
+        torch.cuda.empty_cache()
+        launches[arch] = dict(serve=serve_launches, **modality_train(smi,
+                                                                     arch))
+        secs[arch] = time.perf_counter() - t
+    t = time.perf_counter()
+    rows, errs = modality_kernel_timing(smi)
+    secs["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for arch in MODALITY:
+        _build.reset_launches()
+        llm_card_vs_cpu(smi, arch, label=f"modality (e) {arch}")
+        torch.cuda.synchronize()
+        _llm_expect(f"modality (e) {arch} rounds", dict(_build.LAUNCHES),
+                    dict(era_sharpen=1, distill_loss_fwd=LLM_K,
+                         distill_loss_bwd=LLM_K))
+        modality_serve_card_vs_cpu(smi, arch)
+    secs["card vs cpu"] = time.perf_counter() - t
+    say(f"modality: phase took {time.perf_counter() - t0:.1f} s (" +
+        ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    return launches, rows, errs
 
 
 def main():
@@ -3846,7 +4217,9 @@ def main():
     moe_launches = phase_moe(smi)
     swap_launches, qcfg, qparams = phase_hot_swap(smi)
     loadgen_launches = phase_loadgen(smi, qcfg, qparams)
-    del qparams
+    del qparams, qcfg
+    torch.cuda.empty_cache()
+    modality_launches, modality_rows, modality_errs = phase_modality(smi)
     kernels = []
     for name, r in recs.items():
         serving, llm = name in SERVE_KERNELS, name in LLM_KERNELS
@@ -3869,6 +4242,11 @@ def main():
             jamba_smoke_launches=moe_launches["jamba smoke"][name],
             hot_swap_launches=swap_launches[name],
             loadgen_launches=loadgen_launches[name],
+            modality_launches={
+                arch: {run: v[name] for run, v in windows.items()}
+                for arch, windows in modality_launches.items()},
+            modality=modality_rows.get(name, []),
+            modality_max_abs_err=modality_errs.get(name),
             llm_max_abs_err=llm_errs[name],
             llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")

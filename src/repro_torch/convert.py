@@ -8,7 +8,11 @@ parameters (``init_lm``) become ``embed/tok``, ``blocks/s0_mix/w_z`` (with
 the stacked block axis), ``blocks/s0_mix/wq``, ``blocks/s0_ffn/w_gate``
 and so on, and its decode cache (``init_cache``, ``prefill``)
 ``s0/state``, ``s0/conv_x`` (Mamba) or the ring buffers ``s0/k``, ``s0/v``
-(attention) and so on; the LLM algorithms'
+(attention) and so on; whisper's (``init_encdec``) become ``pos_dec``,
+``enc/attn/wq``, ``enc/mlp/b_up``, ``dec/self/wq``, ``dec/cross/wk``,
+``dec/n3/scale``, ``enc_norm/scale`` and so on (the stacked layer axis
+leading), its decode cache ``self/k``, ``self/v``, ``cross_k`` and
+``cross_v``, and a VLM's projector ``patch_proj/w``; the LLM algorithms'
 client-stacked parameters (leaves (K, ...), ``core.llm_algorithms``) cross
 the same way, leading client axis and all.  numpy has no bfloat16
 of its own: the reference's bf16 leaves arrive as ``ml_dtypes.bfloat16``

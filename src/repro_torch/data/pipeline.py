@@ -130,8 +130,8 @@ class FederatedLMTask:
     """LLM-scale federated task for `FedEngine`: batch dicts of token
     tensors instead of image tensors.  Labels derive from the tokens
     (next-token prediction), so ``y_clients`` stays an absent slot."""
-    x_clients: dict           # {"tokens": (K, B, S)} private token stacks
-    open_x: dict              # {"tokens": (I_o, S)} the shared open set
+    x_clients: dict           # {"tokens": (K, B, S), ...} private stacks
+    open_x: dict              # {"tokens": (I_o, S), ...} the shared open set
     y_clients: None = None
 
 
@@ -140,16 +140,20 @@ def build_lm_task(seed: int, K: int, batch: int, seq: int, vocab: int,
                   device="cuda") -> FederatedLMTask:
     """K private token batches and an open set of ``n_open`` (default
     ``batch``) sequences, drawn on ``device`` from one generator seeded
-    with ``seed`` (private first).  ``extras_fn`` (VLM patches, audio
-    frames) is not ported: token-only models run."""
-    if extras_fn is not None:
-        raise NotImplementedError(
-            "modality inputs (VLM patches, audio frames) are not ported yet "
-            "(a later slice of the port); token-only models run")
+    with ``seed`` (private first, then open).  ``extras_fn(batch, gen) ->
+    dict`` adds modality inputs (VLM patches, audio frames), drawn next
+    from the same generator: each is broadcast over the client axis (a
+    stride-0 view) and shared with the open set, mirroring the token
+    layout."""
     gen = generator(device, seed)
     private = lm_private_batches(gen, K, batch, seq, vocab)
-    return FederatedLMTask(x_clients=private, open_x=lm_open_batch(
-        gen, n_open or batch, seq, vocab))
+    open_b = lm_open_batch(gen, n_open or batch, seq, vocab)
+    if extras_fn is not None:
+        ex = extras_fn(batch, gen)
+        private.update({k: v[None].expand((K,) + tuple(v.shape))
+                        for k, v in ex.items()})
+        open_b.update(ex)
+    return FederatedLMTask(x_clients=private, open_x=open_b)
 
 
 def lm_private_batches(gen: torch.Generator, n_clients: int, batch: int,

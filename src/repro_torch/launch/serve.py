@@ -12,7 +12,11 @@ The default path drives `ServeEngine` (slot-based continuous batching).
 ``--batch-insert`` admits same-bucket request groups through one batched
 prefill — both token-identical to the step-at-a-time defaults.
 ``--lockstep`` runs the whole-batch baseline — one prefill, all requests
-decoding in lockstep — which the tests hold the engine to.
+decoding in lockstep — which the tests hold the engine to.  The VLM
+(phi-3-vision-4.2b) and the encoder-decoder (whisper-small) take that
+path, as in the reference: their requests carry random patch features or
+frame embeddings (`launch.train.extra_inputs`), which the engine's slots
+do not hold; a VLM's decode starts after its prompt and its patches.
 On the card a Mamba prefill's within-chunk SSD blocks run K5; attention
 is plain PyTorch.
 Weights are random, drawn from ``--seed`` on the chosen device.
@@ -30,6 +34,7 @@ from ..device import generator, resolve_device
 from ..models.api import model_decode_step, model_init, model_prefill
 from ..obs import cli as obs_cli
 from ..serve import AdmissionQueue, ServeEngine
+from .train import extra_inputs
 
 
 def _sync(device) -> None:
@@ -46,9 +51,10 @@ def serve(cfg, params, batch: dict, gen: int, seq_budget: int):
     logits, cache = model_prefill(cfg, params, batch, seq_budget)
     tok = torch.argmax(logits, dim=-1)
     out, times = [tok], []
+    pos0 = S0 + (cfg.n_patches if cfg.arch_type == "vlm" else 0)
     for i in range(gen - 1):
         t0 = time.perf_counter()
-        logits, cache = model_decode_step(cfg, params, cache, tok, S0 + i)
+        logits, cache = model_decode_step(cfg, params, cache, tok, pos0 + i)
         _sync(device)
         times.append(time.perf_counter() - t0)
         tok = torch.argmax(logits, dim=-1)
@@ -136,14 +142,16 @@ def run(args):
         cfg = cfg.smoke()
     device = resolve_device(args.device)
     params = model_init(cfg, generator(device, args.seed), device)
+    gen = generator(device, args.seed + 1)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=generator(device, args.seed + 1),
-                           device=device)
-    seq_budget = args.prompt_len + args.gen
+                           generator=gen, device=device)
+    seq_budget = args.prompt_len + args.gen + \
+        (cfg.n_patches if cfg.arch_type == "vlm" else 0)
 
-    if args.lockstep:
-        toks, times = serve(cfg, params, {"tokens": tokens}, args.gen,
-                            seq_budget)
+    if args.lockstep or cfg.arch_type in ("vlm", "audio"):
+        batch = {"tokens": tokens}
+        batch.update(extra_inputs(cfg, args.batch, gen))
+        toks, times = serve(cfg, params, batch, args.gen, seq_budget)
         print(f"[lockstep] generated {tuple(toks.shape)} tokens on "
               f"{device}; decode {steady_ms_per_step(times):.1f} ms/step")
         print(toks[0].tolist())

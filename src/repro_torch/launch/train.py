@@ -25,9 +25,12 @@ versions), e.g.
       --mode dsfl --clients 2 --steps 2 [--topk 8]
   PYTHONPATH=src python -m repro_torch.launch.train    # qwen1.5-4b, card
 
-Every arch of the dense family (qwen1.5-4b, the reference's default,
-gemma-7b, phi3-medium-14b, qwen1.5-110b) and mamba2-2.7b trains; at full
-width one card holds K = 2 stacks of qwen1.5-4b or mamba2-2.7b.
+Every arch trains; at full width one card holds K = 2 stacks of
+qwen1.5-4b (the reference's default), mamba2-2.7b, phi-3-vision-4.2b or
+whisper-small.  A VLM's batches carry random patch features and an audio
+model's random frame embeddings (`extra_inputs`, the stub frontends),
+drawn from the task's generator and shared by every client and the open
+set.
 ``--trace out.jsonl`` / ``--metrics out.json`` record the run
 (`obs.cli`).
 """
@@ -53,6 +56,21 @@ from ..device import generator, resolve_device
 from ..models.api import model_init
 from ..models.base import param_count
 from ..obs import cli as obs_cli
+
+
+def extra_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
+    """The stub frontends' inputs of ``batch`` sequences, unit normal in
+    f32 drawn from ``gen`` and cast to the model's dtype: a VLM's
+    ``patches`` (batch, n_patches, d_model), an audio model's ``frames``
+    (batch, n_audio_frames, d_model); none for the other families."""
+    width = {"vlm": ("patches", cfg.n_patches),
+             "audio": ("frames", cfg.n_audio_frames)}.get(cfg.arch_type)
+    if width is None:
+        return {}
+    name, n = width
+    return {name: torch.randn((batch, n, cfg.d_model), generator=gen,
+                              device=gen.device,
+                              dtype=torch.float32).to(cfg.cdtype)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -138,6 +156,7 @@ def setup(args) -> Federation:
     cfg, device = _config(args)
     K = args.clients
     task = build_lm_task(args.seed, K, args.batch, args.seq, cfg.vocab,
+                         extras_fn=lambda b, g: extra_inputs(cfg, b, g),
                          device=device)
     if args.mode == "dsfl":
         hp = LLMDsflHP(lr=args.lr, gamma=args.gamma,
@@ -220,8 +239,9 @@ def run_local(args) -> list[dict]:
     cfg, device = _config(args)
     params = model_init(cfg, generator(device, args.seed), device)
     print(f"params: {param_count(params):,}")
-    batch = lm_open_batch(generator(device, args.seed + 1), args.batch,
-                          args.seq, cfg.vocab)
+    gen = generator(device, args.seed + 1)
+    batch = lm_open_batch(gen, args.batch, args.seq, cfg.vocab)
+    batch.update(extra_inputs(cfg, args.batch, gen))
     out = []
     for i in range(args.steps):
         t0 = time.perf_counter()

@@ -1,52 +1,63 @@
-"""Uniform model API (mirrors ``repro/models/api.py``), token-only
-architectures: the dense family, Mamba2, the MoE models (llama4) and the
-Mamba-attention-MoE hybrid (Jamba).
+"""Uniform model API across all architecture families (mirrors
+``repro/models/api.py``).
 
-``batch`` dicts carry ``tokens`` (B, S) int.  The audio (encoder-decoder)
-and VLM (patch prefix) branches come with a later slice and raise.
+``batch`` dicts carry ``tokens`` (B, S) int, always; a VLM's also carry
+``patches`` (B, P, D), the stub vision tower's patch features, and an
+audio model's ``frames`` (B, F, D), the stub conv frontend's frame
+embeddings.  A key the architecture does not take raises.
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import resolve_device
+from . import encdec as ED
 from . import transformer as T
 from .base import ModelConfig
 
 
-def _token_only(cfg: ModelConfig, batch: dict | None = None) -> None:
-    if cfg.arch_type in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type} model is not ported yet (a "
-            f"later slice of the port); token-only architectures run")
-    if batch is not None and set(batch) - {"tokens"}:
-        raise NotImplementedError(
-            f"only token inputs are ported, got {sorted(batch)}")
+def _check_inputs(cfg: ModelConfig, batch: dict) -> None:
+    takes = {"tokens"} | {"vlm": {"patches"}, "audio": {"frames"}}.get(
+        cfg.arch_type, set())
+    if set(batch) - takes:
+        raise ValueError(f"{cfg.name} ({cfg.arch_type}) takes the batch keys "
+                         f"{sorted(takes)}, got {sorted(batch)}")
 
 
 def model_init(cfg: ModelConfig, gen: torch.Generator,
                device="cuda") -> dict:
     """Random parameters drawn from ``gen``, which must live on ``device``.
     Runs on the card unless the caller asks for the CPU."""
-    _token_only(cfg)
-    return T.init_lm(cfg, gen, resolve_device(device))
+    device = resolve_device(device)
+    if cfg.arch_type == "audio":
+        return ED.init_encdec(cfg, gen, device)
+    return T.init_lm(cfg, gen, device)
 
 
 def model_logits(cfg: ModelConfig, params: dict, batch: dict,
                  use_ssd_kernel: bool = True):
-    """Full-sequence logits and the aux loss (the MoE FFNs' load-balance
-    loss summed over the layers; zero without one).
+    """Full-sequence logits of the text tokens and the aux loss (the MoE
+    FFNs' load-balance loss summed over the layers; zero without one).
     ``use_ssd_kernel=False`` takes the differentiable SSD route (training),
     where the backward recomputes each block."""
-    _token_only(cfg, batch)
-    return T.lm_logits(cfg, params, batch["tokens"], use_ssd_kernel)
+    _check_inputs(cfg, batch)
+    if cfg.arch_type == "audio":
+        return ED.encdec_lm_logits(cfg, params, batch["tokens"],
+                                   batch["frames"])
+    return T.lm_logits(cfg, params, batch["tokens"], use_ssd_kernel,
+                       extra_embeds=batch.get("patches"))
 
 
 def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
-                     seq_len: int) -> dict:
+                     seq_len: int, batch: dict | None = None) -> dict:
     """An empty decode cache for ``seq_len`` positions (it sizes the
-    attention ring buffers) on the parameters' device."""
-    _token_only(cfg)
+    attention ring buffers) on the parameters' device; an audio model's
+    also holds the cross keys and values of ``batch["frames"]``."""
+    if cfg.arch_type == "audio":
+        with torch.no_grad():
+            enc_out = ED.encode(cfg, params, batch["frames"])
+            return ED.init_encdec_cache(cfg, params, batch_size, seq_len,
+                                        enc_out)
     return T.init_cache(cfg, batch_size, seq_len,
                         params["embed/tok"].device)
 
@@ -55,11 +66,23 @@ def model_decode_step(cfg: ModelConfig, params: dict, cache: dict,
                       token: torch.Tensor, pos):
     """One decode step at each row's position ``pos`` ((B,) or a scalar);
     writes ``cache`` in place (see `transformer.decode_step`)."""
-    _token_only(cfg)
+    if cfg.arch_type == "audio":
+        return ED.encdec_decode_step(cfg, params, cache, token, pos)
     return T.decode_step(cfg, params, cache, token, pos)
 
 
 def model_prefill(cfg: ModelConfig, params: dict, batch: dict,
                   seq_len: int | None = None):
-    _token_only(cfg, batch)
-    return T.prefill(cfg, params, batch["tokens"], seq_len)
+    """(last-token logits (B, V), decode cache) of the prompt.  A VLM's
+    patches take the first positions (its decode starts at S +
+    n_patches); an audio model's decoder rings hold the prompt's keys and
+    values, so its decode continues the teacher-forced decoder (the
+    reference leaves them empty: ROADMAP, deviation 16)."""
+    _check_inputs(cfg, batch)
+    if cfg.arch_type == "audio":
+        with torch.no_grad():
+            enc_out = ED.encode(cfg, params, batch["frames"])
+            return ED.decoder_prefill(cfg, params, batch["tokens"], enc_out,
+                                      seq_len)
+    return T.prefill(cfg, params, batch["tokens"], seq_len,
+                     extra_embeds=batch.get("patches"))

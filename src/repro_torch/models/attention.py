@@ -1,7 +1,6 @@
 """Grouped-query attention with RoPE, optional QKV bias, sliding windows,
-flash-style chunked softmax and a ring-buffer KV cache for decode (mirrors
-``repro/models/attention.py``; cross-attention comes with the
-encoder-decoder slice).
+flash-style chunked softmax, a ring-buffer KV cache for decode and the
+encoder-decoder's cross-attention (mirrors ``repro/models/attention.py``).
 
 Shapes: q (B, Sq, H, hd) / k, v (B, Skv, Kh, hd); GQA groups G = H // Kh.
 All softmax statistics accumulate in fp32.  Plain PyTorch, one path on the
@@ -215,3 +214,29 @@ def attn_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
     o = head_mask(cfg, o.reshape(B, 1, Kh * G, hd)).reshape(
         B, 1, Kh * G * hd) @ p["wo"]
     return o, cache
+
+
+# ----------------------------------------------------------- cross-attn -----
+def cross_attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       enc_k: torch.Tensor,
+                       enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention (whisper).  enc_k/v precomputed: (B, Se, Kh,
+    hd).  No RoPE on cross-attention."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.eff_heads, cfg.hd)
+    o = head_mask(cfg, flash_attention(q, enc_k, enc_v, causal=False))
+    return o.reshape(B, S, cfg.eff_heads * cfg.hd) @ p["wo"]
+
+
+def cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The cross-attention's keys and values of the encoder states
+    enc_out: (B, Se, D), each (B, Se, Kh, hd)."""
+    B, Se, _ = enc_out.shape
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, Se, cfg.eff_kv_heads, cfg.hd),
+            v.reshape(B, Se, cfg.eff_kv_heads, cfg.hd))

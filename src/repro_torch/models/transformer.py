@@ -1,15 +1,21 @@
 """Decoder stack (mirrors ``repro/models/transformer.py``) for every
-token-only block pattern: the attention and Mamba mixers, each followed by
-an MLP, the MoE FFN or no FFN (the dense family's ``("attn", "mlp")``,
-Mamba2's ``("mamba", "none")``, llama4's MoE layers, Jamba's period of 8).
+decoder-only block pattern: the attention and Mamba mixers, each followed
+by an MLP, the MoE FFN or no FFN (the dense family's and the VLM's
+``("attn", "mlp")``, Mamba2's ``("mamba", "none")``, llama4's MoE layers,
+Jamba's period of 8).
 
 A model is ``cfg.n_blocks`` repetitions of ``cfg.pattern``.  Block
 parameters keep the reference's stacked leading ``n_blocks`` axis
 (``blocks/s0_mix/wq`` is (n_blocks, d_model, heads * head_dim)); the
 passes loop over it in Python where the reference runs ``lax.scan``.
 
+A VLM (``cfg.n_patches``) also has ``patch_proj/w`` (d_model, d_model):
+the projector of the stub vision tower's patch features, whose outputs
+are prepended to the token embeddings (``extra_embeds``).
+
 Execution modes:
-  * ``lm_logits``    - full-sequence logits
+  * ``lm_logits``    - full-sequence logits (a VLM's image positions
+    dropped)
   * ``prefill``      - full-sequence forward that also builds the decode cache
   * ``decode_step``  - one token against a ring-buffer KV cache / SSM state,
     every row at its own position, the cache written in place
@@ -35,18 +41,20 @@ from torch.utils.checkpoint import checkpoint
 from .attention import (attn_decode_step, attn_forward, init_attn,
                         init_kv_cache, ring_layout)
 from .base import ModelConfig
-from .layers import (embed, init_embed, init_mlp, init_rmsnorm, mlp, rmsnorm,
-                     sub, unembed)
+from .layers import (_init, embed, init_embed, init_mlp, init_rmsnorm, mlp,
+                     rmsnorm, sub, unembed)
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_ssm_cache, mamba_decode_step, mamba_forward
 
 
-def _block(params: dict, i: int) -> dict:
-    """Block ``i`` of the stacked ``blocks/...`` leaves (views, no copy),
-    named ``s0_mix/w_z`` and so on.  Any leaf indexable by block works: a
+def _block(params: dict, i: int, stack: str = "blocks") -> dict:
+    """Block ``i`` of the stacked ``<stack>/...`` leaves (views, no copy),
+    named ``s0_mix/w_z`` and so on (the encoder-decoder's stacks are
+    ``enc`` and ``dec``).  Any leaf indexable by block works: a
     (n_blocks, ...) tensor or a list of per-block tensors."""
-    return {k[len("blocks/"):]: v[i] for k, v in params.items()
-            if k.startswith("blocks/")}
+    n = len(stack) + 1
+    return {k[n:]: v[i] for k, v in params.items()
+            if k.startswith(stack + "/")}
 
 
 # ------------------------------------------------------------------- init ----
@@ -54,7 +62,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Flat parameters: ``embed/tok``, ``blocks/s{i}_n1/scale``,
     ``blocks/s{i}_mix/<leaf>`` (and ``blocks/s{i}_n2/scale``,
     ``blocks/s{i}_ffn/<leaf>`` where the pattern has an FFN) with the
-    leading n_blocks axis, and ``final_norm/scale``."""
+    leading n_blocks axis, ``final_norm/scale`` and, for a VLM,
+    ``patch_proj/w``."""
     nb = cfg.n_blocks
     params = {f"embed/{k}": v for k, v in init_embed(gen, cfg, device).items()}
 
@@ -73,6 +82,10 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
             for k, v in init_ffn(gen, cfg, device, n_blocks=nb).items():
                 params[f"blocks/s{i}_ffn/{k}"] = v
     params["final_norm/scale"] = init_rmsnorm(cfg.d_model, device)["scale"]
+    if cfg.n_patches:   # VLM: the projector of the (stub) vision tower
+        params["patch_proj/w"] = _init(gen, (cfg.d_model, cfg.d_model),
+                                       cfg.d_model ** -0.5, cfg.cdtype,
+                                       device)
     return params
 
 
@@ -142,17 +155,26 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return x, aux
 
 
-def embed_inputs(cfg: ModelConfig, params: dict,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding (the VLM patch prefix comes with a later slice)."""
-    return embed(sub(params, "embed"), cfg, tokens)
+def embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 extra_embeds=None) -> torch.Tensor:
+    """Token embedding; a VLM prepends its patch features (B, P, D)
+    through the projector."""
+    x = embed(sub(params, "embed"), cfg, tokens)
+    if extra_embeds is not None:
+        pe = extra_embeds.to(cfg.cdtype) @ params["patch_proj/w"]
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def lm_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-              use_ssd_kernel: bool = True):
-    """Full-sequence logits (B, S, V) and the aux loss."""
-    x = embed_inputs(cfg, params, tokens)
+              use_ssd_kernel: bool = True, extra_embeds=None):
+    """Full-sequence logits (B, S, V) of the S text tokens and the aux
+    loss.  A VLM's image positions are dropped from the output (the loss
+    and the distillation are on text tokens)."""
+    x = embed_inputs(cfg, params, tokens, extra_embeds)
     x, aux = backbone(cfg, params, x, use_ssd_kernel)
+    if extra_embeds is not None:
+        x = x[:, extra_embeds.shape[1]:]
     x = rmsnorm(sub(params, "final_norm"), x, cfg.norm_eps)
     return unembed(sub(params, "embed"), cfg, x), aux
 
@@ -237,13 +259,15 @@ def _block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            seq_len: int | None = None):
+            seq_len: int | None = None, extra_embeds=None):
     """Prefill: returns (last-token logits (B, V), decode cache).
-    ``seq_len`` (default: the prompt's length) sizes the attention ring
-    buffers.  Each block's cache lands in the stacked (n_blocks, ...)
-    leaves as it is made, so no second copy of the cache is held."""
-    seq_len = seq_len or tokens.shape[1]
-    x = embed_inputs(cfg, params, tokens)
+    ``seq_len`` (default: the prompt's length, a VLM's patches included)
+    sizes the attention ring buffers; a VLM's patches take the first
+    positions, so its decode starts at S + n_patches.  Each block's cache
+    lands in the stacked (n_blocks, ...) leaves as it is made, so no
+    second copy of the cache is held."""
+    x = embed_inputs(cfg, params, tokens, extra_embeds)
+    seq_len = seq_len or x.shape[1]
     cache = {}
     for b in range(cfg.n_blocks):
         x, c = _block_prefill(cfg, _block(params, b), x, seq_len)

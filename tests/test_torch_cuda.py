@@ -50,7 +50,9 @@ def _weights(device, K, seed):
                                          (2, 1, 10, torch.float32),
                                          (4, 7, 20_000, torch.float32),
                                          (100, 1000, 46, torch.float32),
-                                         (10, 256, 32768, torch.float32)])
+                                         (10, 256, 32768, torch.float32),
+                                         (2, 1024, 32_064, torch.bfloat16),
+                                         (2, 1024, 51_865, torch.bfloat16)])
 def test_era_kernels_match_plain(cuda_device, K, N, C, dtype):
     p = _probs(cuda_device, (K, N, C), K + N + C, dtype)
     w = _weights(cuda_device, K, K)
@@ -194,7 +196,9 @@ def test_era_kernel_refuses_a_misaligned_plan(cuda_device, K, N, C, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,V,dtype", [(100, 10, torch.float32),
                                        (37, 1000, torch.float32),
-                                       (64, 4096, torch.bfloat16)])
+                                       (64, 4096, torch.bfloat16),
+                                       (1024, 32_064, torch.bfloat16),
+                                       (1024, 51_865, torch.bfloat16)])
 def test_distill_kernels_match_plain(cuda_device, N, V, dtype):
     g = _gen(cuda_device, N + V)
     z = (torch.randn((N, V), generator=g, device=cuda_device) * 4).to(dtype)
@@ -697,7 +701,8 @@ def test_distill_loss_f32_logits_bf16_teacher(cuda_device, N, V):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen1.5-4b",
+                                  "phi-3-vision-4.2b", "whisper-small"])
 def test_llm_smoke_round_card_against_cpu(cuda_device, arch):
     """One LLM DS-FL round and one FedAvg round on ``arch``'s smoke config
     (K=2, batch 2, seq 32) from the same weights and data on the card (K1,
@@ -730,6 +735,46 @@ def test_llm_smoke_round_card_against_cpu(cuda_device, arch):
         for k, v in cpu_p.items():
             torch.testing.assert_close(cuda_p[k].cpu(), v, atol=2e-4,
                                        rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_whisper_prefill_then_decode_on_the_card(cuda_device):
+    """whisper-small's smoke config in float32 on the card: a prefill of 8
+    tokens, then 8 decode steps at a (B,) position, each step's logits
+    within 1e-4 of the largest teacher-forced logit (the prefill fills the
+    decoder's rings: ROADMAP, deviation 16), and equal to the CPU's within
+    2e-4 + 1e-3 |x|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.api import (model_decode_step, model_init,
+                                        model_prefill)
+    cfg = get_config("whisper-small").smoke()
+    params = model_init(cfg, torch.Generator().manual_seed(3), "cpu")
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+    frames = torch.randn((2, cfg.n_audio_frames, cfg.d_model), generator=g)
+    steps = {}
+    for device in (cuda_device, torch.device("cpu")):
+        p = {k: v.to(device) for k, v in params.items()}
+        t, f = toks.to(device), frames.to(device)
+        with torch.no_grad():
+            full = encdec.decoder_logits(cfg, p, t,
+                                         encdec.encode(cfg, p, f))
+            lg, cache = model_prefill(cfg, p, {"tokens": t[:, :8],
+                                               "frames": f}, 16)
+            seen = [lg]
+            for i in range(8, 16):
+                lg, cache = model_decode_step(
+                    cfg, p, cache, t[:, i], torch.full((2,), i,
+                                                       device=device))
+                seen.append(lg)
+        want = full[:, 7:]
+        got = torch.stack(seen, 1)
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+        steps[device.type] = got.cpu()
+    torch.testing.assert_close(steps["cuda"], steps["cpu"], atol=2e-4,
+                               rtol=1e-3)
 
 
 # ----------------------------------------------------------- paper models --

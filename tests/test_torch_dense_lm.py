@@ -27,10 +27,11 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_archs as jlist_archs
 from repro.configs import shapes as jshapes
 from repro.models import transformer as JT
 from repro_torch import convert
-from repro_torch.configs import NOT_PORTED, get_config, shapes
+from repro_torch.configs import get_config, list_archs, shapes
 from repro_torch.models import api as tapi
 from repro_torch.models import transformer as TT
 from repro_torch.models.base import param_count
@@ -105,7 +106,7 @@ def test_configs_and_shapes_pinned_to_reference():
     assert shapes.SHAPES == {k: shapes.InputShape(**dataclasses.asdict(v))
                              for k, v in jshapes.SHAPES.items()}
     assert shapes.LONG_CONTEXT_WINDOW == jshapes.LONG_CONTEXT_WINDOW
-    assert set(NOT_PORTED) == {"phi-3-vision-4.2b", "whisper-small"}
+    assert list_archs() == jlist_archs()        # all ten reference ids
 
 
 def test_qwen_full_width_parameter_count():

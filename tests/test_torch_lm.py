@@ -62,8 +62,9 @@ def test_config_registry_and_layout(weights):
         2560, 64, 80, 50280)
     assert full.cdtype == torch.bfloat16 and CFG.cdtype == torch.float32
     assert list_archs() == jlist_archs()
-    with pytest.raises(NotImplementedError, match="VLM"):
-        get_config("phi-3-vision-4.2b")
+    # every reference id resolves, the modality families among them
+    assert get_config("phi-3-vision-4.2b").arch_type == "vlm"
+    assert get_config("whisper-small").arch_type == "audio"
     # the port's own init has the reference's names, shapes and dtypes
     own = tapi.model_init(CFG, torch.Generator().manual_seed(0), "cpu")
     assert {k: (tuple(v.shape), v.dtype) for k, v in own.items()} == {
@@ -150,10 +151,12 @@ def test_unported_models_raise(weights, monkeypatch):
     assert {k: tuple(v.shape) for k, v in own.items()} == {
         "/".join(p.key for p in path): tuple(v.shape)
         for path, v in jax.tree_util.tree_flatten_with_path(want)[0]}
-    with pytest.raises(NotImplementedError, match="audio"):
-        tapi.model_init(CFG.replace(arch_type="audio"), torch.Generator(),
-                        "cpu")
-    with pytest.raises(NotImplementedError, match="token inputs"):
+    # the audio family is ported: its init gives the encoder-decoder's
+    # leaves; a batch key the architecture does not take still raises
+    audio = tapi.model_init(get_config("whisper-small").smoke(),
+                            torch.Generator(), "cpu")
+    assert {"enc/attn/wq", "dec/cross/wq", "pos_dec"} <= set(audio)
+    with pytest.raises(ValueError, match="takes the batch keys"):
         tapi.model_logits(CFG, tp, {"tokens": torch.zeros((1, 4),
                                                           dtype=torch.long),
                                     "patches": None})

@@ -25,13 +25,14 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import list_archs as jlist_archs
 from repro.core import llm_dsfl as JL
 from repro.launch.serve import serve as j_lockstep
 from repro.models import transformer as JT
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JEngine
 from repro_torch import convert
-from repro_torch.configs import NOT_PORTED, get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core import llm_dsfl as TL
 from repro_torch.launch.serve import serve as t_lockstep
 from repro_torch.models import moe as TM
@@ -107,7 +108,7 @@ def test_configs_pinned_to_reference():
         want = dataclasses.asdict(jget_config(arch))
         del want["scan_unroll"]                 # an XLA dry-run switch
         assert dataclasses.asdict(get_config(arch)) == want, arch
-    assert set(NOT_PORTED) == {"phi-3-vision-4.2b", "whisper-small"}
+    assert list_archs() == jlist_archs()        # all ten reference ids
 
 
 def test_init_matches_reference_layout(model):

@@ -117,5 +117,10 @@ def test_open_set_has_seven_domains_and_task_layout():
     assert task.open_x["tokens"].shape == (3, 8) and task.y_clients is None
     assert build_lm_task(0, 2, 3, 8, 50, n_open=6, device=CPU
                          ).open_x["tokens"].shape == (6, 8)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_lm_task(0, 2, 3, 8, 50, extras_fn=lambda b, k: {}, device=CPU)
+    # modality inputs: drawn once by extras_fn, broadcast over the clients
+    # and shared with the open set
+    ex = build_lm_task(0, 2, 3, 8, 50, device=CPU, extras_fn=lambda b, g: {
+        "frames": torch.randn((b, 4, 5), generator=g)})
+    assert torch.equal(ex.x_clients["tokens"], task.x_clients["tokens"])
+    assert ex.x_clients["frames"].shape == (2, 3, 4, 5)
+    assert torch.equal(ex.x_clients["frames"][1], ex.open_x["frames"])
