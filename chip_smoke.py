@@ -19,11 +19,15 @@ DS-FL federation (K1, K3/K4), driving that server with the load
 generator, and serving and training the modality families at full width:
 phi-3-vision-4.2b (patch features through a projector) and whisper-small
 (an encoder-decoder), each trained with DS-FL (K1, K3/K4 at their
-vocabularies of 32,064 and 51,865).  Phases, in order; any failure exits non-zero and prints no
+vocabularies of 32,064 and 51,865), training llama4-scout at full width and
+2 of its 48 layers with LLM-scale DS-FL and FedAvg (K1 on the wide-row
+route and K3/K4 at 202,048 classes), and running the examples' torch
+twins.  Phases, in order; any failure exits non-zero and prints no
 result:
 
- 1. device   the card's name and power limit, torch and CUDA versions; TF32
-             off for matmuls and convolutions, so float32 means float32.
+ 1. device   the card's name and power limit, torch and CUDA versions; the
+             ``fp32`` platform preset (`launch.platform`): TF32 off for
+             matmuls and convolutions, so float32 means float32.
  2. build    the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
              one process per source, all started together), timed, with
              ptxas's report.
@@ -323,13 +327,41 @@ result:
              vocabulary; (e) both smoke configs' DS-FL and FedAvg rounds
              on the card against the CPU, and their lockstep serve tokens
              equal on both.
+    moe train (a) llama4-scout-17b-a16e at its full widths and 2 of its
+             48 layers (5,187,036,160 values a client asserted; two
+             client stacks, the fresh stack and a client's gradients leave
+             no room for a third layer, see MOE_TRAIN_LAYERS), bf16, the
+             embedding scaled, through `launch.train`'s windows at K = 2,
+             batch 8, seq 128 (``train.get_config`` cut to that depth):
+             DS-FL ERA 2 rounds (K1 2, K3/K4 4, nothing else; the line
+             adds the share of (token, choice) pairs dropped by capacity
+             in client 0's forward, ``model_flops`` of one client step by
+             `launch.roofline`, the aten products of one client step
+             counted by ``torch.utils.flop_counter`` and the step's
+             `Roofline`), a profiled client step, and FedAvg 1 round (none);
+             bytes a round held to `CommModel` and to 1,241,382,912 /
+             62,244,433,920; (b) K1 at (2, 1024, 202048) bf16 and K3/K4 at
+             (1024, 202048) bf16 against their plain versions (K3 also
+             against float64), timed as phase 4's rows, and
+             `llm_kernel_checks` at that vocabulary; (c) the smoke configs
+             of llama4-scout, llama4-maverick and jamba (a full-width
+             block of maverick is 34.8 GB and of Jamba 88 GB): a DS-FL and
+             a FedAvg round on the card against the CPU, launches held (K1
+             1, K3/K4 2, K5 28 for Jamba's prediction leg).
+    examples the examples' torch twins on the card, each its own process:
+             ``examples/torch_quickstart.py --fast`` (must end ``OK``),
+             ``examples/torch_serve_batched.py`` and
+             ``examples/torch_train_dsfl_lm.py --smoke --steps 2``; a
+             non-zero exit fails the script.
 11. the ``{"kernels": [...]}`` line (launches on each path, ``wide``
              timing rows for K1/K2, ``llm_qwen_launches``,
              ``paper_models_launches`` by model, ``moe_serve_launches``,
              ``jamba_smoke_launches``, ``hot_swap_launches``,
              ``loadgen_launches``, ``modality_launches`` by model and
-             window, ``modality`` timing rows for K1-K4), the card's line,
-             and the result line.
+             window, ``modality`` timing rows for K1-K4,
+             ``moe_train_launches`` by window, ``moe_smoke_launches`` by
+             model, ``moe_train`` timing rows for K1, K3 and K4), the
+             card's line, and the result line.
 """
 from __future__ import annotations
 
@@ -351,12 +383,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
-TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
-BF16_FLOPS = 989e12           # H100 SXM dense bf16 on the tensor cores
+# torch's switches as named presets, and the card's published peaks and
+# the least time of a call (NVIDIA's data sheet for the H100 SXM)
+from repro_torch.launch import platform  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_FLOPS, HBM_BYTES_PER_S, L2_BYTES, bound_ms)
+
 TIMING_ITERS = 100
-L2_BYTES = 50 * 2 ** 20       # H100 L2 cache
 CARD_VS_CPU_ATOL, CARD_VS_CPU_RTOL = 2e-4, 1e-3
 # the kernels the image DS-FL round launches; K3/K4 sit behind
 # losses.distill_xent(use_kernel=True), which that round does not call
@@ -482,15 +515,6 @@ def cold_copies(*ts) -> list:
     return [tuple(t.clone() for t in ts) for _ in range(n)]
 
 
-def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
-    """The least time of a call: the larger of its bytes over the memory
-    rate and its operations over the rate of their type (fp32 outside the
-    tensor cores, TF32 on them; the two units run side by side)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / FP32_FLOPS, tf32_flops / TF32_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -518,9 +542,9 @@ def phase_device():
     say(f"device: {smi}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    say("tf32: off for matmul and cudnn (float32 runs in float32)")
+    platform.apply("fp32")
+    say("platform preset fp32: tf32 off for matmul and cudnn (float32 runs "
+        "in float32)")
     return smi
 
 
@@ -590,10 +614,12 @@ def era_timing(es, K, N, C, seed, dtype=torch.float32,
     elt = p.element_size()
     atol = 1e-6 if dtype == torch.float32 else 5e-3
     n_in, n_out = K * N * C * elt, N * C * 4
-    bounds = {"era_sharpen": bound(n_in + n_out, K * N * C + 5 * N * C),
-              "weighted_era_sharpen": bound(n_in + K * 4 + n_out,
+    bounds = {"era_sharpen": bound_ms(n_in + n_out,
+                                      K * N * C + 5 * N * C),
+              "weighted_era_sharpen": bound_ms(n_in + K * 4 + n_out,
                                             2 * K * N * C + 5 * N * C),
-              "weighted_mean": bound(n_in + K * 4 + n_out, 2 * K * N * C)}
+              "weighted_mean": bound_ms(n_in + K * 4 + n_out,
+                                        2 * K * N * C)}
     rows = {}
     dname = str(dtype).removeprefix("torch.")
     for name, (kern, plain) in era_calls(es, p, w).items():
@@ -843,7 +869,7 @@ def k3_timing(dl, N, V, dtype, seed, atol):
     say(f"check K3 {label}: two launches bitwise equal ok (plan {plan})")
     pairs = cold_copies(z, t)
     nv = N * V
-    b, by = bound(2 * nv * z.element_size() + 2 * N * 4, 6 * nv)
+    b, by = bound_ms(2 * nv * z.element_size() + 2 * N * 4, 6 * nv)
     k3 = lambda z_, t_: (lambda: dl.distill_loss_fwd(z_, t_))
     lib = lambda z_, t_: (lambda: F.cross_entropy(z_, t_, reduction="none"))
     rec = dict(max_abs_err=err, ms=time_ms(k3(z, t)),
@@ -1022,7 +1048,8 @@ def k34_timing(dl, N, V, dtype, seed, atol_f, tol_b):
     if close(torch.zeros_like(dz_plain), dz_plain, *tol_b):
         fail(f"K4 {label}: the tolerance would pass a zeroed dz")
     del dz_plain
-    bb, byb = bound(3 * N * V * z.element_size() + 2 * N * 4 + 4, 5 * N * V)
+    bb, byb = bound_ms(3 * N * V * z.element_size() + 2 * N * 4 + 4,
+                       5 * N * V)
     k4 = lambda z_, t_: (lambda: dl.distill_loss_bwd(z_, t_, plogz, tmass,
                                                      gscale))
     bwd = dict(max_abs_err=eb, ms=time_ms(k4(z, t)),
@@ -1161,8 +1188,8 @@ def k5_bound(M, Q, H, P, G, N):
     pairs = Q * (Q + 1) // 2
     products = M * pairs * 2 * (G * N + H * P)
     elementwise = M * H * (pairs * 4 + Q)
-    b, by = bound(nbytes, elementwise, 3 * products)
-    return b, by, bound(nbytes, products + elementwise)[0]
+    b, by = bound_ms(nbytes, elementwise, 3 * products)
+    return b, by, bound_ms(nbytes, products + elementwise)[0]
 
 
 def phase_k5():
@@ -2179,20 +2206,16 @@ def deterministic():
     sorted scatter in place of atomics) for runs held to each other: with
     the default ones a round differs from itself from run to run, and 8
     rounds of training carried that past CARD_VS_CPU_ATOL/RTOL (4.5e-4 on
-    a BatchNorm bias; PERF.md §6)."""
-    cudnn = torch.backends.cudnn
-    prev = (cudnn.deterministic, cudnn.benchmark,
-            torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled())
-    cudnn.deterministic, cudnn.benchmark = True, False
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    a BatchNorm bias; PERF.md §6): the ``deterministic`` platform preset
+    for the scope of the block, every switch put back after it."""
+    prev = platform.snapshot()
+    platform.apply(platform.PRESETS["deterministic"])
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             yield
     finally:
-        cudnn.deterministic, cudnn.benchmark = prev[:2]
-        torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+        platform.restore(prev)
 
 
 @contextlib.contextmanager
@@ -2984,14 +3007,16 @@ def _llm_expect(name, launches, want):
 
 
 def fed_window(smi, label, base, vocab, n_params, per_window, name, argv,
-               schedule, want):
+               schedule, want, extra=None):
     """One window of the LLM trainer: a federation set up from the CLI's
     flags ``base + argv`` (``train.setup``) and its rounds
     (``train.run_rounds``; ``schedule`` is a list of (rounds,
     active_budget)), with the launch counts zeroed before and read after,
     held to ``want``; its bytes to `CommModel`, ``n_params`` a client and
-    finite losses.  Prints an ``{label} [...] {...}`` line, records the
-    launches in ``per_window[name]`` and returns the federation."""
+    finite losses.  ``extra(fed, rec)``, run after the window, returns
+    more values for the line.  Prints an ``{label} [...] {...}`` line,
+    records the launches in ``per_window[name]`` and returns the
+    federation."""
     from repro_torch.core.comm import CommModel
     from repro_torch.launch import train
     args = train.parse_args(base + argv)
@@ -3018,6 +3043,8 @@ def fed_window(smi, label, base, vocab, n_params, per_window, name, argv,
                fedavg_fp32_bytes=cm.fl_round(),
                participants=[r.get("participants", LLM_K) for r in recs],
                params_per_client=n, **w)
+    if extra is not None:
+        rec.update(extra(fed, rec))
     say(f"{label} [{smi}] " + json.dumps(rec))
     if n != n_params:
         fail(f"{label} {name}: {n} parameters a client, expected "
@@ -3464,46 +3491,59 @@ def _moe_serving_model(arch, n_layers):
     return cfg, params
 
 
+@contextlib.contextmanager
+def counted_drops():
+    """`moe.route` patched to append each MoE FFN call's (routed (token,
+    choice) pairs, dropped ones as a device tensor) to the list it
+    yields, in call order."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+    calls, route = [], moe.route
+
+    def counting(p, c, xg):
+        out = route(p, c, xg)
+        calls.append((out[3].numel(), (~out[3]).sum()))
+        return out
+
+    with mock.patch.object(moe, "route", counting):
+        yield calls
+
+
+def drop_summary(calls) -> dict:
+    """Routed and dropped pairs of `counted_drops`' calls, the dropped
+    share in all and each call's."""
+    routed = sum(n for n, _ in calls)
+    dropped = sum(int(d) for _, d in calls)
+    return dict(routed=routed, dropped=dropped,
+                share=dropped / max(routed, 1),
+                per_call=[int(d) / n for n, d in calls])
+
+
 def moe_drops(smi, cfg, params, label):
     """The serving window once more (outside its timing), with every MoE
     FFN's routed and dropped (token, choice) pairs counted on the device:
     in the (4, 2048) shot, in the four single inserts' shots and in decode
     (each slot's token a group of its own, as the reference's vmap over
     the slots routes it)."""
-    from unittest import mock
-
-    from repro_torch.models import moe
     from repro_torch.serve import Request, ServeEngine
-    counts = {k: [0, torch.zeros((), dtype=torch.int64, device="cuda")]
-              for k in ("shot", "inserts", "decode")}
-    per_layer = []                      # the shot's MoE layers, in order
-    mode = ["shot"]
-    route = moe.route
-
-    def counting(p, c, xg):
-        out = route(p, c, xg)
-        n = counts[mode[0]]
-        n[0] += out[3].numel()
-        n[1] = n[1] + (~out[3]).sum()
-        if mode[0] == "shot":
-            per_layer.append((~out[3]).sum())
-        return out
-
     reqs = [Request(id=i, tokens=p, max_new_tokens=SERVE_NEW)
             for i, p in enumerate(serve_prompts(cfg.vocab))]
     eng = ServeEngine(cfg, params, **SERVE_ENGINE, device="cuda")
-    with mock.patch.object(moe, "route", counting):
+    with counted_drops() as shot:
         eng.insert_batch(reqs[:4])
-        mode[0] = "inserts"
+    with counted_drops() as inserts:
         for r in reqs[4:]:
             eng.insert(r)
-        mode[0] = "decode"
+    with counted_drops() as decode:
         _serve_drain(eng, 8)
     del eng
-    out = {k: dict(routed=n, dropped=int(d), share=int(d) / max(n, 1))
-           for k, (n, d) in counts.items()}
-    routed = counts["shot"][0] // max(len(per_layer), 1)
-    out["shot_per_layer"] = [int(d) / routed for d in per_layer]
+    out = {k: drop_summary(c) for k, c in (("shot", shot),
+                                           ("inserts", inserts),
+                                           ("decode", decode))}
+    out["shot_per_layer"] = out["shot"]["per_call"]
+    for k in ("shot", "inserts", "decode"):
+        del out[k]["per_call"]
     say(f"{label} [{smi}]: (token, choice) pairs dropped by capacity: " +
         "; ".join(f"{k} {v['dropped']} of {v['routed']} ({v['share']:.2%})"
                   for k, v in out.items() if k != "shot_per_layer") +
@@ -4077,37 +4117,47 @@ def modality_train(smi, arch):
     return per_window
 
 
-def modality_kernel_timing(smi):
-    """(d) K1/K2 at (2, 1024, V) bf16 and K3/K4 at (1024, V) bf16 for both
-    vocabularies: checked against their plain versions (K3 also against
-    float64), timed as phase 4's rows; then `llm_kernel_checks` at each
-    (K1 on the top-8 densified f32 stack, K2 with a client at weight 0,
-    K3/K4 on f32 logits).  Returns each kernel's rows and largest error."""
+def vocab_kernel_rows(smi, label, V, seed, era_names, **tags):
+    """K1/K2 (``era_names`` of `era_timing`) at (2, 1024, V) bf16 and K3/K4
+    at (1024, V) bf16: checked against their plain versions (K3 also
+    against float64), timed as phase 4's rows (``tags`` and the card added
+    to each); then `llm_kernel_checks` at V (K1 on the top-8 densified f32
+    stack, K2 with a client at weight 0, K3/K4 on f32 logits).  Returns
+    each kernel's row and each checked kernel's largest error."""
     from repro_torch.kernels import distill_loss as dl
     from repro_torch.kernels import era_sharpen as es
+    bf16 = torch.bfloat16
+    era = era_timing(es, LLM_K, LLM_N, V, seed=seed, dtype=bf16,
+                     names=era_names)
+    fwd, bwd = k34_timing(dl, LLM_N, V, bf16, seed + 2, 2e-2,
+                          dz_tol(LLM_N, bf16))
+    rows = {}
+    for name, r in list(era.items()) + [("distill_loss_fwd", fwd),
+                                        ("distill_loss_bwd", bwd)]:
+        rows[name] = dict(r, **tags, device=smi)
+        say_timing(name, rows[name])
+    errs = {name: r["max_abs_err"] for name, r in rows.items()}
+    for name, e in llm_kernel_checks(V, with_k5=False, label=label).items():
+        if e is not None:
+            errs[name] = max(errs.get(name, 0.0), e)
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
+def modality_kernel_timing(smi):
+    """(d) `vocab_kernel_rows` of K1, K2, K3 and K4 at both vocabularies.
+    Returns each kernel's rows and largest error."""
     rows = {k: [] for k in ("era_sharpen", "weighted_era_sharpen",
                             "distill_loss_fwd", "distill_loss_bwd")}
     errs = dict.fromkeys(rows, 0.0)
-    bf16 = torch.bfloat16
     for i, (arch, spec) in enumerate(MODALITY.items()):
-        V = spec["vocab"]
-        era = era_timing(es, LLM_K, LLM_N, V, seed=41 + i, dtype=bf16,
-                         names=("era_sharpen", "weighted_era_sharpen"))
-        fwd, bwd = k34_timing(dl, LLM_N, V, bf16, 43 + i, 2e-2,
-                              dz_tol(LLM_N, bf16))
-        for name, r in list(era.items()) + [("distill_loss_fwd", fwd),
-                                            ("distill_loss_bwd", bwd)]:
-            r = dict(r, arch=arch, device=smi)
-            rows[name].append(r)
-            say_timing(name, r)
-        for name, e in llm_kernel_checks(V, with_k5=False,
-                                         label=f"modality {arch}").items():
-            if name in errs:
-                errs[name] = max(errs[name], e)
+        r, e = vocab_kernel_rows(smi, f"modality {arch}", spec["vocab"],
+                                 41 + i, ("era_sharpen",
+                                          "weighted_era_sharpen"), arch=arch)
         for name in rows:
-            errs[name] = max(errs[name], rows[name][-1]["max_abs_err"])
-    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
-    torch.cuda.empty_cache()
+            rows[name].append(r[name])
+            errs[name] = max(errs[name], e[name])
     return rows, errs
 
 
@@ -4176,6 +4226,198 @@ def phase_modality(smi):
     return launches, rows, errs
 
 
+# ----------------------------------------------------- phase "moe train" --
+# LLM training of the MoE family on the card: llama4-scout-17b-a16e at its
+# full widths through `launch.train`'s windows (K = 2, batch 8, seq 128),
+# depth cut to MOE_TRAIN_LAYERS.  By the config a layer holds 2,076,272,640
+# values (16 experts of 3 x 5120 x 8192, attention, router) and the tied
+# embedding 1,034,485,760: at 2 layers a client is 10,374,451,200 bytes in
+# bf16.  A DS-FL window holds two client stacks, the fresh stack the steps
+# write, one client's gradients and the teacher rows, and FedAvg's mean its
+# f32 partials besides: about 6 client copies (qwen1.5-4b's windows peaked
+# at 40.3 and 42.8 GB for 7.1 GB clients), 62 GB at 2 layers and 87 GB at
+# 3 (at 2 the windows peaked at 59.9 and 65.4 GB on an H100 80GB HBM3 at
+# 700 W).  Its teacher rows of 202,048 classes take K1's wide-row route and
+# K3/K4's widest rows.  Then K1, K3 and K4 at those rows checked and timed;
+# the MoE smoke configs' rounds on the card against the CPU (Jamba's with
+# K5 in its prediction leg, a full-width block of maverick being 34.8 GB
+# and of Jamba 88 GB).
+MOE_TRAIN_ARCH = "llama4-scout-17b-a16e"
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_VALUES = 5_187_036_160
+MOE_V = 202_048
+MOE_FP16_BYTES = 1_241_382_912       # 1024 x 202,048 x 2 B x 3
+MOE_FEDAVG_BYTES = 62_244_433_920    # 5,187,036,160 x 4 B x 3
+MOE_ERA_ROUNDS = 2
+MOE_SMOKE = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
+             "jamba-1.5-large-398b")
+
+
+def moe_train_drops(fed):
+    """Client 0's forward (no gradients) on its private batch and on the
+    open batch, every MoE FFN's routed and dropped (token, choice) pairs
+    counted (`drop_summary`; ``per_call``: each layer, private batch
+    first)."""
+    from repro_torch.core import llm_dsfl
+    from repro_torch.models.api import model_logits
+    params = llm_dsfl.client(fed.state.clients.params, 0)
+    with torch.no_grad(), counted_drops() as calls:
+        for batch in (llm_dsfl.client(fed.task.x_clients, 0),
+                      fed.task.open_x):
+            model_logits(fed.cfg, params, batch)
+    return drop_summary(calls)
+
+
+def moe_train_report(fed, rec):
+    """What the scout DS-FL line adds: the dropped share (`moe_train_drops`),
+    the useful FLOPs of one client step by `launch.roofline`
+    (``model_flops``: 6 x active parameters x tokens, batch 8 x seq 128),
+    the aten products one client step runs on the card counted by
+    ``torch.utils.flop_counter`` (``counted_flops``: K3/K4 are ctypes calls
+    and count nothing), their ratio, and the step's roofline from those
+    FLOPs at the bf16 rate and the client's bytes read and written once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import llm_dsfl
+    from repro_torch.launch.roofline import Roofline, model_flops_estimate
+    hp, st, task = fed.engine.algo.hp, fed.state.clients.params, fed.task
+    drops = moe_train_drops(fed)
+    (probs,) = llm_dsfl.dsfl_exchange(fed.cfg, st, task.open_x, hp)
+    teacher = llm_dsfl._aggregate_teacher(probs, hp, None)
+    del probs
+    with FlopCounterMode(display=False) as fc:
+        new, _ = llm_dsfl.dsfl_client_step(
+            fed.cfg, llm_dsfl.client(st, 0),
+            llm_dsfl.client(task.x_clients, 0), task.open_x, teacher, hp)
+    del new, teacher
+    torch.cuda.empty_cache()
+    counted = float(fc.get_total_flops())
+    model = model_flops_estimate(fed.cfg, InputShape("client step", LLM_S,
+                                                     LLM_B, "train"))
+    client_bytes = sum(v[0].numel() * v.element_size() for v in st.values())
+    roof = Roofline.from_terms(
+        arch=fed.cfg.name, shape=f"batch {LLM_B} x seq {LLM_S}",
+        step="dsfl client step", flops=counted,
+        bytes_accessed=2 * client_bytes, model_flops=model,
+        peak_mem_bytes=rec["peak_bytes"], arg_bytes=client_bytes)
+    return dict(dropped=drops, model_flops=model, counted_flops=counted,
+                counted_over_model=counted / model, roofline=roof.to_dict())
+
+
+def moe_train(smi):
+    """llama4-scout at full width and MOE_TRAIN_LAYERS through
+    `launch.train`'s DS-FL ERA window (MOE_ERA_ROUNDS rounds: K1 a round,
+    K3/K4 a client step, nothing else; the line adds `moe_train_report`),
+    a profiled client step, and its FedAvg window (1 round, no kernel);
+    `train.get_config` cut to that depth and the seeded embedding scaled,
+    bytes a round held to `CommModel` and to the literal values."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.api import model_init
+    label = "moe train llama4-scout"
+    base = ["--arch", MOE_TRAIN_ARCH, "--clients", str(LLM_K), "--batch",
+            str(LLM_B), "--seq", str(LLM_S)]
+    per_window = {}
+    window = functools.partial(fed_window, smi, label, base, MOE_V,
+                               MOE_TRAIN_VALUES, per_window)
+
+    def scaled_init(cfg, gen, device):
+        params = model_init(cfg, gen, device)
+        scale_embedding(cfg, params)
+        return params
+
+    n = MOE_ERA_ROUNDS
+    with mock.patch.object(train, "model_init", scaled_init), \
+            mock.patch.object(train, "get_config", lambda arch: get_config(
+                arch).replace(n_layers=MOE_TRAIN_LAYERS)):
+        fed = window("dsfl era", ["--mode", "dsfl"], [(n, "auto")],
+                     dict(era_sharpen=n, distill_loss_fwd=n * LLM_K,
+                          distill_loss_bwd=n * LLM_K), extra=moe_train_report)
+        dsfl_bytes = fed.exchange_bytes
+        llm_step_trace(smi, fed, label, "2 predictions, the teacher through "
+                       "K1 on the wide-row route")
+        del fed
+        torch.cuda.empty_cache()
+        fed = window("fedavg", ["--mode", "fedavg"], [(1, "auto")], {})
+        fedavg_bytes = fed.exchange_bytes
+        for k, v in fed.state.clients.params.items():
+            if not torch.equal(v[0], v[1]):
+                fail(f"{label} fedavg: clients differ at {k}")
+        del fed
+    torch.cuda.empty_cache()
+    if (dsfl_bytes, fedavg_bytes) != (MOE_FP16_BYTES, MOE_FEDAVG_BYTES):
+        fail(f"{label}: bytes a round {dsfl_bytes} / {fedavg_bytes}, "
+             f"expected {MOE_FP16_BYTES} / {MOE_FEDAVG_BYTES}")
+    return per_window
+
+
+def phase_moe_train(smi):
+    """Phase "moe train": `moe_train`; K1, K3 and K4 at scout's
+    (2, 1024, 202048) and (1024, 202048) bf16 rows (`vocab_kernel_rows`);
+    each MoE smoke config's DS-FL and FedAvg rounds on the card against
+    the CPU (`llm_card_vs_cpu`), launches held (K1 1, K3/K4 2, K5 one a
+    Mamba sub-layer of each client's prediction).  Returns the launches of
+    the windows and the smoke rounds, the timing rows and the errors."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    launches = moe_train(smi)
+    t_k = time.perf_counter()
+    rows, errs = vocab_kernel_rows(smi, "moe train", MOE_V, 51,
+                                   ("era_sharpen",), arch=MOE_TRAIN_ARCH)
+    t_c = time.perf_counter()
+    smoke = {}
+    for arch in MOE_SMOKE:
+        cfg = get_config(arch).smoke()
+        k5 = LLM_K * cfg.n_blocks * sum(m == "mamba" for m, _ in cfg.pattern)
+        _build.reset_launches()
+        llm_card_vs_cpu(smi, arch, label=f"moe train (c) {arch}")
+        torch.cuda.synchronize()
+        smoke[arch] = dict(_build.LAUNCHES)
+        _llm_expect(f"moe train (c) {arch} rounds", smoke[arch],
+                    dict(era_sharpen=1, distill_loss_fwd=LLM_K,
+                         distill_loss_bwd=LLM_K, ssd_chunk=k5))
+    say(f"moe train: phase took {time.perf_counter() - t0:.1f} s (windows "
+        f"{t_k - t0:.1f} s, kernels {t_c - t_k:.1f} s, card vs cpu "
+        f"{time.perf_counter() - t_c:.1f} s)")
+    return launches, smoke, rows, errs
+
+
+# ------------------------------------------------------ phase "examples" --
+# The examples' torch twins on the card, each its own process (the kernels
+# built above are reused from the build directory): (script, arguments,
+# the text its output must hold).
+EXAMPLES = (("torch_quickstart.py", ("--fast",), "\nOK\n"),
+            ("torch_serve_batched.py", (), "[continuous] 4 requests"),
+            ("torch_train_dsfl_lm.py", ("--smoke", "--steps", "2"),
+             "round   1  loss"))
+
+
+def phase_examples(smi):
+    """Each of EXAMPLES on the card; fails on a non-zero exit code or a
+    missing expected line (the quickstart's final ``OK``)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t_phase = time.perf_counter()
+    for script, args, want in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / script),
+                               *args], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        tail = proc.stdout.strip().splitlines()[-4:]
+        say(f"examples {script} {' '.join(args)} [{smi}]: rc "
+            f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+            + " | ".join(tail))
+        if proc.returncode != 0 or want not in proc.stdout + "\n":
+            fail(f"examples {script}: rc {proc.returncode}, expected "
+                 f"{want!r}; stderr: {proc.stderr[-2000:]}")
+    say(f"examples: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script needs one NVIDIA GPU")
@@ -4220,6 +4462,9 @@ def main():
     del qparams, qcfg
     torch.cuda.empty_cache()
     modality_launches, modality_rows, modality_errs = phase_modality(smi)
+    torch.cuda.empty_cache()
+    moe_windows, moe_smoke, moe_rows, moe_errs = phase_moe_train(smi)
+    phase_examples(smi)
     kernels = []
     for name, r in recs.items():
         serving, llm = name in SERVE_KERNELS, name in LLM_KERNELS
@@ -4247,6 +4492,11 @@ def main():
                 for arch, windows in modality_launches.items()},
             modality=modality_rows.get(name, []),
             modality_max_abs_err=modality_errs.get(name),
+            moe_train_launches={run: v[name]
+                                for run, v in moe_windows.items()},
+            moe_smoke_launches={a: v[name] for a, v in moe_smoke.items()},
+            moe_train=[moe_rows[name]] if name in moe_rows else [],
+            moe_train_max_abs_err=moe_errs.get(name),
             llm_max_abs_err=llm_errs[name],
             llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")

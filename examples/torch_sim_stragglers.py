@@ -30,6 +30,7 @@ from repro_torch.core.comm import fmt_bytes
 from repro_torch.core.engine import FedEngine, make_eval_fn
 from repro_torch.core.protocol import DSFLConfig
 from repro_torch.data.pipeline import SyntheticProvider, build_image_task
+from repro_torch.launch import platform
 from repro_torch.models.smallnets import apply_tiny_mlp, init_tiny_mlp
 from repro_torch.obs import cli as obs_cli
 from repro_torch.sim import (ClientPopulation, CohortRunner, SimRunner,
@@ -58,7 +59,9 @@ def main(argv=None):
                     help="force the cohort path (automatic for K >= 10000)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     obs_cli.add_args(ap)   # --trace out.jsonl / --metrics out.json
+    platform.add_args(ap)  # --platform-preset fp32-deterministic, ...
     args = ap.parse_args(argv)
+    platform.from_args(args)
     with obs_cli.session(args):
         return run(args)
 

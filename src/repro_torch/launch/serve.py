@@ -20,7 +20,9 @@ do not hold; a VLM's decode starts after its prompt and its patches.
 On the card a Mamba prefill's within-chunk SSD blocks run K5; attention
 is plain PyTorch.
 Weights are random, drawn from ``--seed`` on the chosen device.
-``--trace out.jsonl`` / ``--metrics out.json`` record the run (`obs.cli`).
+``--trace out.jsonl`` / ``--metrics out.json`` record the run (`obs.cli`);
+``--platform-preset`` sets torch's numeric switches first
+(`launch.platform`).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ..device import generator, resolve_device
 from ..models.api import model_decode_step, model_init, model_prefill
 from ..obs import cli as obs_cli
 from ..serve import AdmissionQueue, ServeEngine
+from . import platform
 from .train import extra_inputs
 
 
@@ -131,7 +134,10 @@ def main(argv=None):
                     help="where to run (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
     obs_cli.add_args(ap)
+    platform.add_args(ap)
     args = ap.parse_args(argv)
+    # the preset first: the session's provenance stamps it
+    platform.from_args(args)
     with obs_cli.session(args):
         run(args)
 

@@ -32,7 +32,8 @@ model's random frame embeddings (`extra_inputs`, the stub frontends),
 drawn from the task's generator and shared by every client and the open
 set.
 ``--trace out.jsonl`` / ``--metrics out.json`` record the run
-(`obs.cli`).
+(`obs.cli`); ``--platform-preset`` sets torch's numeric switches first
+(`launch.platform`: TF32 off, deterministic algorithms).
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ from ..device import generator, resolve_device
 from ..models.api import model_init
 from ..models.base import param_count
 from ..obs import cli as obs_cli
+from . import platform
 
 
 def extra_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
@@ -108,11 +110,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="where to run (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
     obs_cli.add_args(ap)
+    platform.add_args(ap)
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    # the preset first: the session's provenance stamps it
+    platform.from_args(args)
     with obs_cli.session(args):
         run(args)
 

@@ -6,9 +6,9 @@ snapshot, so a number carries its environment.
 sha (and whether the tree was dirty), the torch and CUDA versions, and
 where a card is present its driver version, name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit,driver_version`` gives them),
-the device count, the TF32 switches, and the kernel route: ``cuda`` (the
-hand-written kernels) on the card, ``plain`` (their PyTorch versions) on
-the CPU.
+the device count, the TF32 switches, the kernel route (``cuda``, the
+hand-written kernels, on the card; ``plain``, their PyTorch versions, on
+the CPU), and the platform preset applied (`launch.platform`).
 
 Collection is defensive: a missing git or ``nvidia-smi``, a checkout that
 is not a repository, or a card that does not answer leaves the field None
@@ -59,6 +59,7 @@ class RunProvenance:
     tf32_matmul: Optional[bool] = None
     tf32_cudnn: Optional[bool] = None
     kernel_route: Optional[str] = None
+    platform_preset: Optional[str] = None
     platform: Optional[str] = None
     python: Optional[str] = None
     argv: Optional[str] = None
@@ -80,6 +81,8 @@ class RunProvenance:
         name = limit = driver = None
         if has_card:
             name, limit, driver = _smi()
+        from ..launch.platform import active
+        preset = active()
         return cls(git_sha=sha, git_dirty=dirty,
                    torch_version=torch.__version__,
                    cuda_version=torch.version.cuda,
@@ -90,6 +93,7 @@ class RunProvenance:
                    tf32_cudnn=torch.backends.cudnn.allow_tf32,
                    kernel_route=("cuda" if torch.device(device).type == "cuda"
                                  else "plain"),
+                   platform_preset=preset.name if preset else None,
                    platform=_platform.platform(),
                    python=_platform.python_version(),
                    argv=" ".join(sys.argv))

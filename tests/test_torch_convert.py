@@ -223,7 +223,7 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_reference(where):
     files = {"package": sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
              "chip_smoke": [ROOT / "chip_smoke.py"],
-             "example": [ROOT / "examples" / "torch_sim_stragglers.py"]}[where]
+             "example": sorted((ROOT / "examples").glob("torch_*.py"))}[where]
     assert files
     for f in files:
         for mod in _imports(f):

@@ -16,6 +16,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import distill_loss as tdl
 from repro_torch.kernels import era_sharpen as tes
 from repro_torch.kernels import ssd_chunk as tssd
+from repro_torch.launch import platform
 
 ATOL_ERA = {torch.float32: 1e-6, torch.bfloat16: 5e-3}
 
@@ -24,8 +25,7 @@ ATOL_ERA = {torch.float32: 1e-6, torch.bfloat16: 5e-3}
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    platform.apply("fp32")          # TF32 off: float32 runs in float32
     return torch.device("cuda")
 
 
@@ -52,7 +52,8 @@ def _weights(device, K, seed):
                                          (100, 1000, 46, torch.float32),
                                          (10, 256, 32768, torch.float32),
                                          (2, 1024, 32_064, torch.bfloat16),
-                                         (2, 1024, 51_865, torch.bfloat16)])
+                                         (2, 1024, 51_865, torch.bfloat16),
+                                         (2, 1024, 202_048, torch.bfloat16)])
 def test_era_kernels_match_plain(cuda_device, K, N, C, dtype):
     p = _probs(cuda_device, (K, N, C), K + N + C, dtype)
     w = _weights(cuda_device, K, K)
@@ -198,7 +199,8 @@ def test_era_kernel_refuses_a_misaligned_plan(cuda_device, K, N, C, dtype):
                                        (37, 1000, torch.float32),
                                        (64, 4096, torch.bfloat16),
                                        (1024, 32_064, torch.bfloat16),
-                                       (1024, 51_865, torch.bfloat16)])
+                                       (1024, 51_865, torch.bfloat16),
+                                       (1024, 202_048, torch.bfloat16)])
 def test_distill_kernels_match_plain(cuda_device, N, V, dtype):
     g = _gen(cuda_device, N + V)
     z = (torch.randn((N, V), generator=g, device=cuda_device) * 4).to(dtype)
@@ -702,14 +704,17 @@ def test_distill_loss_f32_logits_bf16_teacher(cuda_device, N, V):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen1.5-4b",
-                                  "phi-3-vision-4.2b", "whisper-small"])
+                                  "phi-3-vision-4.2b", "whisper-small",
+                                  "llama4-scout-17b-a16e",
+                                  "llama4-maverick-400b-a17b",
+                                  "jamba-1.5-large-398b"])
 def test_llm_smoke_round_card_against_cpu(cuda_device, arch):
     """One LLM DS-FL round and one FedAvg round on ``arch``'s smoke config
     (K=2, batch 2, seq 32) from the same weights and data on the card (K1,
-    K3, K4, and K5 for Mamba) and on the CPU (their plain versions): leaves
-    and loss within 2e-4 + 1e-3 |x|.  The rounds are chip_smoke.py's
-    ``llm_smoke_rounds``, which its phases "llm" and "llm qwen1.5-4b"
-    compare the same way."""
+    K3, K4, and K5 in each Mamba sub-layer of the prediction) and on the
+    CPU (their plain versions): leaves and loss within 2e-4 + 1e-3 |x|.
+    The rounds are chip_smoke.py's ``llm_smoke_rounds``, which its LLM
+    phases compare the same way."""
     import importlib.util
     from pathlib import Path
 
@@ -719,7 +724,7 @@ def test_llm_smoke_round_card_against_cpu(cuda_device, arch):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     cfg = get_config(arch).smoke()
-    k5 = 2 * cfg.n_layers if cfg.arch_type == "ssm" else 0
+    k5 = 2 * cfg.n_blocks * sum(m == "mamba" for m, _ in cfg.pattern)
     out = {}
     for device in (cuda_device, torch.device("cpu")):
         _build.reset_launches()

@@ -32,7 +32,7 @@ import torch_sim_stragglers  # noqa: E402
 PROVENANCE_KEYS = {"git_sha", "git_dirty", "torch_version", "cuda_version",
                    "driver_version", "gpu_name", "gpu_power_limit",
                    "n_devices", "tf32_matmul", "tf32_cudnn", "kernel_route",
-                   "platform", "python", "argv"}
+                   "platform_preset", "platform", "python", "argv"}
 
 
 def _write(tracer_mod, path):

@@ -54,7 +54,11 @@ def main():
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs          # imports torch only; puts ROOT/src on the path
+    import chip_smoke as cs          # puts ROOT/src on the path
+    # chip_smoke imported this tree's repro_torch for its roofline; the
+    # kernel under test comes from --src, imported afresh
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, str(src))     # ahead of it: the tree under test
     import torch
     if not torch.cuda.is_available():
