@@ -294,7 +294,7 @@ result:
              are bitwise ``eval_params`` of the final state and share no
              storage with the trainer; the window's launches held to K1 2,
              K3/K4 4; swap latencies and the window's peak printed.
-    loadgen  ``serve.run_load`` on the first 20 of those weights' 40 layers
+    loadgen  ``serve.run_load`` on the first 10 of those weights' 40 layers
              (a fresh engine of phase 7's shape each run) with ``LoadSpec(n_requests=32, rate=4.0,
              prompt_len=(4, 48), max_new=(4, 16), vocab=151936, seed=0)``,
              with the defaults, ``decode_chunk=8`` and
@@ -348,9 +348,23 @@ result:
              block of maverick is 34.8 GB and of Jamba 88 GB): a DS-FL and
              a FedAvg round on the card against the CPU, launches held (K1
              1, K3/K4 2, K5 28 for Jamba's prediction leg).
+    pod      the federated client axis over torch.distributed ranks:
+             qwen1.5-4b at full width and 40 layers, K = 2, batch 8, seq
+             128, the embedding scaled, under ``fp32-deterministic``,
+             through `launch.pod_check`'s cases chained (2 ERA rounds, a
+             top-k 8 round, a participation-0.5 sparse round, a FedAvg
+             round): (a) world 1 over NCCL in this process, the engine
+             over `make_client_mesh(2)` bitwise the engine without a mesh
+             (every lane of every leaf fingerprinted on the card, history,
+             launches; K1 on the all-gathered stack); (b) world 2 over
+             gloo, one client a rank, both ranks on this card, at 4 of
+             the 40 layers (POD_LAYERS_B), each rank's lane bitwise the
+             one-process client at that depth; per case and rank the
+             seconds a round, peak, the collectives log's bytes by kind
+             (held to the closed forms) and K1-K4 launches.
     examples the examples' torch twins on the card, each its own process:
              ``examples/torch_quickstart.py --fast`` (must end ``OK``),
-             ``examples/torch_serve_batched.py`` and
+             ``examples/torch_serve_batched.py``,
              ``examples/torch_train_dsfl_lm.py --smoke --steps 2``; a
              non-zero exit fails the script.
 11. the ``{"kernels": [...]}`` line (launches on each path, ``wide``
@@ -360,7 +374,8 @@ result:
              ``loadgen_launches``, ``modality_launches`` by model and
              window, ``modality`` timing rows for K1-K4,
              ``moe_train_launches`` by window, ``moe_smoke_launches`` by
-             model, ``moe_train`` timing rows for K1, K3 and K4), the
+             model, ``moe_train`` timing rows for K1, K3 and K4,
+             ``pod_launches``: phase "pod" (a)'s run over the mesh), the
              card's line, and the result line.
 """
 from __future__ import annotations
@@ -3770,9 +3785,10 @@ def phase_moe(smi):
 # weights' 40 layers with LOADGEN_SPEC: its decode is host-bound (about 557
 # steps a run, three runs), and at 40 layers the phase took 152-212 s of
 # the script, which passed 1000 s once phase "modality" joined it (1004 s
-# on an H100 80GB HBM3 at 700 W).
+# on an H100 80GB HBM3 at 700 W); at 20 layers it took 69-108 s, and the
+# script reached 1114.9 s on a slow host once phase "pod" joined it.
 HOT_SWAP_ROUNDS = 2
-LOADGEN_LAYERS = 20
+LOADGEN_LAYERS = 10
 LOADGEN_SPEC = dict(n_requests=32, rate=4.0, prompt_len=(4, 48),
                     max_new=(4, 16), vocab=QWEN_V, seed=0)
 
@@ -4386,6 +4402,184 @@ def phase_moe_train(smi):
     return launches, smoke, rows, errs
 
 
+# ------------------------------------------------------------ phase "pod" --
+# The federated client axis over torch.distributed ranks (`launch.mesh`,
+# `launch.collectives`, the pod path of `core.llm_dsfl`) at qwen1.5-4b's
+# full width, `launch.train`'s defaults (K = 2, batch 8, seq 128, lr 3e-3,
+# ERA T = 0.1), the embedding scaled, through `launch.pod_check`'s cases
+# chained in POD_CASES' order: 2 ERA rounds, a top-k 8 round, a
+# participation-0.5 sparse round (client 1 absent, budget 1) and a FedAvg
+# round, under the ``fp32-deterministic`` preset (default algorithms do not
+# reproduce a card round).  (a) World 1 over NCCL in this process: the
+# engine over `make_client_mesh(2)` = (1, 1, 1) against the engine without
+# a mesh, case by case, every lane of every leaf fingerprinted on the card
+# (`pod_check.fingerprint`: the int64 sum of its bit patterns and its
+# float64 sum), history and launches equal; the log holds the all-gathered
+# upload stack K1 sharpens.  (b) World 2 over gloo, one client a rank, both
+# ranks on this card (NCCL refuses two ranks on one device; gloo moves the
+# CUDA tensors through host memory): rank r's lane fingerprints equal the
+# one-process lane r at (b)'s depth.  Two processes time-slice one card, so
+# (b)'s seconds say nothing about scaling.
+POD_CASES = ("era", "topk", "sparse", "fedavg")
+POD_ROUNDS = {"era": 2, "topk": 1, "sparse": 1, "fedavg": 1}
+POD_PRESET = "fp32-deterministic"
+# (b) at 4 of the 40 layers: at full depth it fit (33.2 GB a rank) but
+# took 50-63 s, FedAvg's 14.2 GB of f32 through gloo's host staging 20-26 s
+# of it, and the script passed 900 s (955.1-975.0 s on an H100 80GB HBM3 at
+# 700 W); at 20 layers (b) took 57.2 s on a slow host, where the script
+# took 1114.9 s.  Its one-process fingerprints are taken at the same depth
+POD_LAYERS_B = 4
+
+
+def _pod_spec(**kw):
+    from repro_torch.launch.pod_check import DrillSpec
+    return DrillSpec(**{**dict(
+        arch="qwen1.5-4b", smoke=False, clients=LLM_K, batch=LLM_B,
+        seq=LLM_S, lr=3e-3, device="cuda", use_kernel=True,
+        scale_embedding=True, cases=POD_CASES, chain=True,
+        fingerprint=True), **kw})
+
+
+def _pod_line(rec, case) -> dict:
+    from repro_torch.launch.roofline import collective_bytes, cross_pod_bytes
+    return dict(seconds_a_round=rec["seconds"] / POD_ROUNDS[case],
+                peak_bytes=rec["peak_bytes"],
+                losses=[h["loss"] for h in rec["history"]],
+                collective_bytes=collective_bytes(rec["log"]),
+                cross_pod_bytes=cross_pod_bytes(rec["log"]),
+                launches={k: v for k, v in rec["launches"].items()
+                          if k != "ssd_chunk"})
+
+
+def _pod_expected_bytes(case, n_params) -> dict:
+    """The closed forms: DS-FL's upload stack K*B*S*V*2 (top-k's pairs
+    K*B*S*k*8) and the K f32 losses a round; FedAvg 4 bytes a parameter."""
+    losses = 4 * LLM_K * POD_ROUNDS[case]
+    if case == "fedavg":
+        return {"all-gather": losses, "all-reduce": 4 * n_params}
+    per_round = (LLM_K * LLM_N * 8 * 8 if case == "topk"
+                 else LLM_K * LLM_N * QWEN_V * 2)
+    return {"all-gather": per_round * POD_ROUNDS[case] + losses}
+
+
+def _pod_compare(label, one, got_lane, cases=POD_CASES):
+    """Every case's lane fingerprints bitwise; ``got_lane(case, leaf, k)``
+    gives the fingerprint held against one-process lane k."""
+    for case in cases:
+        for leaf, lanes in one[case]["params"].items():
+            for k, want in enumerate(lanes):
+                got = got_lane(case, leaf, k)
+                if got != want:
+                    fail(f"{label} {case}: client {k}'s {leaf} fingerprint "
+                         f"{got} != one process {want}")
+
+
+def phase_pod(smi):
+    from repro_torch.launch import dist
+    from repro_torch.launch import pod_check
+    from repro_torch.launch.mesh import axis_sizes, make_client_mesh
+    t_phase = time.perf_counter()
+    spec = _pod_spec()
+    cfg = spec.config()
+    (ROOT / "build").mkdir(exist_ok=True)
+    prev = platform.snapshot()
+    platform.apply(POD_PRESET)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            dist.init_rank(0, 1, "nccl", os.path.join(tmp, "store"))
+            try:
+                t0 = time.perf_counter()
+                one = pod_check.run_cases(spec)
+                t_one = time.perf_counter() - t0
+                torch.cuda.empty_cache()
+                mesh = make_client_mesh(LLM_K, device=spec.device)
+                t0 = time.perf_counter()
+                pod = pod_check.run_cases(spec, mesh)
+                t_pod = time.perf_counter() - t0
+            finally:
+                dist.close()
+    finally:
+        platform.restore(prev)
+    torch.cuda.empty_cache()
+    n_params = _fake_param_count(cfg)
+    say(f"pod (a) [{smi}]: {cfg.name} d {cfg.d_model}, {cfg.n_layers} "
+        f"layers, {n_params} values a client; mesh "
+        f"{axis_sizes(mesh)} over NCCL (world 1); one process {t_one:.1f} s, "
+        f"over the mesh {t_pod:.1f} s (init and fingerprints included)")
+    if n_params != QWEN_VALUES:
+        fail(f"pod: {n_params} values a client, expected {QWEN_VALUES}")
+    for case in POD_CASES:
+        a, b = one[case], pod[case]
+        if a["history"] != b["history"] or a["launches"] != b["launches"]:
+            fail(f"pod (a) {case}: history {b['history']} / launches "
+                 f"{b['launches']} over the mesh, {a['history']} / "
+                 f"{a['launches']} without")
+        line = _pod_line(b, case)
+        want = _pod_expected_bytes(case, n_params)
+        if line["collective_bytes"] != want:
+            fail(f"pod (a) {case}: collective bytes "
+                 f"{line['collective_bytes']} != closed form {want}")
+        say(f"pod (a) {case} [{smi}]: " + json.dumps(dict(
+            line, mesh_free_seconds_a_round=a["seconds"] / POD_ROUNDS[case],
+            mesh_free_peak_bytes=a["peak_bytes"])))
+    _pod_compare("pod (a)", one,
+                 lambda case, leaf, k: pod[case]["params"][leaf][k])
+    if pod["era"]["launches"]["era_sharpen"] != POD_ROUNDS["era"]:
+        fail(f"pod (a): K1 launched {pod['era']['launches']['era_sharpen']} "
+             f"times in 2 ERA rounds on the gathered stack")
+    say(f"pod (a): every lane of every leaf bitwise the mesh-free engine "
+        f"after each of {', '.join(POD_CASES)}")
+    launches = {k: sum(pod[c]["launches"][k] for c in POD_CASES)
+                for k in pod["era"]["launches"]}
+    # (b): two ranks on this card, against one process at their depth
+    spec_b = dataclasses.replace(spec, n_layers=POD_LAYERS_B)
+    n_params_b = _fake_param_count(spec_b.config())
+    t0 = time.perf_counter()
+    prev = platform.snapshot()
+    platform.apply(POD_PRESET)
+    try:
+        one = pod_check.run_cases(spec_b)
+    finally:
+        platform.restore(prev)
+    torch.cuda.empty_cache()
+    ranks = dist.spawn(pod_check.rank_main, LLM_K,
+                       dataclasses.replace(spec_b, preset=POD_PRESET),
+                       backend="gloo")
+    t_b = time.perf_counter() - t0
+    for r, rank in enumerate(ranks):
+        for case in POD_CASES:
+            if rank[case]["history"] != one[case]["history"]:
+                fail(f"pod (b) rank {r} {case}: history "
+                     f"{rank[case]['history']} != {one[case]['history']}")
+            line = _pod_line(rank[case], case)
+            want = _pod_expected_bytes(case, n_params_b)
+            if line["cross_pod_bytes"] != want:
+                fail(f"pod (b) rank {r} {case}: cross-pod bytes "
+                     f"{line['cross_pod_bytes']} != closed form {want}")
+            say(f"pod (b) rank {r} {case} [{smi}] (two ranks time-slice "
+                f"one card: the seconds measure nothing about scaling): "
+                + json.dumps(line))
+    _pod_compare("pod (b)", one,
+                 lambda case, leaf, k: ranks[k][case]["params"][leaf][0])
+    say(f"pod (b): world 2 over gloo on one card, {POD_LAYERS_B} of "
+        f"{cfg.n_layers} layers: rank r's lane bitwise the one-process "
+        f"client r after each case; (b) took {t_b:.1f} s")
+    say(f"pod: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _fake_param_count(cfg) -> int:
+    """One client's parameter count, the model made under fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.api import model_init
+    with FakeTensorMode():
+        return sum(v.numel() for v in
+                   model_init(cfg, torch.Generator(), "cpu").values())
+
+
 # ------------------------------------------------------ phase "examples" --
 # The examples' torch twins on the card, each its own process (the kernels
 # built above are reused from the build directory): (script, arguments,
@@ -4464,6 +4658,8 @@ def main():
     modality_launches, modality_rows, modality_errs = phase_modality(smi)
     torch.cuda.empty_cache()
     moe_windows, moe_smoke, moe_rows, moe_errs = phase_moe_train(smi)
+    torch.cuda.empty_cache()
+    pod_launches = phase_pod(smi)
     phase_examples(smi)
     kernels = []
     for name, r in recs.items():
@@ -4497,6 +4693,7 @@ def main():
             moe_smoke_launches={a: v[name] for a, v in moe_smoke.items()},
             moe_train=[moe_rows[name]] if name in moe_rows else [],
             moe_train_max_abs_err=moe_errs.get(name),
+            pod_launches=pod_launches[name],
             llm_max_abs_err=llm_errs[name],
             llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")

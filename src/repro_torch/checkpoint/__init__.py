@@ -2,4 +2,4 @@
 the leaf at fault (mirrors ``repro/checkpoint``)."""
 from .msgpack_ckpt import load_pytree, save_pytree  # noqa: F401
 from .treecheck import (assert_tree_compatible, named_leaves,  # noqa: F401
-                        tree_mismatches, with_leaves)
+                        nodes_at_leaves, tree_mismatches, with_leaves)

@@ -238,10 +238,27 @@ def save_pytree(path: str, tree) -> None:
     os.replace(tmp, path)
 
 
-def load_pytree(path: str):
+def load_pytree(path: str, shardings=None):
     """The tree saved at ``path`` (by either package), leaves as CPU
-    tensors."""
+    tensors.  ``shardings``, a tree matching the file's structure, keeps
+    a rank's part of each leaf: where it holds an object with a
+    ``local(tensor)`` method (`launch.sharding.RankSlice`) the leaf becomes
+    that part (a copy), where it holds None the node stays whole."""
     with open(path, "rb") as f:
         buf = bytearray(os.fstat(f.fileno()).st_size)
         f.readinto(buf)
-    return _unpack(unpackb(buf))
+    tree = _unpack(unpackb(buf))
+    return tree if shardings is None else _keep(tree, shardings)
+
+
+def _keep(tree, shardings):
+    if shardings is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _keep(v, shardings.get(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(shardings):
+            raise ValueError(f"the file holds {len(tree)} leaves in a list "
+                             f"where the shardings give {len(shardings)}")
+        return type(tree)(_keep(v, s) for v, s in zip(tree, shardings))
+    return shardings.local(tree).clone()

@@ -37,6 +37,24 @@ def named_leaves(tree) -> list:
     return [(".".join(p) or "<root>", v) for p, v in _walk(tree, ())]
 
 
+def nodes_at_leaves(tree, like) -> list:
+    """The nodes of ``tree`` at the paths of ``like``'s leaves, in
+    `named_leaves` order: e.g. the spec of each leaf from a spec tree
+    shaped as the state (whose own leaves are tuples)."""
+    out = []
+    for path, _ in _walk(like, ()):
+        node = tree
+        for p in path:
+            if dataclasses.is_dataclass(node):
+                node = getattr(node, p)
+            elif isinstance(node, dict):
+                node = node[p]
+            else:
+                node = node[int(p[1:-1])]
+        out.append(node)
+    return out
+
+
 def with_leaves(like, leaves):
     """``like`` with its leaves replaced, in `named_leaves` order."""
     by_path = dict(zip((p for p, _ in _walk(like, ())), leaves))

@@ -13,13 +13,22 @@ draw of round r is keyed on (hp.seed, r), so a run resumes from
 sliced per chunk: the per-round scalar metrics stay on the device and
 cross to the host once per chunk (one sync a chunk instead of one a
 round), and with ``eval_fn`` the chunks end on ``log_every`` boundaries.
-``overlap=True`` asks for the pipelined schedule: ``round_start`` of the
+``overlap=True`` runs the pipelined schedule: ``round_start`` of the
 first round, then ``round_finish(r)`` followed by ``round_start(r + 1)``,
-then the last ``round_finish``.  Since ``algo.round`` is
-``round_finish(round_start(...))``, the sequential chunk already makes
-exactly these calls in this order, so it runs that chunk: with no side
-stream nothing overlaps yet (a CUDA-graph capture of a chunk is not built
-either).  All schedules give the same bits on the CPU.
+then the last ``round_finish``.  ``algo.round`` is
+``round_finish(round_start(...))``, so the calls are the sequential
+chunk's; over a mesh ``round_start`` leaves the exchange's gather in
+flight and ``round_finish`` waits on it once the private-data CE has run
+(a CUDA-graph capture of a chunk is not built).  All schedules give the
+same bits.
+
+``FedEngine(mesh=...)`` runs an algorithm that takes a mesh (the LLM
+algorithms) over its "pod" ranks: the engine hands the algorithm the mesh,
+each rank keeps its part of the round's BatchCtx (cut by
+``algo.shardings``), the history is identical on every rank, ``save_state``
+gathers the state to rank 0, which writes the one file the reference
+writes, and ``load_state(..., shardings=)`` keeps each rank's part of
+such a file (or of a one-process one).
 
 ``run(active_budget=m)`` makes masked rounds participation-sparse;
 ``cohort``/``population`` run them over a slab (see `core.algorithms`).
@@ -39,7 +48,10 @@ import numpy as np
 import torch
 
 from ..checkpoint import (assert_tree_compatible, load_pytree,
-                          named_leaves, save_pytree, with_leaves)
+                          named_leaves, nodes_at_leaves, save_pytree,
+                          with_leaves)
+from ..launch.collectives import all_gather_clients
+from ..launch.sharding import RankSlice, local_slice
 from ..obs import trace as obs
 from . import prng
 from .algorithms import BatchCtx, RoundState
@@ -68,20 +80,66 @@ class FedEngine:
     ``on_round(r, state) -> state`` the state after it; either one makes
     the run take one round at a time.  ``on_chunk(rounds_done, state)``
     observes each new state: after every chunk, or every round on the
-    loop."""
+    loop.  ``mesh`` (a ``DeviceMesh``) runs the algorithm over its "pod"
+    ranks; the algorithm must take a ``mesh`` and get this one or none."""
     algo: Any
     eval_fn: Optional[Callable] = None
     codec: Codec = field(default_factory=DenseF32Codec)
     on_round: Optional[Callable] = None
     on_ctx: Optional[Callable] = None
     on_chunk: Optional[Callable] = None
+    mesh: Optional[Any] = None
     history: list = field(default_factory=list)
     last_metrics: dict = field(default_factory=dict)
     rounds_done: int = 0
 
+    def __post_init__(self):
+        if self.mesh is None:
+            return
+        held = getattr(self.algo, "mesh", False)
+        if held is False or getattr(self.algo, "shardings", None) is None:
+            raise ValueError(f"algorithm {self.algo.name!r} does not run "
+                             f"over a mesh")
+        if held is None:
+            self.algo = dataclasses.replace(self.algo, mesh=self.mesh)
+        elif held is not self.mesh:
+            raise ValueError("the algorithm holds another mesh than the "
+                             "engine's")
+
     @property
     def device(self) -> torch.device:
         return self.algo.device
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the world (0 without a mesh)."""
+        if self.mesh is None:
+            return 0
+        import torch.distributed as dist
+        return dist.get_rank()
+
+    def _state_specs(self, state: RoundState) -> list:
+        """The spec of each state leaf, in `named_leaves` order."""
+        specs, _ = self.algo.shardings(self.mesh, state, BatchCtx())
+        return nodes_at_leaves(specs, state)
+
+    def local_ctx(self, ctx: BatchCtx, state: RoundState) -> BatchCtx:
+        """This rank's part of a BatchCtx: the client-stacked private data
+        (``x``, ``y``) cut to the rank's clients by their specs in
+        ``algo.shardings``.  Every other field stays whole: each rank's
+        clients predict on the whole open batch (the reference's
+        data-sharded open set is a layout its partitioner gathers back),
+        and the rounds read the (K,) participation fields whole.  The
+        identity without a mesh."""
+        if self.mesh is None:
+            return ctx
+        _, specs = self.algo.shardings(self.mesh, state, ctx)
+        cut = lambda t, sp: local_slice(t, sp, self.mesh, self.rank)
+        return dataclasses.replace(ctx, **{
+            f: (None if getattr(ctx, f) is None
+                else {k: cut(t, getattr(specs, f)[k])
+                      for k, t in getattr(ctx, f).items()})
+            for f in ("x", "y")})
 
     def init(self, model_init: Callable, data) -> RoundState:
         """Fresh training: clears ``rounds_done`` and ``history``; every
@@ -143,8 +201,8 @@ class FedEngine:
                 raise ValueError(
                     f"active_budget={active_budget} needs 1 <= participants "
                     f"<= budget every round; ctx_plan masks have [{lo}, {hi}]")
-        run = _Run(self, data, weights, log_every, start, ctx_plan, draws,
-                   active_budget, cohort, population)
+        run = _Run(self, state, data, weights, log_every, start, ctx_plan,
+                   draws, active_budget, cohort, population)
         chunk = max(1, int(chunk_rounds))
         if self.on_round is not None or self.on_ctx is not None:
             chunk = 1
@@ -205,8 +263,13 @@ class FedEngine:
                           overlap=overlap):
                 ms = []
                 for rr in range(r, r + k):
-                    state, m = self.algo.round(state, run.ctx(rr), rr,
-                                               run.draw(rr))
+                    ctx, d = run.ctx(rr), run.draw(rr)
+                    if overlap:
+                        inflight = self.algo.round_start(state, ctx, rr, d)
+                        state, m = self.algo.round_finish(state, ctx,
+                                                          inflight, rr, d)
+                    else:
+                        state, m = self.algo.round(state, ctx, rr, d)
                     ms.append(m)
                 self.last_metrics = ms[-1]
                 # one host sync a chunk: the per-round scalars cross together
@@ -269,22 +332,44 @@ class FedEngine:
     def save_state(self, path: str, state: RoundState) -> None:
         """The round state's leaves in the reference's order, the algorithm
         tag, ``rounds_done`` and ``history``, in the reference's layout:
-        each package reads the other's files."""
-        tag = np.frombuffer(self.algo.name.encode(), dtype=np.uint8)
-        hist = np.frombuffer(json.dumps(self.history, default=float).encode(),
-                             dtype=np.uint8)
-        save_pytree(path, {"algo": tag,
-                           "leaves": [v for _, v in named_leaves(state)],
-                           "round": np.int64(self.rounds_done),
-                           "history": hist})
+        each package reads the other's files.  Over a mesh every rank
+        calls it: the client-sharded leaves are gathered, rank 0 writes
+        the whole state, and every rank returns once the file is there."""
+        leaves = [v for _, v in named_leaves(state)]
+        if self.mesh is not None:
+            pod = self.algo.pod
+            leaves = [all_gather_clients(v.contiguous(), pod)
+                      if sp and sp[0] == "pod" else v
+                      for v, sp in zip(leaves, self._state_specs(state))]
+        if self.rank == 0:
+            tag = np.frombuffer(self.algo.name.encode(), dtype=np.uint8)
+            hist = np.frombuffer(json.dumps(self.history,
+                                            default=float).encode(),
+                                 dtype=np.uint8)
+            save_pytree(path, {"algo": tag, "leaves": leaves,
+                               "round": np.int64(self.rounds_done),
+                               "history": hist})
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
 
-    def load_state(self, path: str, like: RoundState) -> RoundState:
+    def load_state(self, path: str, like: RoundState,
+                   shardings=None) -> RoundState:
         """Restore a state written by ``save_state`` (this package's or the
         reference's).  ``like`` (e.g. a fresh ``init``) gives the structure,
         the device and each leaf's name; a wrong leaf count, shape or dtype
-        raises, naming the leaf.  Also restores ``rounds_done`` and
+        raises, naming the leaf.  ``shardings`` (the state's spec tree,
+        ``algo.shardings(mesh, like, ctx)[0]``) keeps this rank's part of
+        each leaf on the engine's mesh.  Also restores ``rounds_done`` and
         ``history``, so a later ``run`` resumes where the file left off."""
-        raw = load_pytree(path)
+        keep = None
+        if shardings is not None:
+            if self.mesh is None:
+                raise ValueError("load_state(shardings=) needs the engine's "
+                                 "mesh")
+            keep = {"leaves": [RankSlice(self.mesh, sp, self.rank)
+                               for sp in nodes_at_leaves(shardings, like)]}
+        raw = load_pytree(path, keep)
         tag = bytes(raw["algo"].numpy().tobytes()).decode()
         if tag != self.algo.name:
             raise ValueError(f"checkpoint is for {tag!r}, "
@@ -311,14 +396,14 @@ class _Run:
     """One ``run`` call's per-round inputs: the round's BatchCtx (the keyed
     open batch, the plan's row) and its injected draws."""
 
-    def __init__(self, eng: FedEngine, data, weights, log_every, start,
-                 ctx_plan, draws, active_budget, cohort, population):
+    def __init__(self, eng: FedEngine, state, data, weights, log_every,
+                 start, ctx_plan, draws, active_budget, cohort, population):
         self.eng, self.data, self.start = eng, data, start
         self.log_every = log_every
         self.plan, self.draws = ctx_plan, draws
-        self.ctx0 = eng.make_ctx(data, weights=weights,
-                                 active_budget=active_budget, cohort=cohort,
-                                 population=population)
+        self.ctx0 = eng.local_ctx(eng.make_ctx(
+            data, weights=weights, active_budget=active_budget,
+            cohort=cohort, population=population), state)
         algo = eng.algo
         if algo.uses_open:
             n_open = leading_dim(data.open_x)

@@ -11,8 +11,16 @@ token stacks and the shared open set (sub-sampled per round through
 bytes.  The rounds draw nothing: ``rnd`` and ``draws`` are accepted and
 unused, and a model init takes a generator keyed on ("init", client id).
 
-The reference's ``shardings`` (mesh placement of the client axis on the
-"pod" axis) has no meaning on one card and is not ported.
+Each algorithm takes an optional ``mesh`` (a ``("pod", "data", "model")``
+``DeviceMesh``, `launch.mesh`): the client axis then lies on the "pod"
+ranks, each holding its clients' lanes (`core.llm_dsfl`), and ``init``
+makes only those (client k's model is keyed on ("init", k) wherever it
+is made, so rank r's lanes are the one-process stack's).  ``shardings(mesh,
+state, ctx)`` gives the reference's spec trees (`launch.sharding`):
+parameters ("pod", <rules>), private batches ("pod", "data", ...), the
+open set data-sharded, indices and the sim's (K,) fields replicated;
+`FedEngine` cuts each rank's private data and its part of a loaded state
+with them.
 """
 from __future__ import annotations
 
@@ -22,12 +30,13 @@ from typing import Any, Callable
 import torch
 
 from ..device import resolve_device
+from ..launch.collectives import pod_group
 from ..models.base import ModelConfig
 from . import prng
 from .aggregation import participation_weights
 from .algorithms import BatchCtx, ClientState, RoundState, present
 from .llm_dsfl import (LLMDsflHP, dsfl_exchange, dsfl_round_finish,
-                       dsfl_round_step, fedavg_round_step,
+                       dsfl_round_step, fedavg_round_step, pod_reduce,
                        predict_open_probs)
 from .trees import leading_dim
 
@@ -52,15 +61,24 @@ def _first_client(tree: dict) -> dict:
     return {k: v[0] for k, v in tree.items()}
 
 
-def _mean_clients(tree: dict) -> dict:
-    return {k: v.to(F32).mean(dim=0).to(v.dtype) for k, v in tree.items()}
+def _mean_clients(tree: dict, pod=None) -> dict:
+    """The mean client model; over ``pod``, each rank's f32 lane sums
+    all-reduced and divided by K."""
+    if pod is None:
+        return {k: v.to(F32).mean(dim=0).to(v.dtype) for k, v in tree.items()}
+    K = leading_dim(tree) * pod.size
+    return pod_reduce(((k, v.to(F32).sum(dim=0), v.dtype, K)
+                       for k, v in tree.items()), pod)
 
 
-def stack_init(seed: int, model_init: Callable, K: int, device) -> dict:
-    """Client-stacked parameters (leaves (K, ...)): client k's model from a
-    generator keyed on ("init", k), written into the stack one client at a
-    time (the peak holds the stack and one model)."""
-    seeds = prng.keys(seed, 0, "init", torch.arange(K)).reshape(-1).tolist()
+def stack_init(seed: int, model_init: Callable, K: int, device,
+               first: int = 0) -> dict:
+    """Client-stacked parameters (leaves (K, ...)) of clients first, ...,
+    first + K - 1: client k's model from a generator keyed on ("init", k),
+    written into the stack one client at a time (the peak holds the stack
+    and one model)."""
+    seeds = prng.keys(seed, 0, "init",
+                      torch.arange(first, first + K)).reshape(-1).tolist()
     out = None
     for k, s in enumerate(seeds):
         p = model_init(torch.Generator(device=device).manual_seed(s))
@@ -77,26 +95,70 @@ def _state(stacked: dict) -> RoundState:
     return RoundState(clients=ClientState(params=stacked))
 
 
+def _mesh_setup(algo) -> None:
+    """Resolve the device and the mesh's pod group (None without a
+    mesh) on a frozen algorithm."""
+    object.__setattr__(algo, "device", resolve_device(algo.device))
+    object.__setattr__(algo, "pod",
+                       None if algo.mesh is None else pod_group(algo.mesh))
+
+
+def _init(algo, seed: int, model_init: Callable, data) -> RoundState:
+    """This rank's lanes of the client stack (all of it without a mesh)."""
+    K = leading_dim(data.x_clients)
+    if algo.pod is None:
+        return _state(stack_init(seed, model_init, K, algo.device))
+    P = algo.pod.size
+    if K % P:
+        raise ValueError(f"{K} clients do not split over {P} pod ranks")
+    n = K // P
+    return _state(stack_init(seed, model_init, n, algo.device,
+                             first=algo.pod.rank * n))
+
+
+def _shardings(cfg: ModelConfig, mesh, state: RoundState, ctx: BatchCtx,
+               with_open: bool):
+    """(state, ctx) spec trees (`launch.sharding`): parameters ("pod",
+    <TP/FSDP rules>), private batches ("pod", "data", ...), the open set
+    data-sharded, ``o_idx`` and the sim's (K,) fields replicated; on a mesh
+    without "pod" the client axis is replicated.  Fields the ctx does not
+    carry stay None."""
+    from ..launch.mesh import axis_sizes
+    from ..launch.sharding import batch_specs, param_specs
+    client_axis = "pod" if "pod" in axis_sizes(mesh) else None
+    rep = lambda t: None if t is None else (None,) * t.ndim
+    st = _state(param_specs(cfg, state.clients.params, mesh,
+                            client_axis=client_axis))
+    return st, BatchCtx(
+        x=(batch_specs(ctx.x, mesh, client_axis=client_axis)
+           if ctx.x is not None else None),
+        open_x=(batch_specs(ctx.open_x, mesh)
+                if with_open and ctx.open_x is not None else None),
+        o_idx=rep(ctx.o_idx) if with_open else None,
+        mask=rep(ctx.mask), stale=rep(ctx.stale),
+        active_budget=ctx.active_budget)
+
+
 @dataclass(frozen=True)
 class LLMDSFLAlgorithm:
     """DS-FL at LLM scale: the round's exchange is the open-batch
     distributions (top-k pairs under ``hp.topk``); ``hp.use_kernel`` puts
     the prediction on K5, the teacher on K1/K2 and the KD term on K3/K4.
-    ``device`` (default: the card) is where the models are made."""
+    ``device`` (default: the card) is where the models are made; ``mesh``
+    puts the clients on its "pod" ranks."""
     cfg: ModelConfig
     hp: LLMDsflHP
     device: Any = "cuda"
+    mesh: Any = None
 
     name = "llm_dsfl"
     uses_open = True
 
     def __post_init__(self):
-        object.__setattr__(self, "device", resolve_device(self.device))
+        _mesh_setup(self)
 
     def init(self, seed: int, model_init: Callable, data) -> RoundState:
-        return self.init_from(stack_init(seed, model_init,
-                                         leading_dim(data.x_clients),
-                                         self.device))
+        return _init(self, seed, model_init, data)
 
     def init_from(self, stacked_params: dict) -> RoundState:
         """A RoundState around externally made client-stacked params."""
@@ -110,7 +172,8 @@ class LLMDSFLAlgorithm:
     def round(self, state: RoundState, ctx: BatchCtx, rnd: int, draws=None):
         new, loss = dsfl_round_step(
             self.cfg, state.clients.params, ctx.x,
-            _take_open(ctx.open_x, ctx.o_idx), self.hp, **self._kw(ctx))
+            _take_open(ctx.open_x, ctx.o_idx), self.hp, **self._kw(ctx),
+            pod=self.pod)
         return _state(new), {"loss": loss}
 
     # round == round_finish(state, ctx, round_start(state, ctx, ...), ...):
@@ -118,10 +181,11 @@ class LLMDSFLAlgorithm:
     def round_start(self, state: RoundState, ctx: BatchCtx, rnd: int,
                     draws=None):
         """The wire leg: open-batch prediction and the (compressed)
-        uploads.  Returns the exchange buffers."""
+        uploads.  Returns the exchange buffers; over a mesh their gathers
+        are issued and left in flight."""
         return dsfl_exchange(self.cfg, state.clients.params,
                              _take_open(ctx.open_x, ctx.o_idx), self.hp,
-                             **self._kw(ctx))
+                             **self._kw(ctx), pod=self.pod, async_op=True)
 
     def round_finish(self, state: RoundState, ctx: BatchCtx, inflight,
                      rnd: int, draws=None):
@@ -129,7 +193,7 @@ class LLMDSFLAlgorithm:
         new, loss = dsfl_round_finish(
             self.cfg, state.clients.params, ctx.x,
             _take_open(ctx.open_x, ctx.o_idx), inflight, self.hp,
-            **self._kw(ctx))
+            **self._kw(ctx), pod=self.pod)
         return _state(new), {"loss": loss}
 
     def upload_payload(self, state: RoundState, ctx: BatchCtx):
@@ -141,7 +205,10 @@ class LLMDSFLAlgorithm:
 
     def eval_params(self, state: RoundState):
         # no server model at LLM scale: score the mean client model
-        return _mean_clients(state.clients.params), {}
+        return _mean_clients(state.clients.params, self.pod), {}
+
+    def shardings(self, mesh, state: RoundState, ctx: BatchCtx):
+        return _shardings(self.cfg, mesh, state, ctx, with_open=True)
 
 
 @dataclass(frozen=True)
@@ -155,21 +222,21 @@ class LLMFedAvgHP:
 @dataclass(frozen=True)
 class LLMFedAvgAlgorithm:
     """FedAvg at LLM scale: local SGD, then the parameter mean, whose bytes
-    a round equal K + 1 copies of the model."""
+    a round equal K + 1 copies of the model; over a mesh, the all-reduce
+    of the parameters on its "pod" ranks."""
     cfg: ModelConfig
     hp: LLMFedAvgHP
     device: Any = "cuda"
+    mesh: Any = None
 
     name = "llm_fedavg"
     uses_open = False
 
     def __post_init__(self):
-        object.__setattr__(self, "device", resolve_device(self.device))
+        _mesh_setup(self)
 
     def init(self, seed: int, model_init: Callable, data) -> RoundState:
-        return self.init_from(stack_init(seed, model_init,
-                                         leading_dim(data.x_clients),
-                                         self.device))
+        return _init(self, seed, model_init, data)
 
     def init_from(self, stacked_params: dict) -> RoundState:
         return _state(stacked_params)
@@ -179,7 +246,7 @@ class LLMFedAvgAlgorithm:
             self.cfg, state.clients.params, ctx.x, self.hp.lr,
             weights=_participation(ctx, self.hp.staleness_decay),
             mask=ctx.mask if present(ctx.mask) else None,
-            active_budget=ctx.active_budget)
+            active_budget=ctx.active_budget, pod=self.pod)
         return _state(new), {"loss": loss}
 
     def upload_payload(self, state: RoundState, ctx: BatchCtx):
@@ -189,3 +256,6 @@ class LLMFedAvgAlgorithm:
     def eval_params(self, state: RoundState):
         # the round's broadcast synced the clients: any one of them
         return _first_client(state.clients.params), {}
+
+    def shardings(self, mesh, state: RoundState, ctx: BatchCtx):
+        return _shardings(self.cfg, mesh, state, ctx, with_open=False)

@@ -21,23 +21,54 @@ through K5, the teacher through K1 (``era``) or K2 (``weighted_era``,
 view of the upload stack (exact: both kernels work row by row), and the KD
 term through K3 (forward) and K4 (its gradient).
 
-The reference's pod all-gather of the top-k uploads (a ``shard_map`` over
-the "pod" mesh axis) is the identity on one card and is left out.  Its
-densify (an einsum against a one-hot of size (K, B, S, k, V)) is a
-``scatter`` here: top-k indices are distinct per token, so the values are
-the same.
+The reference's densify of the top-k uploads (an einsum against a one-hot
+of size (K, B, S, k, V)) is a ``scatter`` here: top-k indices are distinct
+per token, so the values are the same.
+
+**The client axis over ranks.**  Given ``pod`` (a `launch.collectives
+.PodGroup`: the "pod" axis of a ``("pod", "data", "model")`` mesh of P
+ranks), the stack holds this rank's lanes only, clients [r*n, (r+1)*n) of
+K = P*n, and every collective of a round is explicit on the pod group:
+
+  * dense: the rank predicts its lanes and all-gathers the (K, B, S, V)
+    upload stack in client order (K*B*S*V*2 bytes a rank); K1 or K2 then
+    runs unchanged on it, so the teacher is bitwise the one-process one.
+    The reference all-reduces the mean through GSPMD instead (deviation:
+    an all-gather of K uploads, which lets the unchanged kernels run);
+  * top-k: the (values f32, indices int32) pairs, K*B*S*k*8 bytes, then
+    the densify runs locally (the reference's ``shard_map`` all-gather);
+  * participation-sparse: a rank predicts and trains only its lanes among
+    the round's active ones; its other lanes upload exact zeros and keep
+    their parameters, so the gathered stack is the one-process
+    ``scatter_zeros`` stack, bitwise;
+  * FedAvg: the f32 parameter terms all-reduced (the reference's
+    collective), then divided by K (or weighted); bitwise the lane path
+    for one lane a rank at P = 2, the reduction order of the backend's
+    all-reduce beyond;
+  * the round's (K,) losses all-gathered (4*K bytes), so every rank
+    reports the one-process loss.
+
+``async_op=True`` issues the exchange's gather and returns `Pending`
+buffers; the finish leg waits on them only once the first client's
+private-data CE has run (its forward never reads the teacher).  Once its
+uploads are in flight a rank reads no other rank's parameters.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 
 from ..lanes import weighted_lane_sum
+from ..launch.collectives import (Pending, all_gather_clients,
+                                  all_gather_clients_async,
+                                  all_reduce_sum_async)
 from ..models.api import model_logits
 from ..models.base import ModelConfig
+from ..models.shardctx import constrain
 from .aggregation import era, sa, topk_compress, weighted_era, weighted_sa
 from .algorithms import active_indices, masked_mean, scatter_zeros
 from .hierarchy import hierarchical_weighted_era, hierarchical_weighted_sa
@@ -154,6 +185,8 @@ def dsfl_client_loss(cfg: ModelConfig, params: dict, private_batch: dict,
     fused into one local step)."""
     ce = lm_loss(cfg, params, private_batch, hp.aux_weight)
     logits_o, _ = model_logits(cfg, params, open_batch, use_ssd_kernel=False)
+    if callable(teacher):       # an exchange still in flight: wait now
+        teacher = teacher()
     if hp.topk is not None:
         tv, ti = teacher
         kd = topk_distill_xent(logits_o, tv, ti)
@@ -185,6 +218,7 @@ def dsfl_client_step(cfg: ModelConfig, params: dict, private_batch: dict,
             loss_of(private_batch, open_batch, teacher), params)
     else:
         m = hp.microbatches
+        teacher = teacher() if callable(teacher) else teacher
         leaves, flat = _leaves(params)
         grads = [torch.zeros(f.shape, dtype=F32, device=f.device)
                  for f in flat]
@@ -224,23 +258,60 @@ def _is_sparse_round(K: int, hp: LLMDsflHP, weights, active_budget) -> bool:
             and active_budget < K and hp.topk is None)
 
 
+def _lanes_of(stacked: dict, pod) -> tuple[int, int, int]:
+    """(K, first global lane, local lane count) of a client stack: the
+    whole client axis, or this rank's part of it."""
+    n = n_clients(stacked)
+    return (n, 0, n) if pod is None else (n * pod.size, n * pod.rank, n)
+
+
+def _local(idx: torch.Tensor, lo: int, n: int) -> list[int]:
+    """The global lanes ``idx`` that lie in [lo, lo + n), as local lanes."""
+    return [k - lo for k in idx.tolist() if lo <= k < lo + n]
+
+
 def dsfl_exchange(cfg: ModelConfig, stacked: dict, open_batch: dict,
                   hp: LLMDsflHP, weights=None, mask=None,
-                  active_budget=None):
+                  active_budget=None, pod=None, async_op: bool = False):
     """The wire leg of a round, "2. Prediction" + "3. Upload".  Returns the
     exchange buffers `dsfl_round_finish` consumes: with ``hp.topk`` the
     (K, B, S, k) ``(values, indices)`` pair; dense, the (K, B, S, V)
     upload stack; participation-sparse, the (m, B, S, V) stack of the
-    active lanes."""
-    K = n_clients(stacked)
-    if _is_sparse_round(K, hp, weights, active_budget):
+    active lanes.  With ``pod`` the buffers are the gathered (K, ...)
+    stacks (the sparse one with exact zeros in the inactive lanes), or
+    `Pending` gathers with ``async_op``."""
+    K, lo, n = _lanes_of(stacked, pod)
+    sparse = _is_sparse_round(K, hp, weights, active_budget)
+    if sparse:
         idx = active_indices(weights if mask is None else mask, active_budget)
-        return (_predict_lanes(cfg, stacked, idx.tolist(), open_batch,
-                               hp.use_kernel),)
-    probs = _predict_lanes(cfg, stacked, range(K), open_batch, hp.use_kernel)
+        if pod is None:
+            return (_predict_lanes(cfg, stacked, idx.tolist(), open_batch,
+                                   hp.use_kernel),)
+        local = _local(idx, lo, n)
+        probs = torch.zeros(
+            (n,) + tuple(open_batch["tokens"].shape) + (cfg.eff_vocab,),
+            dtype=BF16, device=open_batch["tokens"].device)
+        for k in local:
+            probs[k] = predict_open_probs(cfg, client(stacked, k),
+                                          open_batch, hp.use_kernel)
+    else:
+        probs = _predict_lanes(cfg, stacked, range(n), open_batch,
+                               hp.use_kernel)
     if hp.topk is not None:
-        return topk_compress(probs, hp.topk)
-    return (probs,)
+        tv, ti = topk_compress(probs, hp.topk)
+        # the wire carries int32 indices, as the reference's
+        uploads = (tv, ti if pod is None else ti.to(torch.int32))
+    else:
+        uploads = (probs,)
+    if pod is None:
+        return uploads
+    gather = all_gather_clients_async if async_op else all_gather_clients
+    return tuple(gather(u, pod) for u in uploads)
+
+
+def _arrived(inflight) -> tuple:
+    """The exchange buffers, waiting on any still in flight."""
+    return tuple(b.wait() if isinstance(b, Pending) else b for b in inflight)
 
 
 def _step_lanes(stacked: dict, lanes, step: Callable, keep=None,
@@ -271,38 +342,50 @@ def _step_lanes(stacked: dict, lanes, step: Callable, keep=None,
     return new, torch.stack(losses)
 
 
+def pod_reduce(terms, pod) -> dict:
+    """{name: (the sum of ``term`` over the pod ranks / div) as dtype} of
+    ``(name, f32 term, dtype, div)`` items, each term's all-reduce in
+    flight while the next term is computed (at most two f32 terms live)."""
+    out, last = {}, None
+    for name, term, dtype, div in terms:
+        issued = (name, all_reduce_sum_async(term, pod), dtype, div)
+        if last is not None:
+            out[last[0]] = (last[1].wait() / last[3]).to(last[2])
+        last = issued
+    if last is not None:
+        out[last[0]] = (last[1].wait() / last[3]).to(last[2])
+    return out
+
+
+def _all_losses(losses: torch.Tensor, pod) -> torch.Tensor:
+    """The (K,) losses of every client: this rank's, gathered over ``pod``."""
+    return losses if pod is None else all_gather_clients(losses, pod)
+
+
 def dsfl_round_finish(cfg: ModelConfig, stacked: dict, private_batches: dict,
                       open_batch: dict, inflight, hp: LLMDsflHP, weights=None,
-                      mask=None, active_budget=None):
+                      mask=None, active_budget=None, pod=None):
     """The compute leg of a round: "4. Aggregation" + "5. Broadcast" + the
     hybrid CE+KD client step on the exchange buffers ``inflight``.
     Returns (new stacked params, loss)."""
-    K = n_clients(stacked)
+    K, lo, n = _lanes_of(stacked, pod)
     act = weights if mask is None else mask
-    if _is_sparse_round(K, hp, weights, active_budget):
-        # participation-sparse: the m gathered lanes' uploads scatter into
-        # exact zeros, and only those lanes train
-        idx = active_indices(act, active_budget)
-        (probs_m,) = inflight
-        teacher = _aggregate_teacher(scatter_zeros(probs_m, K, idx), hp,
-                                     weights)
-        lanes = idx.tolist()
+    sparse = _is_sparse_round(K, hp, weights, active_budget)
+    idx = active_indices(act, active_budget) if sparse else None
+    # the private-data CE runs before the exchange is awaited (`_Teacher`)
+    teacher = _Teacher(functools.partial(_teacher, cfg, inflight, hp,
+                                         weights, K, idx, pod))
+    if sparse:
+        # participation-sparse: only the active lanes train
+        lanes = _local(idx, lo, n)
     else:
-        if hp.topk is not None:
-            tv, ti = inflight
-            dense = torch.zeros(tv.shape[:-1] + (cfg.eff_vocab,), dtype=F32,
-                                device=tv.device).scatter(-1, ti.long(),
-                                                          tv.to(F32))
-            teacher = _aggregate_teacher(dense, hp, weights)
-            del dense
-            # the exchange leg is compressed; the distillation uses the
-            # dense teacher
-            hp = dataclasses.replace(hp, topk=None)
-        else:
-            (probs,) = inflight
-            teacher = _aggregate_teacher(probs, hp, weights)
-        lanes = range(K)
-    keep = None if weights is None else (act.to(F32) > 0).tolist()
+        lanes = range(n)
+    if hp.topk is not None:
+        # the exchange leg is compressed; the distillation uses the dense
+        # teacher
+        hp = dataclasses.replace(hp, topk=None)
+    keep = (None if weights is None
+            else (act.to(F32) > 0)[lo:lo + n].tolist())
 
     def step(k, out):
         _, loss = dsfl_client_step(
@@ -311,15 +394,50 @@ def dsfl_round_finish(cfg: ModelConfig, stacked: dict, private_batches: dict,
         return loss
 
     new, losses = _step_lanes(stacked, lanes, step, keep)
+    if not lanes:
+        _arrived(inflight)      # a rank with no lane still completes the gather
+    losses = _all_losses(losses, pod)
     if weights is None:
         return new, losses.mean()
     # absent clients neither update nor average into the loss
     return new, masked_mean(losses, act.to(F32) > 0)
 
 
+class _Teacher:
+    """The round's teacher, made at its first call and kept."""
+
+    def __init__(self, make: Callable):
+        self._make, self._value = make, None
+
+    def __call__(self):
+        if self._make is not None:
+            self._value, self._make = self._make(), None
+        return self._value
+
+
+def _teacher(cfg: ModelConfig, inflight, hp: LLMDsflHP, weights, K: int,
+             idx, pod):
+    """The bf16 teacher from the exchange buffers: the sparse round's
+    active uploads scattered into exact zeros (gathered so already over
+    ``pod``), the top-k pairs densified, or the dense stack."""
+    bufs = _arrived(inflight)
+    if idx is not None:
+        stack = bufs[0] if pod is not None else scatter_zeros(bufs[0], K, idx)
+        return _aggregate_teacher(stack, hp, weights)
+    if hp.topk is not None:
+        tv, ti = bufs
+        dense = torch.zeros(tv.shape[:-1] + (cfg.eff_vocab,), dtype=F32,
+                            device=tv.device).scatter(-1, ti.long(),
+                                                      tv.to(F32))
+        dense = constrain(dense, None, "batch", None, "model")
+        return constrain(_aggregate_teacher(dense, hp, weights),
+                         "batch", None, "model")
+    return _aggregate_teacher(bufs[0], hp, weights)
+
+
 def dsfl_round_step(cfg: ModelConfig, stacked: dict, private_batches: dict,
                     open_batch: dict, hp: LLMDsflHP, weights=None, mask=None,
-                    active_budget=None):
+                    active_budget=None, pod=None):
     """One DS-FL round: ``dsfl_round_finish(..., dsfl_exchange(...))``.
 
     ``stacked``: leaves (K, ...); ``private_batches``: {"tokens": (K, B,
@@ -329,12 +447,13 @@ def dsfl_round_step(cfg: ModelConfig, stacked: dict, private_batches: dict,
     the participants when a stale one's weight decayed to zero);
     ``active_budget = m`` with ``weights`` computes only the m gathered
     active lanes, bitwise the dense weighted round.  The top-k exchange
-    keeps the dense path, as in the reference."""
+    keeps the dense path, as in the reference.  With ``pod`` the stacks
+    hold this rank's lanes and ``weights``/``mask`` stay (K,)."""
     inflight = dsfl_exchange(cfg, stacked, open_batch, hp, weights=weights,
-                             mask=mask, active_budget=active_budget)
+                             mask=mask, active_budget=active_budget, pod=pod)
     return dsfl_round_finish(cfg, stacked, private_batches, open_batch,
                              inflight, hp, weights=weights, mask=mask,
-                             active_budget=active_budget)
+                             active_budget=active_budget, pod=pod)
 
 
 def _aggregate_teacher(probs: torch.Tensor, hp: LLMDsflHP, weights):
@@ -372,7 +491,8 @@ def _aggregate(probs: torch.Tensor, hp: LLMDsflHP, weights):
 
 
 def fedavg_round_step(cfg: ModelConfig, stacked: dict, private_batches: dict,
-                      lr: float, weights=None, mask=None, active_budget=None):
+                      lr: float, weights=None, mask=None, active_budget=None,
+                      pod=None):
     """FedAvg at LLM scale: a local SGD step on every client, then the
     parameter mean broadcast back to every lane (a stride-0 view).
 
@@ -381,13 +501,14 @@ def fedavg_round_step(cfg: ModelConfig, stacked: dict, private_batches: dict,
     average into the metric.  ``active_budget = m`` (with ``weights``)
     trains only the m gathered active lanes and leaves exact zeros in the
     others, which the weighted mean multiplies by their zero weights: the
-    same result as the dense weighted round."""
-    K = n_clients(stacked)
+    same result as the dense weighted round.  With ``pod`` each rank sums
+    its lanes' f32 terms and the sums are all-reduced over it."""
+    K, lo, n = _lanes_of(stacked, pod)
     sparse = (weights is not None and active_budget is not None
               and active_budget < K)
     act = weights if mask is None else mask
-    lanes = (active_indices(act, active_budget).tolist() if sparse
-             else range(K))
+    lanes = (_local(active_indices(act, active_budget), lo, n) if sparse
+             else range(n))
 
     def step(k, out):
         _, loss = sgd_train_step(cfg, client(stacked, k),
@@ -395,14 +516,26 @@ def fedavg_round_step(cfg: ModelConfig, stacked: dict, private_batches: dict,
         return loss
 
     new, losses = _step_lanes(stacked, lanes, step, fill="zeros")
+    losses = _all_losses(losses, pod)
     if weights is None:
-        avg = {n: v.to(F32).mean(dim=0).to(v.dtype) for n, v in new.items()}
+        if pod is None:
+            avg = {name: v.to(F32).mean(dim=0).to(v.dtype)
+                   for name, v in new.items()}
+        else:
+            avg = pod_reduce(((name, v.to(F32).sum(dim=0), v.dtype, K)
+                              for name, v in new.items()), pod)
         loss = losses.mean()
     else:
         w = weights.to(F32)
         w = w / torch.clamp(pinned_sum(w), min=1e-9)
-        avg = {n: weighted_lane_sum(w, v).to(v.dtype) for n, v in new.items()}
+        if pod is None:
+            avg = {name: weighted_lane_sum(w, v).to(v.dtype)
+                   for name, v in new.items()}
+        else:
+            w = w[lo:lo + n]
+            avg = pod_reduce(((name, weighted_lane_sum(w, v).contiguous(),
+                               v.dtype, 1) for name, v in new.items()), pod)
         loss = masked_mean(losses, act.to(F32) > 0)
     del new
-    return {n: a[None].expand((K,) + tuple(a.shape))
-            for n, a in avg.items()}, loss
+    return {name: a[None].expand((n,) + tuple(a.shape))
+            for name, a in avg.items()}, loss

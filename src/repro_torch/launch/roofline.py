@@ -10,11 +10,12 @@ rates, without sparsity, at the full 700 W power limit; a card set below
 it runs slower under load).  The reference's constants are a TPU v5e's and
 are not used here.
 
-The reference also parses collective bytes out of compiled HLO and builds
-a `Roofline` from an XLA executable's cost and memory analyses; those
-belong to the multi-device meshes and are not ported.  Here the caller
-passes the terms, and the peak memory it measured
-(``torch.cuda.max_memory_allocated()`` on the card).
+The reference parses collective bytes out of compiled HLO; here
+`collective_bytes` and `cross_pod_bytes` sum the collectives log of
+`launch.collectives` instead (the per-rank result bytes, the reference's
+convention).  Its ``Roofline.build`` from an XLA executable's cost and
+memory analyses is not ported: the caller passes the terms, and the peak
+memory it measured (``torch.cuda.max_memory_allocated()`` on the card).
 """
 from __future__ import annotations
 
@@ -36,6 +37,20 @@ def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / FP32_FLOPS, tf32_flops / TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def collective_bytes(log) -> dict[str, int]:
+    """Result bytes per collective kind over a `launch.collectives` log."""
+    out: dict[str, int] = {}
+    for kind, _, nbytes in log:
+        out[kind] = out.get(kind, 0) + nbytes
+    return out
+
+
+def cross_pod_bytes(log) -> dict[str, int]:
+    """`collective_bytes` of the entries whose group spans pods (their
+    axes name "pod": a pod group of more than one rank)."""
+    return collective_bytes(e for e in log if "pod" in e[1])
 
 
 @dataclass

@@ -34,10 +34,26 @@ set.
 ``--trace out.jsonl`` / ``--metrics out.json`` record the run
 (`obs.cli`); ``--platform-preset`` sets torch's numeric switches first
 (`launch.platform`: TF32 off, deterministic algorithms).
+
+``--world N`` runs the federated modes over N ranks, the clients on the
+"pod" axis of `launch.mesh.make_client_mesh` (one client a rank when N is
+the client count; `core.llm_dsfl` says what crosses between them): the
+script spawns the ranks itself (`launch.dist`), or under ``torchrun`` it
+takes the world from ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``.  Ranks
+use ``cuda:LOCAL_RANK % device_count`` (``--device cpu``: the CPU) and
+the backend ``--backend`` names (``nccl`` by default; ``gloo`` for two
+ranks on one card or on the CPU); rank 0 prints, e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --world 2 --backend gloo
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --smoke --device cpu --backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -57,7 +73,8 @@ from ..device import generator, resolve_device
 from ..models.api import model_init
 from ..models.base import param_count
 from ..obs import cli as obs_cli
-from . import platform
+from . import dist, platform
+from .mesh import make_client_mesh
 
 
 def extra_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
@@ -109,6 +126,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="where to run (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--world", type=int, default=None,
+                    help="ranks to run the clients over (spawned here; "
+                         "under torchrun its WORLD_SIZE)")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the ranks' torch.distributed backend")
     obs_cli.add_args(ap)
     platform.add_args(ap)
     return ap.parse_args(argv)
@@ -116,10 +138,37 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
-    # the preset first: the session's provenance stamps it
+    if dist.under_torchrun():
+        rank, world, device = dist.init_from_env(args.backend, args.device)
+        _rank_run(rank, world, args, device)
+        dist.close()
+    elif args.world is not None:
+        dist.spawn(_spawned_rank, args.world, args, backend=args.backend)
+    else:
+        # the preset first: the session's provenance stamps it
+        platform.from_args(args)
+        with obs_cli.session(args):
+            run(args)
+
+
+def _spawned_rank(rank: int, world: int, args) -> None:
+    _rank_run(rank, world, args, dist.rank_device(args.device, rank, world))
+
+
+def _rank_run(rank: int, world: int, args, device) -> None:
+    """One rank of a ``--world`` run: the preset, the client mesh, the
+    run; rank 0 prints and records, the others stay silent."""
     platform.from_args(args)
-    with obs_cli.session(args):
-        run(args)
+    mesh = make_client_mesh(args.clients, device=device)
+    args = argparse.Namespace(**{**vars(args), "device": str(device)})
+    if rank == 0:
+        with obs_cli.session(args):
+            run(args, mesh)
+        return
+    quiet = argparse.Namespace(**{**vars(args), "trace": None,
+                                  "metrics": None})
+    with contextlib.redirect_stdout(io.StringIO()):
+        run(quiet, mesh)
 
 
 @dataclass
@@ -155,9 +204,10 @@ def _config(args):
     return cfg, device
 
 
-def setup(args) -> Federation:
+def setup(args, mesh=None) -> Federation:
     """Config, task, algorithm, engine and the clients' models; prints the
-    arch, params/client and exchange/round lines."""
+    arch, params/client and exchange/round lines.  Over ``mesh`` the
+    engine holds this rank's clients."""
     cfg, device = _config(args)
     K = args.clients
     task = build_lm_task(args.seed, K, args.batch, args.seq, cfg.vocab,
@@ -177,7 +227,7 @@ def setup(args) -> Federation:
         algo = LLMFedAvgAlgorithm(cfg, LLMFedAvgHP(
             lr=args.lr, rounds=args.steps, seed=args.seed), device=device)
         codec = wire.DenseF32Codec()
-    eng = FedEngine(algo, codec=codec)
+    eng = FedEngine(algo, codec=codec, mesh=mesh)
     state = eng.init(lambda g: model_init(cfg, g, device), task)
     one = {k: v[0] for k, v in state.clients.params.items()}
     n_params = param_count(one)
@@ -261,11 +311,20 @@ def run_local(args) -> list[dict]:
     return out
 
 
-def run(args) -> list[dict]:
-    """Run the mode; returns one record a round (or step)."""
+def run(args, mesh=None) -> list[dict]:
+    """Run the mode (the federated ones over ``mesh``, if given); returns
+    one record a round (or step)."""
     if args.mode == "local":
+        if mesh is not None:
+            raise ValueError("--mode local trains one model; --world needs "
+                             "a federated mode")
         return run_local(args)
-    fed = setup(args)
+    if mesh is not None and args.ckpt and (args.participation < 1.0
+                                           or args.straggler is not None):
+        raise ValueError("--ckpt of a simulated run over --world is not "
+                         "supported: the simulator's books file has no "
+                         "single writer yet")
+    fed = setup(args, mesh)
     recs = run_rounds(fed, args.steps)
     if args.ckpt:
         if fed.runner is not None:

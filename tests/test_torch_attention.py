@@ -25,6 +25,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 
 from test_torch_convert import to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ROPE_TOL = dict(atol=2e-5, rtol=0.0)

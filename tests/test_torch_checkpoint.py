@@ -31,6 +31,7 @@ from repro_torch.core.protocol import DSFLConfig
 from repro_torch.models.smallnets import apply_tiny_mlp, init_tiny_mlp
 
 from test_torch_convert import assert_state_close, numpy_task
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 HP = dict(rounds=1, local_epochs=1, distill_epochs=1, batch_size=20,
           open_batch=40)

@@ -20,6 +20,8 @@ from repro_torch.obs import trace as obs
 from repro_torch.sim import (AsyncBufferScheduler, ClientPopulation,
                              SimRunner, SyncScheduler)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 K, ROUNDS = 6, 4
 HP = dict(rounds=ROUNDS, local_epochs=1, batch_size=20)
 MASK = torch.tensor([[1, 0, 1, 0, 1, 0], [0, 1, 1, 0, 0, 1],

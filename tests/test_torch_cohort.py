@@ -29,6 +29,8 @@ from repro_torch.sim import (AsyncBufferScheduler, ClientPopulation,
                              CohortRunner, RoundPlan, SimRunner,
                              SyncScheduler, VirtualClock)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 K, ROUNDS = 8, 4
 CPU = "cpu"
 HP = dict(rounds=ROUNDS, local_epochs=1, batch_size=20)

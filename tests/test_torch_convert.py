@@ -20,6 +20,19 @@ CPU = "cpu"
 
 
 # ------------------------------------------------------------ shared helpers --
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """A port test module runs torch on one intra-op thread (every
+    ``test_torch_*`` file imports this): the test workers share the host's
+    cores, and torch's pools of a thread per core then spin against each
+    other (the quickstart twin's file took 379.6 s beside five other test
+    files, 16.8 s on one thread)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def to_np(tree):
     """A reference pytree as numpy leaves (same structure)."""
     return jax.device_get(tree)

@@ -15,6 +15,7 @@ from repro_torch.core import losses as tl
 from repro_torch.optim import optimizers as topt
 
 from test_torch_convert import assert_flat_close
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-6
 

@@ -904,3 +904,61 @@ def test_hot_swap_on_the_card(cuda_device):
         assert torch.equal(srv.params[k], v), k
         assert srv.params[k].data_ptr() != \
             state.clients.params[k].data_ptr(), k
+
+
+def _pod_cuda_spec(**kw):
+    """The smoke qwen1.5-4b's rounds of every kind the card phase runs,
+    chained, on the kernels, each lane fingerprinted."""
+    from repro_torch.launch.pod_check import DrillSpec
+    return DrillSpec(**{**dict(device="cuda", use_kernel=True, batch=4,
+                               cases=("era", "topk", "sparse", "fedavg"),
+                               chain=True, fingerprint=True), **kw})
+
+
+@pytest.mark.cuda
+def test_pod_world_one_over_nccl_is_the_mesh_free_engine(cuda_device,
+                                                         tmp_path):
+    """A world of 1 over NCCL: the engine over `make_client_mesh(2)` (1, 1,
+    1) against the engine without a mesh, under deterministic algorithms:
+    every lane of every leaf, the history and the launches bitwise, and
+    the upload stack all-gathered each DS-FL round."""
+    from repro_torch.launch import dist, pod_check
+    from repro_torch.launch.mesh import make_client_mesh
+    spec = _pod_cuda_spec()
+    prev = platform.snapshot()
+    platform.apply("fp32-deterministic")
+    dist.init_rank(0, 1, "nccl", str(tmp_path / "store"))
+    try:
+        one = pod_check.run_cases(spec)
+        pod = pod_check.run_cases(spec, make_client_mesh(2))
+    finally:
+        dist.close()
+        platform.restore(prev)
+    for case in spec.cases:
+        assert pod[case]["params"] == one[case]["params"], case
+        assert pod[case]["history"] == one[case]["history"], case
+        assert pod[case]["launches"] == one[case]["launches"], case
+    assert pod["era"]["launches"]["era_sharpen"] == 2
+    assert [e[0] for e in pod["era"]["log"]] == ["all-gather"] * 4
+
+
+@pytest.mark.cuda
+def test_pod_world_two_over_gloo_on_one_card(cuda_device):
+    """Two spawned ranks over gloo, both on this card, one client each:
+    rank r's lane bitwise the one-process client r after every case."""
+    from repro_torch.launch import dist, pod_check
+    spec = _pod_cuda_spec(preset="fp32-deterministic")
+    prev = platform.snapshot()
+    platform.apply("fp32-deterministic")
+    try:
+        one = pod_check.run_cases(spec)
+    finally:
+        platform.restore(prev)
+    torch.cuda.empty_cache()
+    ranks = dist.spawn(pod_check.rank_main, 2, spec, backend="gloo")
+    for r, rank in enumerate(ranks):
+        for case in spec.cases:
+            assert rank[case]["history"] == one[case]["history"], (r, case)
+            for leaf, lanes in one[case]["params"].items():
+                assert rank[case]["params"][leaf] == [lanes[r]], (r, leaf)
+            assert all("pod" in e[1] for e in rank[case]["log"])

@@ -9,6 +9,8 @@ from repro.data import synthetic as jsyn
 from repro_torch.data import partition, synthetic
 from repro_torch.data.pipeline import build_image_task
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("hw", [16, 28])
 def test_templates_are_the_references(hw):

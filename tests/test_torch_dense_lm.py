@@ -37,6 +37,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.base import param_count
 
 from test_torch_convert import assert_flat_close, flat_ref, to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 DENSE = ["qwen1.5-4b", "qwen1.5-110b", "gemma-7b", "phi3-medium-14b"]
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-5)

@@ -32,6 +32,7 @@ from repro_torch.core import llm_dsfl as T
 from repro_torch.launch import train
 
 from test_torch_convert import flat_ref, to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 ARCH = "qwen1.5-4b"
 K, B, S = 2, 2, 32

@@ -23,6 +23,8 @@ from repro.kernels import ref as jref
 from repro.kernels.distill_loss import distill_loss_fwd_pallas
 from repro_torch.kernels import distill_loss as tdl
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 F32 = np.float32
 LOG2E = F32(1.4426950408889634)
 VS = [1, 10, 64, 65, 1000, 50_001, 151_936, 151_937]

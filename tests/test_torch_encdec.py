@@ -44,6 +44,7 @@ from repro_torch.models.base import param_count
 
 from test_torch_convert import flat_ref, to_port
 from test_torch_dense_lm import CACHE_TOL, LOGIT_TOL, _cache_close, _close
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 ARCH = "whisper-small"
 B, S = 2, 12

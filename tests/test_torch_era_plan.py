@@ -24,6 +24,8 @@ from repro.kernels.era_sharpen import (era_sharpen_pallas,
                                        weighted_era_sharpen_pallas)
 from repro_torch.kernels import era_sharpen as tes
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 F32 = np.float32
 SHAPES = [(100, 1000, 10), (100, 1000, 46), (10, 256, 32768), (3, 13, 151),
           (1, 1, 10), (3, 1, 10), (1, 13, 46), (3, 100, 151), (1000, 1000, 10),

@@ -10,6 +10,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 
 

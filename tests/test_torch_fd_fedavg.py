@@ -43,6 +43,8 @@ from test_torch_convert import (_perm_stack, assert_flat_close,
                                 assert_state_close, numpy_models, numpy_task,
                                 reference_run_draws)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 K, ROUNDS, N_K = 4, 2, 80
 ATOL_FN = 1e-6
 ATOL, RTOL = 2e-4, 1e-3

@@ -35,6 +35,8 @@ from repro_torch.models.smallnets import apply_tiny_mlp, init_tiny_mlp
 from test_torch_convert import (assert_state_close, numpy_models, numpy_task,
                                 reference_run_draws)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 ATOL_REF = 1e-6
 ATOL, RTOL = 2e-4, 1e-3
 K, ROUNDS, N_K, N_OPEN = 4, 2, 80, 160

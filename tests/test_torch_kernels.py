@@ -18,6 +18,8 @@ from repro_torch.kernels import distill_loss as tdl
 from repro_torch.kernels import era_sharpen as tes
 from repro_torch.kernels import ref as tref
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 
 
 def _probs(seed, shape, scale=1.0):

@@ -35,6 +35,7 @@ from repro_torch.data.pipeline import FederatedLMTask
 from repro_torch.sim import ClientPopulation, SimRunner, SyncScheduler
 
 from test_torch_convert import flat_ref, to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 JCFG = jget_config("mamba2-2.7b").smoke()
 CFG = get_config("mamba2-2.7b").smoke()

@@ -31,6 +31,7 @@ from repro_torch.core.aggregation import topk_compress
 from repro_torch.models import api as tapi
 
 from test_torch_convert import flat_ref, to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 JCFG = jget_config("mamba2-2.7b").smoke()
 CFG = get_config("mamba2-2.7b").smoke()

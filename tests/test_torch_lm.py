@@ -27,6 +27,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.base import param_count
 
 from test_torch_convert import assert_flat_close, to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 JCFG = jget_config("mamba2-2.7b").smoke()
 CFG = get_config("mamba2-2.7b").smoke()

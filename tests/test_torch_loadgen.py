@@ -27,6 +27,7 @@ from repro_torch.serve import (AdmissionQueue, LoadSpec, ServeEngine,
                                draw_arrivals, run_load)
 
 from test_torch_convert import to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 QWEN = get_config("qwen1.5-4b").smoke()
 BUCKETS, BUDGET = (8, 16), 48

@@ -42,6 +42,7 @@ from repro_torch.launch import serve, train
 
 from test_torch_convert import assert_flat_close, to_port
 from test_torch_llm_algorithms import _ref_open_batches
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 ARCHS = ["phi-3-vision-4.2b", "whisper-small"]
 EXTRA = {"vlm": "patches", "audio": "frames"}

@@ -21,6 +21,8 @@ from repro_torch.optim import optimizers as topt
 from test_torch_convert import (_perm_stack, assert_flat_close, flat_ref,
                                 to_port)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 CPU = "cpu"
 NARROW = dict(image_hw=16, widths=(8, 16), fc=32)
 

@@ -25,6 +25,7 @@ from repro_torch.models import moe as TM
 from repro_torch.models.base import ModelConfig
 
 from test_torch_convert import to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 D, F_, E, GS = 16, 24, 4, 8
 TOL = 1e-5

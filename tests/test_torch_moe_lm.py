@@ -40,6 +40,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serve import Request, ServeEngine
 
 from test_torch_convert import assert_flat_close, to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
          "jamba-1.5-large-398b"]

@@ -42,6 +42,7 @@ from repro_torch.models.base import param_count
 
 from test_torch_convert import assert_flat_close, to_port
 from test_torch_llm_algorithms import _ref_open_batches
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 ARCH = "llama4-scout-17b-a16e"
 K, B, S = 2, 2, 16

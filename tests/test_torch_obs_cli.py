@@ -29,6 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "examples"))
 import torch_sim_stragglers  # noqa: E402
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 PROVENANCE_KEYS = {"git_sha", "git_dirty", "torch_version", "cuda_version",
                    "driver_version", "gpu_name", "gpu_power_limit",
                    "n_devices", "tf32_matmul", "tf32_cudnn", "kernel_route",

@@ -29,6 +29,8 @@ from test_torch_convert import (_perm_stack, assert_flat_close,
                                 assert_state_close, flat_ref,
                                 reference_round_draws, to_np, to_port)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 CPU = "cpu"
 LSTM = dict(vocab=100, emb=8, hidden=8)
 DNN = dict(vocab=50, widths=(16, 8))

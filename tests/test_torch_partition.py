@@ -22,6 +22,8 @@ from repro_torch.data import partition, synthetic
 from repro_torch.data.pipeline import build_image_task
 from repro_torch.optim import constant, cosine, linear_warmup
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 CPU = "cpu"
 
 

@@ -12,6 +12,8 @@ import torch
 from repro_torch.launch import platform as pf
 from repro_torch.obs.provenance import RunProvenance
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def switches():

@@ -18,6 +18,8 @@ from repro_torch.core.protocol import DSFLConfig
 from repro_torch.models.smallnets import apply_tiny_mlp, init_tiny_mlp
 from repro_torch.optim.optimizers import sgd
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 M = np.uint64(0xFFFFFFFF)
 
 

@@ -13,6 +13,8 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.shapes import SHAPES, InputShape
 from repro_torch.launch import roofline as rf
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_model_flops_estimate_equals_the_reference(arch):

@@ -37,6 +37,8 @@ from repro_torch.models.smallnets import apply_mnist_cnn
 from test_torch_convert import (assert_state_close, reference_run_draws,
                                 to_np)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 K, ROUNDS, N_TEST = 4, 2, 160
 ATOL, RTOL = 2e-4, 1e-3
 HP = dict(rounds=ROUNDS, local_epochs=1, distill_epochs=1, batch_size=40,

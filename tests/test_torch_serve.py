@@ -36,6 +36,7 @@ from repro_torch.serve import (AdmissionQueue, Request, ServeEngine,
                                bucket_of)
 
 from test_torch_convert import to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 CPU = "cpu"
 ARCHS = {"qwen": "qwen1.5-4b", "mamba": "mamba2-2.7b"}

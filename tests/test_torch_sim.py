@@ -20,6 +20,7 @@ from repro_torch.core.protocol import DSFLConfig
 from repro_torch.models.smallnets import apply_tiny_mlp, init_tiny_mlp
 
 from test_torch_convert import numpy_task
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 BOOKS = ("round", "t_round", "t_cum", "participants", "dropped",
          "mean_staleness", "up_bytes", "down_bytes", "cum_bytes")

@@ -41,6 +41,8 @@ from repro_torch.models.smallnets import (apply_mnist_cnn, apply_tiny_mlp,
 from test_torch_convert import (assert_state_close, convert, numpy_models,
                                 numpy_task, reference_run_draws)
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 K, ROUNDS, N_K, N_OPEN = 4, 2, 80, 160
 ATOL, RTOL = 2e-4, 1e-3
 SPARSE_CNN_ATOL = 1e-5

@@ -17,6 +17,8 @@ import torch
 
 from repro_torch.kernels import ssd_chunk as tssd
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 K5_TOL = dict(atol=1e-4, rtol=1e-4)
 
 

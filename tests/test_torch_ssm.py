@@ -26,6 +26,7 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models.base import ModelConfig
 
 from test_torch_convert import to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 K5_TOL = dict(atol=1e-4, rtol=1e-4)
 MIX_TOL = dict(atol=1e-5, rtol=1e-5)

@@ -29,6 +29,7 @@ from repro_torch.serve import (Request, ServeEngine, attach,
                                swap_from_checkpoint)
 
 from test_torch_convert import to_port
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 CPU = "cpu"
 QWEN = get_config("qwen1.5-4b").smoke()

@@ -20,6 +20,8 @@ from repro_torch.data.pipeline import (build_lm_task, lm_open_batch,
                                        lm_private_batches)
 from repro_torch.launch import train
 
+from test_torch_convert import one_intra_op_thread  # noqa: F401
+
 CPU = "cpu"
 SMOKE = ["--arch", "mamba2-2.7b", "--smoke", "--device", CPU, "--clients",
          "2", "--batch", "2", "--seq", "16", "--steps", "2"]

@@ -31,6 +31,7 @@ from repro_torch.models.base import param_count
 
 from test_torch_convert import to_port
 from test_torch_dense_lm import CACHE_TOL, LOGIT_TOL, _cache_close, _close
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 ARCH = "phi-3-vision-4.2b"
 B, S = 2, 12

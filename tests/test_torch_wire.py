@@ -26,6 +26,7 @@ from repro_torch.models.smallnets import (apply_mnist_cnn, init_mnist_cnn,
                                           param_count)
 
 from test_torch_convert import numpy_task
+from test_torch_convert import one_intra_op_thread  # noqa: F401
 
 K, N, C = 4, 80, 10
 INIT = functools.partial(init_mnist_cnn, image_hw=16, widths=(8, 16), fc=32,
