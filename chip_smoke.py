@@ -294,7 +294,7 @@ result:
              are bitwise ``eval_params`` of the final state and share no
              storage with the trainer; the window's launches held to K1 2,
              K3/K4 4; swap latencies and the window's peak printed.
-    loadgen  ``serve.run_load`` on the first 10 of those weights' 40 layers
+    loadgen  ``serve.run_load`` on the first 5 of those weights' 40 layers
              (a fresh engine of phase 7's shape each run) with ``LoadSpec(n_requests=32, rate=4.0,
              prompt_len=(4, 48), max_new=(4, 16), vocab=151936, seed=0)``,
              with the defaults, ``decode_chunk=8`` and
@@ -362,6 +362,22 @@ result:
              one-process client at that depth; per case and rank the
              seconds a round, peak, the collectives log's bytes by kind
              (held to the closed forms) and K1-K4 launches.
+    tp       the dense family's tensor parallelism over "model" and FSDP
+             over "data" (`launch.tp`): phi3-medium-14b at full width,
+             K = 2, batch 8, seq 128, the embedding scaled, world 2 over
+             gloo with both ranks on this card, the runs of TP_SPAWNS:
+             (1, 1, 2) (`make_smoke_mesh(multi_pod=True)`) in f32 at 4 of
+             the 40 layers (2 ERA rounds, a top-k 8 round, a FedAvg
+             round, each from the init) and (1, 2, 1) in f32 at 1 layer
+             (a FedAvg round), each rank's slices and losses held
+             against the one-process run (atol 1e-4 after two rounds,
+             1e-5 after one, losses also rtol 1e-6), each one-process
+             leaf shown to move past that bound, and the check shown to
+             fail on a FedAvg round with one rank's ``w_down`` slice 1%
+             off before it; (1, 1, 2) in bf16 at 4 layers: seconds a
+             round and peak a rank; every run's bytes a rank by axis
+             held to `tp.round_bytes`, K1 once a DS-FL round, K3/K4 once
+             a client step.
     examples the examples' torch twins on the card, each its own process:
              ``examples/torch_quickstart.py --fast`` (must end ``OK``),
              ``examples/torch_serve_batched.py``,
@@ -375,8 +391,9 @@ result:
              window, ``modality`` timing rows for K1-K4,
              ``moe_train_launches`` by window, ``moe_smoke_launches`` by
              model, ``moe_train`` timing rows for K1, K3 and K4,
-             ``pod_launches``: phase "pod" (a)'s run over the mesh), the
-             card's line, and the result line.
+             ``pod_launches``: phase "pod" (a)'s run over the mesh,
+             ``tp_launches``: phase "tp"'s bf16 run, rank 0), the card's
+             line, and the result line.
 """
 from __future__ import annotations
 
@@ -3786,9 +3803,10 @@ def phase_moe(smi):
 # steps a run, three runs), and at 40 layers the phase took 152-212 s of
 # the script, which passed 1000 s once phase "modality" joined it (1004 s
 # on an H100 80GB HBM3 at 700 W); at 20 layers it took 69-108 s, and the
-# script reached 1114.9 s on a slow host once phase "pod" joined it.
+# script reached 1114.9 s on a slow host once phase "pod" joined it; at 10
+# it took 38.0-38.7 s and the script 963.9 s once phase "tp" joined it.
 HOT_SWAP_ROUNDS = 2
-LOADGEN_LAYERS = 10
+LOADGEN_LAYERS = 5
 LOADGEN_SPEC = dict(n_requests=32, rate=4.0, prompt_len=(4, 48),
                     max_new=(4, 16), vocab=QWEN_V, seed=0)
 
@@ -4570,6 +4588,213 @@ def phase_pod(smi):
     return launches
 
 
+# ------------------------------------------------------------- phase "tp" --
+# The dense family's tensor parallelism over "model" and FSDP over "data"
+# (`launch.tp`) at phi3-medium-14b's full width (d 5120, 40/10 heads, d_ff
+# 17920, vocabulary 100,352), `launch.train`'s defaults (K = 2, batch 8,
+# seq 128, ERA T = 0.1; lr TP_LR), the embedding scaled, over a world of 2
+# ranks over gloo, both on this card (as phase "pod" (b)), on the meshes
+# (1, 1, 2) (`make_smoke_mesh(multi_pod=True)`: each client's leaves split
+# over "model") and (1, 2, 1) (FSDP: each leaf's d_model dimension over
+# "data", each data rank on 4 of the 8 sequences).  TP_SPAWNS lists the
+# spawns: each runs the one-process cases its held runs compare against
+# (f32, ``fp32-deterministic``, each case from the init, at each depth
+# its runs take; their leaves stay on the card, where the ranks read
+# them), then its runs.  A run is
+# "held" (every rank's slices and losses against the one-process run at
+# tests/test_torch_dense_train.py's bounds: atol 1e-4 after the 2 ERA
+# rounds, 1e-5 after 1 round, losses also at rtol 1e-6), "fault" (the
+# same round with rank FAULT_RANK's ``w_down`` slice 1% off before it:
+# the check must fail) or "timed" (bf16: seconds a round and peak a rank;
+# two ranks time-slice one card and gloo stages every collective through
+# host memory, so the seconds say nothing of scaling).  Every leaf of a
+# one-process case must move by more than the tolerance, so the held
+# check can see a round that went wrong.  Held in every run: bytes a rank
+# by axis equal to `tp.round_bytes`; K1 once a DS-FL round, K3/K4 once a
+# client step.  A case's leaves at 4 layers in f32 are 15 GB and two
+# ranks' ERA rounds peak at 30.4 GB each (on an H100 80GB HBM3 at 700 W),
+# so no spawn holds two such cases.  FSDP moves
+# each pass's gathered leaves through gloo (at one layer a DS-FL round
+# took 33.2 s in bf16, a FedAvg round 19.9-27.5 s in f32, on an H100 80GB
+# HBM3 at 700 W): its one run here is a held FedAvg round at one layer;
+# tools/pod_cards.py (e) holds FSDP's DS-FL rounds at 4 layers over NCCL.
+TP_ARCH = "phi3-medium-14b"
+# 10 times `launch.train`'s 3e-3: every leaf must move past the bound, and
+# at 3e-3 2 ERA rounds move ``wq`` by less than 1e-4 and a FedAvg round the
+# norm scales by less than 1e-5 (tools/tp_movement.py)
+TP_LR = 3e-2
+# the runs of each spawn: (mesh, dtype, layers, cases, role)
+TP_SPAWNS = (
+    (((1, 1, 2), "float32", 4, ("era",), "held"),),
+    (((1, 1, 2), "float32", 4, ("topk",), "held"),
+     ((1, 2, 1), "float32", 1, ("fedavg",), "held")),
+    (((1, 1, 2), "float32", 4, ("fedavg",), "held"),
+     ((1, 1, 2), "float32", 4, ("fedavg",), "fault"),
+     ((1, 1, 2), "bfloat16", 4, ("era", "topk", "fedavg"), "timed")))
+TP_TOL = {1: 1e-5, 2: 1e-4}
+TP_PRESET = "fp32-deterministic"
+# K1 / K3 / K4 a rank a round of each kind: K = 2 lanes a rank
+TP_LAUNCHES = {"dsfl": (1, 2, 2), "fedavg": (0, 0, 0)}
+
+
+def _tp_spec(mesh, dtype, layers, cases, role):
+    from repro_torch.launch.pod_check import DrillSpec
+    return DrillSpec(
+        arch=TP_ARCH, smoke=False, clients=LLM_K, batch=LLM_B, seq=LLM_S,
+        lr=TP_LR, device="cuda", use_kernel=True, scale_embedding=True,
+        fingerprint=True, mesh_shape=mesh, n_layers=layers, cases=cases,
+        preset=None if role == "timed" else TP_PRESET,
+        overrides=(("dtype", dtype),) if dtype != "bfloat16" else (),
+        fault=role == "fault")
+
+
+def _tp_one(runs, smi) -> dict:
+    """The one-process runs of the held and fault runs' cases, one a
+    depth: {layers: {case: its record, the leaves under "values"}}; fails
+    unless each leaf moved by more than the case's tolerance."""
+    from repro_torch.launch import pod_check
+    by_depth = {}
+    for run in runs:
+        if run[4] != "timed":
+            by_depth.setdefault(run[2], []).append(_tp_spec(*run))
+    out = {}
+    for layers, held in by_depth.items():
+        cases = tuple(dict.fromkeys(c for s in held for c in s.cases))
+        ref = dataclasses.replace(held[0], mesh_shape=None, fault=False,
+                                  cases=cases, keep_values=cases)
+        if any(s.config() != ref.config() for s in held):
+            fail("tp: the held runs of a depth must share one config")
+        prev = platform.snapshot()
+        platform.apply(TP_PRESET)
+        try:
+            one = out[layers] = pod_check.run_cases(ref)
+        finally:
+            platform.restore(prev)
+        torch.cuda.empty_cache()
+        for case, rec in one.items():
+            tol = TP_TOL[pod_check.CASES[case][1]]
+            least = min(rec["moved"], key=rec["moved"].get)
+            say(f"tp one process f32 {layers} layers {case} [{smi}]: "
+                + json.dumps(dict(
+                    seconds=rec["seconds"], tol=tol,
+                    losses=[h["loss"] for h in rec["history"]],
+                    least_moved_leaf=least, moved=rec["moved"])))
+            if not rec["moved"][least] > tol:
+                fail(f"tp one process {case}: {least} moved "
+                     f"{rec['moved'][least]}, within the tolerance {tol}: "
+                     f"the held check could not see it go wrong")
+    return out
+
+
+def _tp_check(label, spec, role, rank_recs, one, smi) -> dict:
+    """Bytes and launches of every case on every rank; a held run's
+    slices and losses against the one-process run, a fault run's slices
+    shown out of bounds; one line each.  Returns rank 0's launches summed
+    over the cases."""
+    from repro_torch.launch import pod_check, tp
+    from repro_torch.launch.roofline import axis_bytes
+    cfg = spec.config()
+    for case in spec.cases:
+        kind, rounds, _, hp_kw, _, _ = pod_check.CASES[case]
+        want = tp.merge((tp.round_bytes(
+            cfg, spec.mesh_shape, clients=LLM_K, batch=LLM_B, seq=LLM_S,
+            mode=kind, lanes_run=LLM_K, topk=hp_kw.get("topk")), rounds))
+        tol = TP_TOL[rounds]
+        worst = []
+        for r, recs in enumerate(rank_recs):
+            rec = recs[case]
+            line = dict(seconds_a_round=rec["seconds"] / rounds,
+                        peak_bytes=rec["peak_bytes"],
+                        bytes_by_axis=axis_bytes(rec["log"]),
+                        losses=[h["loss"] for h in rec["history"]],
+                        launches={k: v for k, v in rec["launches"].items()
+                                  if k != "ssd_chunk"})
+            if "max_abs" in rec:
+                leaf = max(rec["max_abs"], key=rec["max_abs"].get)
+                worst.append(rec["max_abs"][leaf])
+                line.update(tol=tol, worst_leaf=leaf,
+                            max_abs=rec["max_abs"][leaf],
+                            fault_leaf_max_abs=rec["max_abs"][
+                                pod_check.FAULT_LEAF],
+                            one_process_losses=[
+                                h["loss"] for h in one[case]["history"]])
+            say(f"{label} rank {r} {case} [{smi}]: " + json.dumps(line))
+            if line["bytes_by_axis"] != want:
+                fail(f"{label} rank {r} {case}: bytes {line['bytes_by_axis']}"
+                     f" != closed form {want}")
+            got = tuple(rec["launches"][k] for k in (
+                "era_sharpen", "distill_loss_fwd", "distill_loss_bwd"))
+            if got != tuple(n * rounds for n in TP_LAUNCHES[kind]):
+                fail(f"{label} rank {r} {case}: K1/K3/K4 launched {got} in "
+                     f"{rounds} rounds, {TP_LAUNCHES[kind]} a round expected")
+            if role != "held":
+                continue
+            if line["max_abs"] > tol:
+                fail(f"{label} rank {r} {case}: {line['worst_leaf']} "
+                     f"{line['max_abs']} from the one-process run, past "
+                     f"{tol}")
+            ref_losses = line["one_process_losses"]
+            if len(ref_losses) != len(line["losses"]) or any(
+                    abs(a - b) > tol + 1e-6 * abs(b)
+                    for a, b in zip(line["losses"], ref_losses)):
+                fail(f"{label} rank {r} {case}: losses {line['losses']} "
+                     f"against the one-process {ref_losses} (atol {tol}, "
+                     f"rtol 1e-6)")
+        if role == "fault" and not max(worst) > tol:
+            fail(f"{label} {case}: rank {pod_check.FAULT_RANK}'s "
+                 f"{pod_check.FAULT_LEAF} slice 1% off before the round "
+                 f"leaves every rank within {tol} of the one-process run")
+    return {k: sum(rank_recs[0][c]["launches"][k] for c in spec.cases)
+            for k in rank_recs[0][spec.cases[0]]["launches"]}
+
+
+def phase_tp(smi):
+    from repro_torch.launch import dist, pod_check
+    from repro_torch.launch.mesh import smoke_mesh_shape
+    t_phase = time.perf_counter()
+    if smoke_mesh_shape(2, multi_pod=True) != (1, 1, 2):
+        fail(f"tp: make_smoke_mesh(multi_pod=True) at world 2 is "
+             f"{smoke_mesh_shape(2, multi_pod=True)}")
+    launches = None
+    for runs in TP_SPAWNS:
+        t0 = time.perf_counter()
+        ones = _tp_one(runs, smi)
+        t_one = time.perf_counter() - t0
+        specs = tuple(_tp_spec(*run) for run in runs)
+        t0 = time.perf_counter()
+        ranks = dist.spawn(pod_check.rank_main_many, 2, specs, tuple(
+            None if run[4] == "timed" else
+            {c: ones[run[2]][c]["values"] for c in run[3]} for run in runs),
+            backend="gloo")
+        t_ranks = time.perf_counter() - t0
+        for one in ones.values():
+            for rec in one.values():
+                rec.pop("values")
+        # the spawn's shared leaves are freed once the ranks let them go
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+        say(f"tp [{smi}]: {TP_ARCH} at full width, K = {LLM_K}, batch "
+            f"{LLM_B}, seq {LLM_S}, lr {TP_LR}; one process {t_one:.1f} s; "
+            f"world 2 over gloo on this card, {len(runs)} runs: "
+            f"{t_ranks:.1f} s (spawn included); this process then holds "
+            f"{torch.cuda.memory_allocated()} B, reserves "
+            f"{torch.cuda.memory_reserved()} B")
+        for i, (spec, run) in enumerate(zip(specs, runs)):
+            mesh, dtype, layers, _, role = run
+            label = (f"tp {role} {mesh} {dtype} {layers} layers" +
+                     (" (two ranks time-slice one card: the seconds measure"
+                      " nothing about scaling)" if role == "timed" else ""))
+            got = _tp_check(label, spec, role, [rk[i] for rk in ranks],
+                            ones.get(layers, {}), smi)
+            if role == "timed":
+                launches = got
+    say(f"tp: every leaf moved past the tolerance, every held rank's "
+        f"slices and losses within the bounds of the one-process run, a 1% "
+        f"w_down fault caught, bytes a rank by axis equal to the closed "
+        f"forms; phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _fake_param_count(cfg) -> int:
     """One client's parameter count, the model made under fake tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -4660,6 +4885,8 @@ def main():
     moe_windows, moe_smoke, moe_rows, moe_errs = phase_moe_train(smi)
     torch.cuda.empty_cache()
     pod_launches = phase_pod(smi)
+    torch.cuda.empty_cache()
+    tp_launches = phase_tp(smi)
     phase_examples(smi)
     kernels = []
     for name, r in recs.items():
@@ -4694,6 +4921,7 @@ def main():
             moe_train=[moe_rows[name]] if name in moe_rows else [],
             moe_train_max_abs_err=moe_errs.get(name),
             pod_launches=pod_launches[name],
+            tp_launches=tp_launches[name],
             llm_max_abs_err=llm_errs[name],
             llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")

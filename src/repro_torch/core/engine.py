@@ -26,9 +26,10 @@ same bits.
 algorithms) over its "pod" ranks: the engine hands the algorithm the mesh,
 each rank keeps its part of the round's BatchCtx (cut by
 ``algo.shardings``), the history is identical on every rank, ``save_state``
-gathers the state to rank 0, which writes the one file the reference
-writes, and ``load_state(..., shardings=)`` keeps each rank's part of
-such a file (or of a one-process one).
+gathers the state's leaves whole (over "pod", and over "data" and "model"
+where the dense family's layout splits them) to rank 0, which writes the
+one file the reference writes, and ``load_state(..., shardings=)`` keeps
+each rank's `local_slice` of such a file (or of a one-process one).
 
 ``run(active_budget=m)`` makes masked rounds participation-sparse;
 ``cohort``/``population`` run them over a slab (see `core.algorithms`).
@@ -50,8 +51,8 @@ import torch
 from ..checkpoint import (assert_tree_compatible, load_pytree,
                           named_leaves, nodes_at_leaves, save_pytree,
                           with_leaves)
-from ..launch.collectives import all_gather_clients
 from ..launch.sharding import RankSlice, local_slice
+from ..launch.tp import gather_leaf
 from ..obs import trace as obs
 from . import prng
 from .algorithms import BatchCtx, RoundState
@@ -333,13 +334,11 @@ class FedEngine:
         """The round state's leaves in the reference's order, the algorithm
         tag, ``rounds_done`` and ``history``, in the reference's layout:
         each package reads the other's files.  Over a mesh every rank
-        calls it: the client-sharded leaves are gathered, rank 0 writes
+        calls it: every sharded leaf is gathered whole, rank 0 writes
         the whole state, and every rank returns once the file is there."""
         leaves = [v for _, v in named_leaves(state)]
         if self.mesh is not None:
-            pod = self.algo.pod
-            leaves = [all_gather_clients(v.contiguous(), pod)
-                      if sp and sp[0] == "pod" else v
+            leaves = [gather_leaf(v.contiguous(), sp, self.mesh)
                       for v, sp in zip(leaves, self._state_specs(state))]
         if self.rank == 0:
             tag = np.frombuffer(self.algo.name.encode(), dtype=np.uint8)

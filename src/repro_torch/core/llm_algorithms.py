@@ -15,12 +15,15 @@ Each algorithm takes an optional ``mesh`` (a ``("pod", "data", "model")``
 ``DeviceMesh``, `launch.mesh`): the client axis then lies on the "pod"
 ranks, each holding its clients' lanes (`core.llm_dsfl`), and ``init``
 makes only those (client k's model is keyed on ("init", k) wherever it
-is made, so rank r's lanes are the one-process stack's).  ``shardings(mesh,
-state, ctx)`` gives the reference's spec trees (`launch.sharding`):
-parameters ("pod", <rules>), private batches ("pod", "data", ...), the
-open set data-sharded, indices and the sim's (K,) fields replicated;
-`FedEngine` cuts each rank's private data and its part of a loaded state
-with them.
+is made, so rank r's lanes are the one-process stack's).  Where the mesh
+splits "data" or "model" (the dense family; `launch.tp`), each lane holds
+`sharding.local_slice` of its client's leaves, the rounds run under the
+plan, and each data rank takes its share of the open batch.
+``shardings(mesh, state, ctx)`` gives the reference's spec trees
+(`launch.sharding`, on the full shapes whatever a rank holds): parameters
+("pod", <rules>), private batches ("pod", "data", ...), the open set
+data-sharded, indices and the sim's (K,) fields replicated; `FedEngine`
+cuts each rank's private data and its part of a loaded state with them.
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ from typing import Any, Callable
 import torch
 
 from ..device import resolve_device
+from ..launch import tp
 from ..launch.collectives import pod_group
 from ..models.base import ModelConfig
+from ..models.shardctx import active_plan
 from . import prng
 from .aggregation import participation_weights
 from .algorithms import BatchCtx, ClientState, RoundState, present
@@ -72,16 +77,19 @@ def _mean_clients(tree: dict, pod=None) -> dict:
 
 
 def stack_init(seed: int, model_init: Callable, K: int, device,
-               first: int = 0) -> dict:
+               first: int = 0, keep: Callable | None = None) -> dict:
     """Client-stacked parameters (leaves (K, ...)) of clients first, ...,
     first + K - 1: client k's model from a generator keyed on ("init", k),
     written into the stack one client at a time (the peak holds the stack
-    and one model)."""
+    and one model); ``keep(model)`` (e.g. a rank's slices) is what is
+    written."""
     seeds = prng.keys(seed, 0, "init",
                       torch.arange(first, first + K)).reshape(-1).tolist()
     out = None
     for k, s in enumerate(seeds):
         p = model_init(torch.Generator(device=device).manual_seed(s))
+        if keep is not None:
+            p = keep(p)
         if out is None:
             out = {n: torch.empty((K,) + tuple(v.shape), dtype=v.dtype,
                                   device=v.device) for n, v in p.items()}
@@ -96,11 +104,22 @@ def _state(stacked: dict) -> RoundState:
 
 
 def _mesh_setup(algo) -> None:
-    """Resolve the device and the mesh's pod group (None without a
-    mesh) on a frozen algorithm."""
+    """Resolve the device, the mesh's pod group and its `launch.tp` plan
+    (None without a mesh, or where "data" and "model" have one rank) on a
+    frozen algorithm."""
     object.__setattr__(algo, "device", resolve_device(algo.device))
-    object.__setattr__(algo, "pod",
-                       None if algo.mesh is None else pod_group(algo.mesh))
+    mesh = algo.mesh
+    # the plan first: a family it refuses is refused before any group
+    object.__setattr__(algo, "plan",
+                       None if mesh is None else tp.plan_for(algo.cfg, mesh))
+    object.__setattr__(algo, "pod", None if mesh is None else pod_group(mesh))
+
+
+def _open(algo, ctx: BatchCtx) -> dict:
+    """This round's open batch, this data rank's share of it under a
+    plan."""
+    batch = _take_open(ctx.open_x, ctx.o_idx)
+    return batch if algo.plan is None else algo.plan.data_rows(batch)
 
 
 def _init(algo, seed: int, model_init: Callable, data) -> RoundState:
@@ -112,8 +131,9 @@ def _init(algo, seed: int, model_init: Callable, data) -> RoundState:
     if K % P:
         raise ValueError(f"{K} clients do not split over {P} pod ranks")
     n = K // P
+    keep = None if algo.plan is None else algo.plan.slices
     return _state(stack_init(seed, model_init, n, algo.device,
-                             first=algo.pod.rank * n))
+                             first=algo.pod.rank * n, keep=keep))
 
 
 def _shardings(cfg: ModelConfig, mesh, state: RoundState, ctx: BatchCtx,
@@ -124,11 +144,13 @@ def _shardings(cfg: ModelConfig, mesh, state: RoundState, ctx: BatchCtx,
     without "pod" the client axis is replicated.  Fields the ctx does not
     carry stay None."""
     from ..launch.mesh import axis_sizes
-    from ..launch.sharding import batch_specs, param_specs
+    from ..launch.sharding import batch_specs, model_shapes, param_specs
     client_axis = "pod" if "pod" in axis_sizes(mesh) else None
     rep = lambda t: None if t is None else (None,) * t.ndim
-    st = _state(param_specs(cfg, state.clients.params, mesh,
-                            client_axis=client_axis))
+    # the rules read the full shapes: a rank's leaves may be slices
+    full = model_shapes(cfg, lead=(1,))
+    st = _state(param_specs(cfg, {k: full[k] for k in state.clients.params},
+                            mesh, client_axis=client_axis))
     return st, BatchCtx(
         x=(batch_specs(ctx.x, mesh, client_axis=client_axis)
            if ctx.x is not None else None),
@@ -170,10 +192,10 @@ class LLMDSFLAlgorithm:
                     active_budget=ctx.active_budget)
 
     def round(self, state: RoundState, ctx: BatchCtx, rnd: int, draws=None):
-        new, loss = dsfl_round_step(
-            self.cfg, state.clients.params, ctx.x,
-            _take_open(ctx.open_x, ctx.o_idx), self.hp, **self._kw(ctx),
-            pod=self.pod)
+        with active_plan(self.plan):
+            new, loss = dsfl_round_step(
+                self.cfg, state.clients.params, ctx.x, _open(self, ctx),
+                self.hp, **self._kw(ctx), pod=self.pod)
         return _state(new), {"loss": loss}
 
     # round == round_finish(state, ctx, round_start(state, ctx, ...), ...):
@@ -183,28 +205,32 @@ class LLMDSFLAlgorithm:
         """The wire leg: open-batch prediction and the (compressed)
         uploads.  Returns the exchange buffers; over a mesh their gathers
         are issued and left in flight."""
-        return dsfl_exchange(self.cfg, state.clients.params,
-                             _take_open(ctx.open_x, ctx.o_idx), self.hp,
-                             **self._kw(ctx), pod=self.pod, async_op=True)
+        with active_plan(self.plan):
+            return dsfl_exchange(self.cfg, state.clients.params,
+                                 _open(self, ctx), self.hp, **self._kw(ctx),
+                                 pod=self.pod, async_op=True)
 
     def round_finish(self, state: RoundState, ctx: BatchCtx, inflight,
                      rnd: int, draws=None):
         """The compute leg: the teacher and the hybrid CE+KD client step."""
-        new, loss = dsfl_round_finish(
-            self.cfg, state.clients.params, ctx.x,
-            _take_open(ctx.open_x, ctx.o_idx), inflight, self.hp,
-            **self._kw(ctx), pod=self.pod)
+        with active_plan(self.plan):
+            new, loss = dsfl_round_finish(
+                self.cfg, state.clients.params, ctx.x, _open(self, ctx),
+                inflight, self.hp, **self._kw(ctx), pod=self.pod)
         return _state(new), {"loss": loss}
 
     def upload_payload(self, state: RoundState, ctx: BatchCtx):
         """One client's upload: its per-token class distributions on o_r,
-        (|o_r|, S, V) bf16, the tensor the wire codec encodes."""
-        return predict_open_probs(self.cfg, _first_client(state.clients.params),
-                                  _take_open(ctx.open_x, ctx.o_idx),
-                                  self.hp.use_kernel)
+        (|o_r|, S, V) bf16, the tensor the wire codec encodes (whole
+        rows on every rank under a plan)."""
+        with active_plan(self.plan):
+            return predict_open_probs(
+                self.cfg, _first_client(state.clients.params),
+                _take_open(ctx.open_x, ctx.o_idx), self.hp.use_kernel)
 
     def eval_params(self, state: RoundState):
-        # no server model at LLM scale: score the mean client model
+        # no server model at LLM scale: score the mean client model (a
+        # rank's slices of it under a plan)
         return _mean_clients(state.clients.params, self.pod), {}
 
     def shardings(self, mesh, state: RoundState, ctx: BatchCtx):
@@ -242,19 +268,23 @@ class LLMFedAvgAlgorithm:
         return _state(stacked_params)
 
     def round(self, state: RoundState, ctx: BatchCtx, rnd: int, draws=None):
-        new, loss = fedavg_round_step(
-            self.cfg, state.clients.params, ctx.x, self.hp.lr,
-            weights=_participation(ctx, self.hp.staleness_decay),
-            mask=ctx.mask if present(ctx.mask) else None,
-            active_budget=ctx.active_budget, pod=self.pod)
+        with active_plan(self.plan):
+            new, loss = fedavg_round_step(
+                self.cfg, state.clients.params, ctx.x, self.hp.lr,
+                weights=_participation(ctx, self.hp.staleness_decay),
+                mask=ctx.mask if present(ctx.mask) else None,
+                active_budget=ctx.active_budget, pod=self.pod)
         return _state(new), {"loss": loss}
 
     def upload_payload(self, state: RoundState, ctx: BatchCtx):
-        """One client's upload: its full parameters."""
-        return _first_client(state.clients.params)
+        """One client's upload: its full parameters (gathered whole from
+        the ranks' slices under a plan)."""
+        one = _first_client(state.clients.params)
+        return one if self.plan is None else self.plan.whole(one)
 
     def eval_params(self, state: RoundState):
-        # the round's broadcast synced the clients: any one of them
+        # the round's broadcast synced the clients: any one of them (a
+        # rank's slices of it under a plan)
         return _first_client(state.clients.params), {}
 
     def shardings(self, mesh, state: RoundState, ctx: BatchCtx):

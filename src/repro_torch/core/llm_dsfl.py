@@ -26,7 +26,7 @@ of size (K, B, S, k, V)) is a ``scatter`` here: top-k indices are distinct
 per token, so the values are the same.
 
 **The client axis over ranks.**  Given ``pod`` (a `launch.collectives
-.PodGroup`: the "pod" axis of a ``("pod", "data", "model")`` mesh of P
+.AxisGroup`: the "pod" axis of a ``("pod", "data", "model")`` mesh of P
 ranks), the stack holds this rank's lanes only, clients [r*n, (r+1)*n) of
 K = P*n, and every collective of a round is explicit on the pod group:
 
@@ -52,6 +52,16 @@ K = P*n, and every collective of a round is explicit on the pod group:
 buffers; the finish leg waits on them only once the first client's
 private-data CE has run (its forward never reads the teacher).  Once its
 uploads are in flight a rank reads no other rank's parameters.
+
+**"model" and "data" (the dense family).**  Under a `launch.tp` plan each
+lane holds the rank's slices of its client's leaves and the models run
+Megatron's collectives.  The round gathers a pass's logits over "model"
+(`shardctx.gather_vocab`) before the CE, the KD term (K3/K4 on whole rows) and
+the prediction's softmax, so every rank of a "model" group uploads the
+same distributions and K1/K2 run on whole rows after the "pod" gather.
+Each data rank's loss is its share of the mean (`launch.tp.TPPlan.loss_share`,
+the losses summed over "data" at the round's end).  FedAvg all-reduces
+each rank's shards over "pod" only: shards are never gathered.
 """
 from __future__ import annotations
 
@@ -68,7 +78,7 @@ from ..launch.collectives import (Pending, all_gather_clients,
                                   all_reduce_sum_async)
 from ..models.api import model_logits
 from ..models.base import ModelConfig
-from ..models.shardctx import constrain
+from ..models.shardctx import constrain, current_plan, gather_vocab
 from .aggregation import era, sa, topk_compress, weighted_era, weighted_sa
 from .algorithms import active_indices, masked_mean, scatter_zeros
 from .hierarchy import hierarchical_weighted_era, hierarchical_weighted_sa
@@ -150,11 +160,18 @@ def _apply_sgd(params: dict, grads, lr: float, out: Optional[dict]) -> dict:
     return out
 
 
+def _share(loss: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the loss under a `launch.tp` plan (1/D of its
+    data share's mean), else the loss."""
+    plan = current_plan()
+    return loss if plan is None else plan.loss_share(loss)
+
+
 def _value_and_grad(loss_fn: Callable, params: dict):
     """(loss, gradients in `_slots` order) of ``loss_fn(params as autograd
     leaves)``."""
     tree, flat = _leaves(params)
-    loss = loss_fn(tree)
+    loss = _share(loss_fn(tree))
     return loss.detach(), torch.autograd.grad(loss, flat)
 
 
@@ -164,6 +181,7 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
     """Next-token CE (+ MoE aux).  labels = tokens shifted left.  Runs the
     differentiable SSD route with per-block remat."""
     logits, aux = model_logits(cfg, params, batch, use_ssd_kernel=False)
+    logits = gather_vocab(logits)
     tok = batch["tokens"]
     labels = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
     return xent_int_labels(logits, labels) + aux_weight * aux
@@ -185,6 +203,7 @@ def dsfl_client_loss(cfg: ModelConfig, params: dict, private_batch: dict,
     fused into one local step)."""
     ce = lm_loss(cfg, params, private_batch, hp.aux_weight)
     logits_o, _ = model_logits(cfg, params, open_batch, use_ssd_kernel=False)
+    logits_o = gather_vocab(logits_o)
     if callable(teacher):       # an exchange still in flight: wait now
         teacher = teacher()
     if hp.topk is not None:
@@ -226,7 +245,7 @@ def dsfl_client_step(cfg: ModelConfig, params: dict, private_batch: dict,
         for i in range(m):
             mb = [_split_mb(t, m, i) for t in (private_batch, open_batch,
                                                 teacher)]
-            li = loss_of(*mb)(leaves)
+            li = _share(loss_of(*mb)(leaves))
             for acc, g in zip(grads, torch.autograd.grad(li, flat)):
                 acc.add_(g.to(F32) / m)
             loss = loss + li.detach() / m
@@ -241,6 +260,7 @@ def predict_open_probs(cfg: ModelConfig, params: dict, open_batch: dict,
     with torch.no_grad():
         logits, _ = model_logits(cfg, params, open_batch,
                                  use_ssd_kernel=use_kernel)
+        logits = gather_vocab(logits)
         return torch.softmax(logits.to(F32), dim=-1).to(BF16)
 
 
@@ -358,7 +378,11 @@ def pod_reduce(terms, pod) -> dict:
 
 
 def _all_losses(losses: torch.Tensor, pod) -> torch.Tensor:
-    """The (K,) losses of every client: this rank's, gathered over ``pod``."""
+    """The (K,) losses of every client: this rank's (its data shares
+    summed over "data" under a `launch.tp` plan), gathered over ``pod``."""
+    plan = current_plan()
+    if plan is not None:
+        losses = plan.sum_losses(losses)
     return losses if pod is None else all_gather_clients(losses, pod)
 
 

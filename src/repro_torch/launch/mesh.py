@@ -59,6 +59,12 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
                POD_AXES if multi_pod else DATA_MODEL_AXES, device)
 
 
+def make_mesh(shape, device="cuda"):
+    """("pod", "data", "model") of the given shape over the world (its
+    product must be the world size)."""
+    return _mk(tuple(shape), POD_AXES, device)
+
+
 def make_client_mesh(n_clients: int, device="cuda"):
     """("pod", "data", "model") over the world, the clients on "pod" when
     the world size divides by them (`client_mesh_shape`)."""

@@ -1,18 +1,33 @@
-"""Every LLM round kind over the "pod" ranks, and the same rounds in one
-process, for the checks that hold the one against the other (the CPU
-tests over gloo, chip_smoke.py's phase "pod" on the card).
+"""Every LLM round kind over the ranks of a mesh, and the same rounds in
+one process, for the checks that hold the one against the other (the CPU
+tests over gloo, chip_smoke.py's phases "pod" and "tp" on the card,
+tools/pod_cards.py across cards).
 
 `run_cases(spec, mesh)` runs the cases of ``spec`` (`CASES` by name)
-through `FedEngine` on this rank's lanes (``mesh`` a client mesh) or, with
-``mesh=None``, on the whole client stack in this process.  Each case
+through `FedEngine` on this rank's part of the client stack (``mesh`` a
+client mesh, or the ("pod", "data", "model") mesh of ``spec.mesh_shape``,
+whose "data" and "model" axes split each client's leaves: `launch.tp`) or,
+with ``mesh=None``, on the whole client stack in this process.  Each case
 starts from the state ``spec.init_path`` holds (loaded with
 ``shardings=`` over a mesh) or from the keyed init (a round leaves its
 input state as it was), and with ``spec.chain`` from the previous case's
 state instead.  It returns, per
 case, the history, this rank's parameters (CPU copies, or with
 ``spec.fingerprint`` each lane's `fingerprint` leaf by leaf), the
-collectives log, the kernels' launches, the seconds and the peak memory.  `rank_main` is the
-program of one spawned rank (`launch.dist.spawn`).
+collectives log, the kernels' launches, the seconds and the peak memory.
+Each case also records, per leaf, how far its rounds moved the leaf
+("moved": the largest |after - before| where it lies), which says what a
+comparison at a given tolerance can see.  ``spec.keep_values`` keeps a
+case's leaves where they lie (clones, under "values").  Given ``compare``
+({case: {leaf: the one-process (K, ...) stack}}, e.g. such values, which
+the spawn shares with the ranks: CUDA memory by handle), a rank holds its
+slices of those cases against the leaves' `local_slice` where they lie and
+returns, per leaf, the largest difference and the largest reference
+magnitude instead of the parameters.  ``spec.fault`` plants a fault the
+comparison must catch: rank `FAULT_RANK` starts each case with its slice
+of `FAULT_LEAF` ``1 + FAULT`` times what it should be.  `rank_main_many`
+is the program of one spawned rank (`launch.dist.spawn`) running several
+specs, each over its own mesh; `rank_main` runs one.
 """
 from __future__ import annotations
 
@@ -32,7 +47,7 @@ from ..data.pipeline import build_lm_task
 from ..kernels import _build
 from ..models.api import model_init
 from . import collectives
-from .mesh import make_client_mesh
+from .mesh import make_client_mesh, make_mesh
 
 # name -> (algorithm, rounds, FedEngine.run keywords, LLMDsflHP fields,
 #          participation plan: None, "stale" (everyone in, every other
@@ -53,6 +68,11 @@ CASES = {
     "fedavg_sparse": ("fedavg", 1, {}, {}, "half", True),
     "ckpt": ("dsfl", 1, {}, {}, None, False),
 }
+# the fault a comparison must catch: one rank's slice of this leaf, 1% off
+# before the round
+FAULT_LEAF = "blocks/s0_ffn/w_down"
+FAULT = 1e-2
+FAULT_RANK = 1
 
 
 @dataclass(frozen=True)
@@ -75,12 +95,24 @@ class DrillSpec:
     chain: bool = False
     fingerprint: bool = False
     preset: Optional[str] = None        # a launch.platform preset (ranks)
+    mesh_shape: Optional[tuple] = None  # ("pod", "data", "model") sizes
+    overrides: tuple = ()               # (field, value) pairs of the config
+    keep_values: tuple = ()             # cases whose leaves stay where they
+                                        # lie as "values" (clones)
+    fault: bool = False                 # FAULT_RANK's FAULT_LEAF 1% off
 
     def config(self):
         cfg = get_config(self.arch)
         cfg = cfg.smoke() if self.smoke else cfg
-        return cfg if self.n_layers is None else cfg.replace(
-            n_layers=self.n_layers)
+        if self.n_layers is not None:
+            cfg = cfg.replace(n_layers=self.n_layers)
+        return cfg.replace(**dict(self.overrides)) if self.overrides else cfg
+
+    def mesh(self, device):
+        """This rank's mesh: ``mesh_shape``'s, else the client mesh."""
+        if self.mesh_shape is not None:
+            return make_mesh(self.mesh_shape, device=device)
+        return make_client_mesh(self.clients, device=device)
 
 
 def fingerprint(t: torch.Tensor, chunk: int = 1 << 26) -> tuple[int, float]:
@@ -142,7 +174,41 @@ def _start(spec: DrillSpec, cfg, task, mesh, device):
     return eng.load_state(spec.init_path, state, shardings=sh)
 
 
-def run_cases(spec: DrillSpec, mesh=None, device=None) -> dict:
+def compare_slices(params: dict, ref: dict, specs: dict, mesh, rank: int
+                   ) -> dict:
+    """Per leaf, the largest |this rank's slice - the reference's| and the
+    largest |reference| there."""
+    from .sharding import local_slice
+    out = {"max_abs": {}, "max_ref": {}}
+    for k, v in params.items():
+        want = local_slice(ref[k], specs[k], mesh, rank).to(v.device)
+        diff = (v.to(torch.float32) - want.to(torch.float32)).abs()
+        out["max_abs"][k] = float(diff.max())
+        out["max_ref"][k] = float(want.abs().max())
+    return out
+
+
+def _moved(before: dict, after: dict) -> dict:
+    """Per leaf, the largest |after - before| (lane by lane, in the leaf's
+    dtype: the difference of two close values is exact)."""
+    return {k: max(float((v[i] - before[k][i]).abs().max())
+                   for i in range(v.shape[0]))
+            for k, v in after.items()}
+
+
+def _with_fault(state):
+    """``state`` with `FAULT_LEAF` times 1 + FAULT on rank `FAULT_RANK`
+    (every rank of one process)."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_rank() != FAULT_RANK:
+        return state
+    params = dict(state.clients.params)
+    params[FAULT_LEAF] = params[FAULT_LEAF] * (1 + FAULT)
+    return replace(state, clients=replace(state.clients, params=params))
+
+
+def run_cases(spec: DrillSpec, mesh=None, device=None,
+              compare: Optional[dict] = None) -> dict:
     """The cases of ``spec`` over ``mesh`` (None: one process)."""
     cfg = spec.config()
     device = torch.device(spec.device) if device is None else device
@@ -150,6 +216,8 @@ def run_cases(spec: DrillSpec, mesh=None, device=None) -> dict:
                          device=device)
     K, out = spec.clients, {}
     state = _start(spec, cfg, task, mesh, device)
+    if spec.fault:
+        state = _with_fault(state)
     state0 = None if spec.chain else state
     for name in spec.cases:
         kind, rounds, run_kw, hp_kw, plan, sparse = CASES[name]
@@ -164,6 +232,7 @@ def run_cases(spec: DrillSpec, mesh=None, device=None) -> dict:
         eng = FedEngine(algo, mesh=mesh)
         if not spec.chain:
             state = state0
+        before = state.clients.params
         _build.reset_launches()
         collectives.reset_log()
         if device.type == "cuda":
@@ -183,9 +252,20 @@ def run_cases(spec: DrillSpec, mesh=None, device=None) -> dict:
                "peak_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None)}
         params = state.clients.params
-        rec["params"] = (lane_fingerprints(params) if spec.fingerprint else
-                         {k: v.detach().to("cpu", copy=True)
-                          for k, v in params.items()})
+        rec["moved"] = _moved(before, params)
+        if name in spec.keep_values:
+            rec["values"] = {k: v.detach().clone() for k, v in params.items()}
+        if compare is not None and name in compare:
+            import torch.distributed as dist
+            specs = algo.shardings(mesh, state, eng.make_ctx(task))[0]
+            rec.update(compare_slices(params, compare[name],
+                                      specs.clients.params, mesh,
+                                      dist.get_rank()))
+        elif spec.fingerprint:
+            rec["params"] = lane_fingerprints(params)
+        elif name not in spec.keep_values:
+            rec["params"] = {k: v.detach().to("cpu", copy=True)
+                             for k, v in params.items()}
         if name == "ckpt" and spec.out_dir is not None:
             eng.save_state(os.path.join(spec.out_dir, f"{spec.tag}.msgpack"),
                            state)
@@ -193,13 +273,37 @@ def run_cases(spec: DrillSpec, mesh=None, device=None) -> dict:
     return out
 
 
-def rank_main(rank: int, world: int, spec: DrillSpec) -> dict:
+def rank_main_many(rank: int, world: int, specs: tuple,
+                   compares: tuple) -> list:
     """One spawned rank: its device (the card ``rank % device_count``, or
-    the CPU when ``spec.device`` says so), the client mesh, the cases."""
+    the CPU when the first spec says so), then each spec over its own mesh,
+    under its preset, its cases held to ``compares``' entry (None:
+    returned)."""
     from . import platform
     from .dist import rank_device
-    device = rank_device(spec.device, rank, world)
-    if spec.preset is not None:
-        platform.apply(spec.preset)
-    mesh = make_client_mesh(spec.clients, device=device)
-    return run_cases(replace(spec, tag=f"pod{world}"), mesh, device)
+    device = rank_device(specs[0].device, rank, world)
+    out = []
+    for spec, compare in zip(specs, compares):
+        prev = platform.snapshot()
+        if spec.preset is not None:
+            platform.apply(spec.preset)
+        try:
+            out.append(run_cases(replace(spec, tag=f"pod{world}"),
+                                 spec.mesh(device), device, compare))
+        finally:
+            platform.restore(prev)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    # let the shared leaves go before this process ends, so the parent can
+    # free them (`torch.cuda.ipc_collect`): the spawn holds ``compares``
+    # until the interpreter exits, which releases nothing
+    for compare in compares:
+        if compare is not None:
+            compare.clear()
+    return out
+
+
+def rank_main(rank: int, world: int, spec: DrillSpec,
+              compare: Optional[dict] = None) -> dict:
+    """One spawned rank running one spec (`rank_main_many`)."""
+    return rank_main_many(rank, world, (spec,), (compare,))[0]

@@ -11,9 +11,9 @@ it runs slower under load).  The reference's constants are a TPU v5e's and
 are not used here.
 
 The reference parses collective bytes out of compiled HLO; here
-`collective_bytes` and `cross_pod_bytes` sum the collectives log of
-`launch.collectives` instead (the per-rank result bytes, the reference's
-convention).  Its ``Roofline.build`` from an XLA executable's cost and
+`collective_bytes`, `cross_pod_bytes` and `axis_bytes` (per mesh axis)
+sum the collectives log of `launch.collectives` instead (the per-rank
+result bytes, the reference's convention).  Its ``Roofline.build`` from an XLA executable's cost and
 memory analyses is not ported: the caller passes the terms, and the peak
 memory it measured (``torch.cuda.max_memory_allocated()`` on the card).
 """
@@ -50,7 +50,18 @@ def collective_bytes(log) -> dict[str, int]:
 def cross_pod_bytes(log) -> dict[str, int]:
     """`collective_bytes` of the entries whose group spans pods (their
     axes name "pod": a pod group of more than one rank)."""
-    return collective_bytes(e for e in log if "pod" in e[1])
+    return axis_bytes(log).get("pod", {})
+
+
+def axis_bytes(log) -> dict[str, dict[str, int]]:
+    """{axis: `collective_bytes` of the entries over that axis} ("pod",
+    "data", "model"; a one-rank group's entries, which move nothing, under
+    "")."""
+    out: dict[str, dict[str, int]] = {}
+    for kind, axes, nbytes in log:
+        per = out.setdefault("/".join(axes), {})
+        per[kind] = per.get(kind, 0) + nbytes
+    return out
 
 
 @dataclass

@@ -15,13 +15,17 @@ key paths).  A leaf is anything with a ``.shape``; a mesh is a
 ``DeviceMesh`` or any stand-in `launch.mesh.axis_sizes` reads.
 
 `to_placements` turns a spec into DTensor placements (the counterpart of
-``to_named``), and `local_slice` gives one rank's part of a leaf.  This
-slice executes only the "pod" axis (`core.llm_dsfl`); tensor parallelism
-and FSDP over "model" and "data" come with DTensor execution.
+``to_named``), and `local_slice` gives one rank's part of a leaf.  The
+LLM rounds execute these layouts with explicit collectives: the "pod" axis
+in `core.llm_dsfl`, "model" and "data" in `launch.tp` (the dense family).
+`model_shapes` gives one model's full leaf shapes, which the rules read
+wherever a rank holds only its slices.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 from ..models.base import ModelConfig
 from .mesh import axis_size, axis_sizes
@@ -130,6 +134,25 @@ def param_specs(cfg: ModelConfig, params, mesh, client_axis=None,
         return lead + spec
 
     return _map_with_keys(rule, params)
+
+
+@functools.lru_cache(maxsize=None)
+def _shapes(cfg: ModelConfig) -> tuple:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import torch
+
+    from ..models.api import model_init
+    with FakeTensorMode():
+        return tuple((k, tuple(v.shape)) for k, v in
+                     model_init(cfg, torch.Generator(), "cpu").items())
+
+
+def model_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
+    """{leaf: a stand-in with the full ``.shape``} of one model of ``cfg``
+    (made under fake tensors, no memory), each shape after ``lead``."""
+    return {k: SimpleNamespace(shape=tuple(lead) + s)
+            for k, s in _shapes(cfg)}
 
 
 def cache_specs(cfg: ModelConfig, cache, mesh, batch: int,

@@ -1,0 +1,288 @@
+"""Tensor parallelism over "model" and FSDP over "data" for the dense LLM
+family: the layouts `launch.sharding` gives the reference's partitioner,
+executed with explicit Megatron-style collectives over the mesh's groups
+(`launch.collectives`, so each one is logged with its axis and bytes).
+
+This module holds the layout (`TPPlan`, `plan_for`, `gather_leaf`) and the
+closed forms of the bytes (`pass_bytes`, `round_bytes`).  A rank holds
+`sharding.local_slice` of every parameter under `sharding.param_specs`;
+the round makes its plan the one the models read
+(`models.shardctx.active_plan`), and they stay plain functions over flat
+dicts, running `models.shardctx`'s collectives:
+
+  * the embedding is vocab-parallel: ``tok`` holds the rank's rows of the
+    vocabulary, a token outside them looks up zeros, and the rows are
+    all-reduced over "model" (`reduce_model`);
+  * the MLP is Megatron's: ``w_gate``/``w_up``/``b_up`` column-parallel,
+    ``w_down`` row-parallel and all-reduced over "model", ``b_down`` added
+    once after the reduce; its input passes `copy_to_model` (the identity,
+    whose backward all-reduces the input's gradient);
+  * attention runs the rank's heads when the rules split them
+    (`Ruler.attn_tp`: query and key/value heads both divide, so GQA groups
+    stay on one rank), ``wo`` row-parallel and all-reduced; else it is
+    replicated on "model", as the rules lay it out;
+  * the unembedding is column-parallel (its padded-vocabulary mask on the
+    global columns) and returns the rank's columns; the round gathers
+    them over "model" (`gather_vocab`, whose backward keeps the rank's
+    columns) before the losses and the softmax, so K1-K4 run on whole rows;
+  * FSDP: before each block the block's "data"-sharded leaves are
+    all-gathered over "data" (`gather_block`, the model's other leaves
+    once a pass by `gather_top`); their gradients reduce-scatter in the
+    backward, and the gradients of the leaves "data" does not split are
+    all-reduced over it.  Each data rank takes its share of a batch
+    (`data_rows`, the rule of `sharding.batch_specs`) and scales its loss
+    by 1/D, so the summed gradients are the mean's.  A block is a
+    checkpoint: the backward's recompute repeats the block's forward
+    collectives (`pass_bytes` counts them).
+
+Every rank of a "model" group computes the same logits, losses and
+uploads.  Sums split over ranks (row-parallel products, the gradients over
+"data") add in another order than one process: a round agrees with the
+one-process round to rounding, not bitwise.  Other families raise on a
+mesh that splits "data" or "model" (ROADMAP, Queue 1 item 2.1's follow-ups).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .collectives import AxisGroup, all_gather, all_reduce_sum, axis_group
+from .mesh import axis_size
+from .sharding import (Ruler, _axes, _ok, local_slice, model_shapes,
+                       param_specs)
+
+# what each later slice adds (ROADMAP, Queue 1, item 2.1's follow-ups)
+_NOT_YET = {
+    "ssm": "tensor parallelism of the Mamba2 mixer (w_x, w_z, the conv "
+           "leaves)",
+    "hybrid": "tensor parallelism of the Mamba2 mixer and expert "
+              "parallelism (Jamba)",
+    "moe": "expert parallelism over 'model' for the MoE family",
+    "audio": "tensor parallelism of the encoder-decoder (whisper)",
+    "vlm": "tensor parallelism of the VLM's patch projector (phi-3-vision)",
+}
+
+
+@dataclass(frozen=True)
+class TPPlan:
+    """One rank's view of a mesh's "data" and "model" axes for a config:
+    the mesh and its groups, which layers the rules split over "model",
+    each leaf's spec (one model's, `sharding.param_specs`) and the
+    dimension it is split along over "data" (None: replicated)."""
+    mesh: object
+    data: AxisGroup
+    model: AxisGroup
+    attn_tp: bool
+    mlp_tp: bool
+    vocab_tp: bool
+    specs: dict          # flat leaf name -> its spec in one model
+    data_dims: dict      # flat leaf name -> its "data" dim (block leaves:
+                         # within one block) or None
+
+    # ------------------------------------------------------------ layout --
+    def slices(self, params: dict) -> dict:
+        """This rank's `local_slice` of each leaf of one whole model."""
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        return {k: local_slice(v, self.specs[k], self.mesh, rank)
+                for k, v in params.items()}
+
+    def whole(self, params: dict) -> dict:
+        """One model's leaves gathered whole from every rank's slices."""
+        return {k: gather_leaf(v, self.specs[k], self.mesh)
+                for k, v in params.items()}
+
+    # ------------------------------------------------------ "model" axis --
+    def vocab_start(self, local_cols: int) -> int:
+        """The first global vocabulary index of this rank's slice."""
+        return self.model.rank * local_cols if self.vocab_tp else 0
+
+    def head_start(self, local_heads: int) -> int:
+        return self.model.rank * local_heads if self.attn_tp else 0
+
+    # ------------------------------------------------------- "data" axis --
+    def data_rows(self, tree: dict) -> dict:
+        """This data rank's share of a batch's leading dimension (the
+        whole batch where it does not divide: `sharding.batch_specs`)."""
+        D, r = self.data.size, self.data.rank
+        out = {}
+        for k, v in tree.items():
+            b = v.shape[0]
+            out[k] = v.narrow(0, r * (b // D), b // D) if _ok(b, D) else v
+        return out
+
+    def loss_share(self, loss: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the mean loss over the data ranks."""
+        return loss / self.data.size if self.data.size > 1 else loss
+
+    def sum_losses(self, losses: torch.Tensor) -> torch.Tensor:
+        """The ranks' `loss_share`s summed over "data"."""
+        if self.data.size == 1:
+            return losses
+        return all_reduce_sum(losses.contiguous(), self.data)
+
+
+# ------------------------------------------------------------- the plan ----
+def _data_dims(specs: dict) -> dict:
+    """{leaf: the dim its spec splits over "data" (within one block for a
+    stacked leaf), or None}."""
+    out = {}
+    for k, sp in specs.items():
+        dims = [d for d, e in enumerate(sp) if "data" in _axes(e)]
+        off = 1 if k.startswith("blocks/") else 0
+        out[k] = dims[0] - off if dims else None
+    return out
+
+
+def plan_for(cfg, mesh) -> Optional[TPPlan]:
+    """The plan of ``cfg`` on ``mesh`` (a ``DeviceMesh``), or None when
+    neither "data" nor "model" has more than one rank.  A family other than
+    the dense one raises there: it must not run replicated in silence."""
+    if axis_size(mesh, "data") == 1 and axis_size(mesh, "model") == 1:
+        return None
+    check_family(cfg, mesh)
+    r = Ruler(cfg, mesh)
+    specs = param_specs(cfg, model_shapes(cfg), mesh)
+    return TPPlan(mesh=mesh, data=axis_group(mesh, "data"),
+                  model=axis_group(mesh, "model"), attn_tp=r.attn_tp,
+                  mlp_tp=r.M(cfg.d_ff) is not None,
+                  vocab_tp=r.M(cfg.eff_vocab) is not None, specs=specs,
+                  data_dims=_data_dims(specs))
+
+
+def check_family(cfg, mesh) -> None:
+    """Raise NotImplementedError for a family this slice does not split
+    over a mesh whose "data" or "model" axis has more than one rank."""
+    sizes = {a: axis_size(mesh, a) for a in ("data", "model")}
+    if cfg.arch_type == "dense" or max(sizes.values()) == 1:
+        return
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.arch_type}) over mesh axes {sizes}: tensor "
+        f"parallelism and FSDP run the dense family only; "
+        f"{_NOT_YET.get(cfg.arch_type, 'this family')} is queued "
+        f"(ROADMAP, Queue 1, item 2.1)")
+
+
+def gather_leaf(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf from each rank's `local_slice` under ``spec`` (every
+    rank returns it): the minor axis of a dimension first."""
+    for d, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):
+            if axis_size(mesh, a) > 1:
+                t = all_gather(t, axis_group(mesh, a), d)
+    return t
+
+
+# ---------------------------------------------------------- closed forms ----
+def _rows(b: int, D: int) -> int:
+    return b // D if _ok(b, D) else b
+
+
+def _leaves(cfg, shape: tuple):
+    """(name, spec (within one block for a stacked leaf), the blocks it
+    stands for, its local values (one block's), their element size) of
+    each leaf of one model on a ("pod", "data", "model") mesh of
+    ``shape``."""
+    mesh = SimpleNamespace(axis_names=("pod", "data", "model"),
+                           devices=np.empty(shape))
+    sizes = dict(zip(("pod", "data", "model"), shape))
+    specs = param_specs(cfg, model_shapes(cfg), mesh)
+    for k, sh in model_shapes(cfg).items():
+        sp, n, times = specs[k], math.prod(sh.shape), 1
+        if k.startswith("blocks/"):
+            sp, n, times = sp[1:], n // cfg.n_blocks, cfg.n_blocks
+        split = math.prod(sizes[a] for e in sp for a in _axes(e))
+        elt = 4 if k.endswith("/scale") else torch.empty(
+            (), dtype=cfg.cdtype).element_size()      # f32 norm scales
+        yield k, sp, times, n // split, elt
+
+
+def pass_bytes(cfg, shape: tuple, rows: int, grad: bool) -> dict:
+    """{axis: {kind: bytes}} one rank's collectives move in one model pass
+    over ``rows`` tokens on a ("pod", "data", "model") mesh of ``shape``:
+    the forward, and with ``grad`` the blocks' recompute and the backward.
+    Derived from the rules and the shapes alone."""
+    _, D, M = shape
+    out: dict = {}
+
+    def add(axis, kind, n):
+        per = out.setdefault(axis, {})
+        per[kind] = per.get(kind, 0) + n
+
+    if D > 1:
+        for k, sp, times, n, elt in _leaves(cfg, shape):
+            local = n * elt
+            if any("data" in _axes(e) for e in sp):
+                # the forward, and a block's recompute in a grad pass
+                again = 2 if grad and k.startswith("blocks/") else 1
+                add("data", "all-gather", local * D * times * again)
+                if grad:
+                    add("data", "reduce-scatter", local * times)
+            elif grad:
+                add("data", "all-reduce", local * times)
+    if M > 1:
+        r = Ruler(cfg, SimpleNamespace(axis_names=("pod", "data", "model"),
+                                       devices=np.empty(shape)))
+        e = torch.empty((), dtype=cfg.cdtype).element_size()
+        act = rows * cfg.d_model * e
+        per_block = (r.attn_tp + (r.M(cfg.d_ff) is not None)) * act
+        vocab = r.M(cfg.eff_vocab) is not None
+        # forward: the embedding's and each block's row-parallel reduces
+        add("model", "all-reduce", vocab * act + cfg.n_blocks * per_block)
+        add("model", "all-gather", vocab * rows * cfg.eff_vocab * e)
+        if grad:
+            # the recompute, then the copies' gradient reduces
+            add("model", "all-reduce",
+                2 * cfg.n_blocks * per_block + vocab * act)
+    return merge(out)
+
+
+def merge(*parts) -> dict:
+    """Sum {axis: {kind: bytes}} dicts, each optionally times a count:
+    ``(dict, times)`` pairs or plain dicts; zero entries dropped."""
+    out: dict = {}
+    for p in parts:
+        d, times = p if isinstance(p, tuple) else (p, 1)
+        for axis, kinds in d.items():
+            per = out.setdefault(axis, {})
+            for kind, n in kinds.items():
+                per[kind] = per.get(kind, 0) + n * times
+    out = {a: {k: n for k, n in kinds.items() if n}
+           for a, kinds in out.items()}
+    return {a: kinds for a, kinds in out.items() if kinds}
+
+
+def round_bytes(cfg, shape: tuple, *, clients: int, batch: int, seq: int,
+                mode: str, lanes_run: int, topk: Optional[int] = None
+                ) -> dict:
+    """{axis: {kind: bytes}} of one LLM round on one rank of a mesh of
+    ``shape`` (axis "" for a one-rank pod group, which moves nothing):
+    ``lanes_run`` of the rank's clients predict and train.  DS-FL: each
+    lane's prediction pass on the open batch and its two grad passes
+    (private CE, open KD); the uploads all-gathered over "pod" (bf16
+    distributions, or top-k's f32 values and int32 indices).  FedAvg: one
+    grad pass a lane and the f32 all-reduce of the rank's shards over
+    "pod".  Both: the lanes' losses summed over "data" and gathered over
+    "pod"."""
+    P, D, _ = shape
+    pod = "pod" if P > 1 else ""
+    rows = _rows(batch, D) * seq
+    if mode == "dsfl":
+        parts = [(pass_bytes(cfg, shape, rows, False), lanes_run),
+                 (pass_bytes(cfg, shape, rows, True), 2 * lanes_run),
+                 {pod: {"all-gather": 2 * clients * rows * topk * 4
+                        if topk else clients * rows * cfg.eff_vocab * 2}}]
+    else:
+        f32_shards = sum(4 * n * times
+                         for _, _, times, n, _ in _leaves(cfg, shape))
+        parts = [(pass_bytes(cfg, shape, rows, True), lanes_run),
+                 {pod: {"all-reduce": f32_shards}}]
+    if D > 1:
+        parts.append({"data": {"all-reduce": 4 * (clients // P)}})
+    parts.append({pod: {"all-gather": 4 * clients}})
+    return merge(*parts)

@@ -35,17 +35,23 @@ set.
 (`obs.cli`); ``--platform-preset`` sets torch's numeric switches first
 (`launch.platform`: TF32 off, deterministic algorithms).
 
-``--world N`` runs the federated modes over N ranks, the clients on the
-"pod" axis of `launch.mesh.make_client_mesh` (one client a rank when N is
-the client count; `core.llm_dsfl` says what crosses between them): the
-script spawns the ranks itself (`launch.dist`), or under ``torchrun`` it
-takes the world from ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``.  Ranks
-use ``cuda:LOCAL_RANK % device_count`` (``--device cpu``: the CPU) and
-the backend ``--backend`` names (``nccl`` by default; ``gloo`` for two
-ranks on one card or on the CPU); rank 0 prints, e.g.
+``--world N`` runs the federated modes over N ranks on the mesh
+`launch.mesh.make_client_mesh` shapes: the clients on "pod" when N is a
+multiple of the client count, every other rank on "model" (world 2 at K =
+2 is (2, 1, 1), world 4 at K = 2 (2, 1, 2), world 2 at K = 1 (1, 1, 2)).
+Where "model" has more than one rank, the dense family splits each
+client's leaves over it (tensor parallelism, `launch.tp`); the other
+families refuse such a mesh.  `core.llm_dsfl` says what crosses between
+ranks.  The script spawns the ranks itself (`launch.dist`), or under
+``torchrun`` it takes the world from ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK``.  Ranks use ``cuda:LOCAL_RANK % device_count`` (``--device
+cpu``: the CPU) and the backend ``--backend`` names (``nccl`` by default;
+``gloo`` for two ranks on one card or on the CPU); rank 0 prints, e.g.
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --world 2 --backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --world 4 --backend gloo      # K = 2 on (2, 1, 2)
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --smoke --device cpu --backend gloo
 """
@@ -54,6 +60,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -75,6 +82,7 @@ from ..models.base import param_count
 from ..obs import cli as obs_cli
 from . import dist, platform
 from .mesh import make_client_mesh
+from .sharding import model_shapes
 
 
 def extra_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
@@ -229,13 +237,16 @@ def setup(args, mesh=None) -> Federation:
         codec = wire.DenseF32Codec()
     eng = FedEngine(algo, codec=codec, mesh=mesh)
     state = eng.init(lambda g: model_init(cfg, g, device), task)
-    one = {k: v[0] for k, v in state.clients.params.items()}
-    n_params = param_count(one)
+    # a client's whole leaves, whatever slices of them this rank holds
+    whole = model_shapes(cfg)
+    n_params = sum(math.prod(v.shape) for v in whole.values())
     print(f"params/client: {n_params:,}")
     # measured bytes a round on one real encoded payload, the LLM-scale
     # counterpart of the paper's Table 1/2 upload accounting
     ex_bytes = eng.measured_round_bytes(state, task)
-    fedavg_bytes = wire.nbytes(one) * (K + 1)
+    fedavg_bytes = (K + 1) * sum(
+        math.prod(v.shape) * state.clients.params[k].element_size()
+        for k, v in whole.items())
     print(f"exchange/round: {fmt_bytes(ex_bytes)} (FedAvg parameter "
           f"exchange would be {fmt_bytes(fedavg_bytes)})")
     runner = None

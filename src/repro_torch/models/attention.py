@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .shardctx import copy_to_model, current_plan, reduce_model
 from .base import ModelConfig
 from .layers import F32, _init, apply_rope, rope_freqs
 
@@ -47,21 +48,24 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def qkv_proj(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """q (B, S, H, hd), k and v (B, S, Kh, hd): the heads the projections
+    hold (a rank's under tensor parallelism)."""
     B, S, _ = x.shape
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.eff_heads, cfg.hd),
-            k.reshape(B, S, cfg.eff_kv_heads, cfg.hd),
-            v.reshape(B, S, cfg.eff_kv_heads, cfg.hd))
+    return (q.reshape(B, S, -1, cfg.hd), k.reshape(B, S, -1, cfg.hd),
+            v.reshape(B, S, -1, cfg.hd))
 
 
-def head_mask(cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+def head_mask(cfg: ModelConfig, o: torch.Tensor,
+              first: int = 0) -> torch.Tensor:
     """Zero the padded heads so pad_heads preserves numerics exactly
-    (padded wo rows then contribute nothing and receive no gradient)."""
+    (padded wo rows then contribute nothing and receive no gradient).
+    ``o``'s heads are the global heads ``first``, ``first + 1``, ..."""
     if not cfg.pad_heads or cfg.pad_heads == cfg.n_heads:
         return o
-    mask = (torch.arange(cfg.eff_heads, device=o.device)
+    mask = (torch.arange(first, first + o.shape[-2], device=o.device)
             < cfg.n_heads).to(o.dtype)
     return o * mask[..., :, None]
 
@@ -142,8 +146,15 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                  positions=None, causal=True, q_chunk=1024,
                  kv_chunk=1024, return_kv: bool = False):
     """Training / prefill self-attention over the full sequence.  With
-    ``return_kv`` also returns the (RoPE'd) keys and the values."""
+    ``return_kv`` also returns the (RoPE'd) keys and the values.  Under a
+    tensor-parallel plan that splits the heads the rank runs its heads (GQA
+    groups whole) and ``wo``'s partial sums are all-reduced over
+    "model"; otherwise attention is replicated there."""
     B, S, _ = x.shape
+    plan = current_plan()
+    split = plan is not None and plan.attn_tp
+    if split:
+        x = copy_to_model(plan, x)
     q, k, v = qkv_proj(p, cfg, x)
     if cfg.pos_embed == "rope":
         if positions is None:
@@ -152,8 +163,11 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     o = head_mask(cfg, flash_attention(q, k, v, causal=causal,
                                        window=cfg.sliding_window,
-                                       q_chunk=q_chunk, kv_chunk=kv_chunk))
-    out = o.reshape(B, S, cfg.eff_heads * cfg.hd) @ p["wo"]
+                                       q_chunk=q_chunk, kv_chunk=kv_chunk),
+                  plan.head_start(q.shape[2]) if split else 0)
+    out = o.reshape(B, S, -1) @ p["wo"]
+    if split:
+        out = reduce_model(plan, out)
     return (out, k, v) if return_kv else out
 
 

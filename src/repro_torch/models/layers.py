@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .shardctx import copy_to_model, current_plan, reduce_model
 from .base import ModelConfig
 
 F32 = torch.float32
@@ -65,6 +66,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Under a tensor-parallel plan (`shardctx.current_plan`) that splits
+    d_ff: column-parallel in, row-parallel out, the partial sums
+    all-reduced over "model" before ``b_down``."""
+    plan = current_plan()
+    split = plan is not None and plan.mlp_tp
+    if split:
+        x = copy_to_model(plan, x)
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     elif cfg.act == "geglu":
@@ -72,6 +80,8 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
     out = h @ p["w_down"]
+    if split:
+        out = reduce_model(plan, out)
     if "b_down" in p:
         out = out + p["b_down"]
     return out
@@ -112,14 +122,32 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 
 
 def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens].to(cfg.cdtype)
+    """Under a tensor-parallel plan (`shardctx.current_plan`) that splits
+    the vocabulary, ``tok`` holds the rank's rows: a token outside them
+    looks up zeros and the rows are summed over "model"."""
+    plan = current_plan()
+    if plan is None or not plan.vocab_tp:
+        return p["tok"][tokens].to(cfg.cdtype)
+    n = p["tok"].shape[0]
+    local = tokens - plan.vocab_start(n)
+    inside = (local >= 0) & (local < n)
+    rows = p["tok"][local.clamp(0, n - 1)].to(cfg.cdtype)
+    return reduce_model(plan, torch.where(inside[..., None], rows,
+                                         torch.zeros_like(rows)))
 
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits; under a tensor-parallel plan that splits the vocabulary, the
+    rank's columns (column-parallel)."""
     w = p["unembed"] if "unembed" in p else p["tok"].T
+    plan = current_plan()
+    lo = 0
+    if plan is not None and plan.vocab_tp:
+        x, lo = copy_to_model(plan, x), plan.vocab_start(w.shape[1])
     logits = x @ w
     if cfg.eff_vocab != cfg.vocab:      # mask padded vocab columns
-        mask = torch.arange(cfg.eff_vocab, device=logits.device) < cfg.vocab
+        mask = torch.arange(lo, lo + w.shape[1],
+                            device=logits.device) < cfg.vocab
         logits = torch.where(mask, logits,
                              torch.tensor(-1e30, dtype=logits.dtype,
                                           device=logits.device))

@@ -1,4 +1,6 @@
-"""Activation-sharding context (mirrors ``repro/models/shardctx.py``).
+"""Sharding contexts the models read: the reference's activation-sharding
+context (``repro/models/shardctx.py``) and the tensor-parallel plan of the
+round in progress.
 
 Code calls ``constrain(x, "batch", None, "model")`` at layer boundaries.
 Outside an `axis_ctx`, or on a plain tensor, it returns ``x`` unchanged; on
@@ -6,8 +8,21 @@ a DTensor inside one it redistributes ``x`` to the placements its dims
 name, with the reference's divisibility guards.  In the reference these
 constraints stop GSPMD from solving FSDP weight shardings with
 activation-sized all-reduces.  Here only `core.llm_dsfl` calls it (the
-top-k densify and its teacher); the models' calls come with tensor-parallel
-execution.
+top-k densify and its teacher); the models run their layouts with
+explicit collectives instead, on plain tensors:
+
+`active_plan(plan)` makes a plan (`launch.tp.TPPlan`: the flags saying
+which layers the mesh splits, and the "data" and "model" groups, which
+carry their collectives) the one the models read through `current_plan`,
+and this module holds Megatron's collectives as autograd functions over
+those groups: the identity whose backward all-reduces (`_CopyToModel`),
+the all-reduce whose backward is the identity (`_ReduceFromModel`), the
+vocabulary all-gather whose backward keeps the rank's columns
+(`gather_vocab`), FSDP's gather whose backward reduce-scatters
+(`_GatherData`: `gather_block`, `gather_top`), and the identity whose
+backward sums over "data" (`_SumOverData`).  The plan is process-wide, not
+thread-local: a block's recompute runs on autograd's thread inside the
+round that set it.
 """
 from __future__ import annotations
 
@@ -71,3 +86,137 @@ def constrain(x: torch.Tensor, *dims):
     from ..launch.sharding import to_placements
     mesh = ctx["mesh"]
     return x.redistribute(mesh, to_placements(mesh, spec_of(x.shape, *dims)))
+
+
+# ------------------------------------------------- tensor-parallel plan ----
+_PLAN = None
+
+
+@contextlib.contextmanager
+def active_plan(plan):
+    """Make ``plan`` the one the models read while the block runs (None:
+    no change of layout)."""
+    global _PLAN
+    prev, _PLAN = _PLAN, plan
+    try:
+        yield
+    finally:
+        _PLAN = prev
+
+
+def current_plan():
+    return _PLAN
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; its backward all-reduces the gradient over "model"
+    (the input of a column-parallel region: Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.g.all_reduce(grad.contiguous().clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The all-reduce over "model" of a row-parallel product's partial
+    sums; its backward is the identity (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return g.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherVocab(torch.autograd.Function):
+    """The ranks' vocabulary columns gathered into whole rows; the
+    backward keeps the rank's columns of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g, ctx.n = g, x.shape[-1]
+        return g.all_gather(x, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, n = ctx.g, ctx.n
+        return grad.narrow(-1, g.rank * n, n).contiguous(), None
+
+
+class _GatherData(torch.autograd.Function):
+    """An FSDP leaf gathered whole over "data" along ``dim``; the backward
+    reduce-scatters its gradient back onto the shards."""
+
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return g.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.g.reduce_scatter(grad, ctx.dim), None, None
+
+
+class _SumOverData(torch.autograd.Function):
+    """A leaf "data" replicates: the identity, its gradient all-reduced
+    over "data"."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.g.all_reduce(grad.contiguous().clone()), None
+
+
+def copy_to_model(plan, x: torch.Tensor) -> torch.Tensor:
+    return _CopyToModel.apply(x, plan.model)
+
+
+def reduce_model(plan, x: torch.Tensor) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, plan.model)
+
+
+def _data_leaf(plan, name: str, v: torch.Tensor) -> torch.Tensor:
+    dim = plan.data_dims[name]
+    if dim is None:
+        return _SumOverData.apply(v, plan.data)
+    return _GatherData.apply(v, plan.data, dim)
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Whole-vocabulary logits from the rank's columns (the identity
+    without a plan or where the vocabulary is replicated)."""
+    plan = _PLAN
+    if plan is None or not plan.vocab_tp:
+        return logits
+    return _GatherVocab.apply(logits, plan.model)
+
+
+def gather_block(bp: dict) -> dict:
+    """One block's leaves (``s0_mix/wq``, ...) whole on "data"
+    (`_GatherData`) or summing their gradients over it."""
+    plan = _PLAN
+    if plan is None or plan.data.size == 1:
+        return bp
+    return {k: _data_leaf(plan, "blocks/" + k, v) for k, v in bp.items()}
+
+
+def gather_top(params: dict) -> dict:
+    """``params`` with its leaves outside the block stack whole on
+    "data" (the blocks' stay sharded: `gather_block` takes them one
+    block at a time)."""
+    plan = _PLAN
+    if plan is None or plan.data.size == 1:
+        return params
+    return {k: (v if k.startswith("blocks/") else _data_leaf(plan, k, v))
+            for k, v in params.items()}

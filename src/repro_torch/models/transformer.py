@@ -32,11 +32,19 @@ FFN is a checkpoint of its own inside it (the reference's
 ``sublayer_remat``), so the backward holds one sub-layer's intermediates.
 The MoE FFN's load-balance loss is summed over the blocks in full-sequence
 mode and dropped in prefill and decode, as in the reference.
+
+Over a mesh that splits "data" or "model" (a plan in force:
+`shardctx.active_plan`),
+``lm_logits`` gathers the leaves outside the stack over "data" once and
+each block's inside its checkpoint (the recompute gathers again, whole:
+no early stop), and returns the rank's vocabulary columns.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from .shardctx import current_plan, gather_block, gather_top
 
 from .attention import (attn_decode_step, attn_forward, init_attn,
                         init_kv_cache, ring_layout)
@@ -95,6 +103,9 @@ def _call(fn, *args):
 
 
 def _checkpoint(fn, *args):
+    if current_plan() is not None:
+        # the recompute runs every collective of the region, as the forward
+        return checkpoint(fn, *args, use_reentrant=False, early_stop=False)
     return checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -148,9 +159,10 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
         bp = _block(params, b)
         if ckpt:
             x, a = _checkpoint(lambda h, bp=bp: _block_forward(
-                cfg, bp, h, use_ssd_kernel, sublayer), x)
+                cfg, gather_block(bp), h, use_ssd_kernel, sublayer), x)
         else:
-            x, a = _block_forward(cfg, bp, x, use_ssd_kernel)
+            x, a = _block_forward(cfg, gather_block(bp), x,
+                                  use_ssd_kernel)
         aux = aux + a
     return x, aux
 
@@ -170,7 +182,9 @@ def lm_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
               use_ssd_kernel: bool = True, extra_embeds=None):
     """Full-sequence logits (B, S, V) of the S text tokens and the aux
     loss.  A VLM's image positions are dropped from the output (the loss
-    and the distillation are on text tokens)."""
+    and the distillation are on text tokens).  Under a tensor-parallel
+    plan the logits are the rank's vocabulary columns."""
+    params = gather_top(params)
     x = embed_inputs(cfg, params, tokens, extra_embeds)
     x, aux = backbone(cfg, params, x, use_ssd_kernel)
     if extra_embeds is not None:

@@ -7,6 +7,8 @@ the tests run with
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -962,3 +964,53 @@ def test_pod_world_two_over_gloo_on_one_card(cuda_device):
             for leaf, lanes in one[case]["params"].items():
                 assert rank[case]["params"][leaf] == [lanes[r]], (r, leaf)
             assert all("pod" in e[1] for e in rank[case]["log"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 1)])
+def test_tp_world_two_over_gloo_on_one_card(cuda_device, shape):
+    """Tensor parallelism (1, 1, 2) and FSDP (1, 2, 1) of the smoke
+    qwen1.5-4b on the kernels, two spawned ranks over gloo on this card:
+    every rank's slices and losses within 1e-4 (two ERA rounds) and 1e-5
+    (a top-k 8 or FedAvg round) of the one-process run, whose leaves the
+    ranks read from this process's memory on the card and each of which
+    moved past that bound; the FedAvg round with one rank's ``w_down``
+    slice 1% off before it fails the check; bytes a rank by axis equal to
+    `tp.round_bytes`; K1 once a DS-FL round, K3/K4 once a client step."""
+    from repro_torch.launch import dist, pod_check, tp
+    from repro_torch.launch.roofline import axis_bytes
+    spec = _pod_cuda_spec(cases=("era", "topk", "fedavg"), chain=False,
+                          mesh_shape=shape, preset="fp32-deterministic")
+    prev = platform.snapshot()
+    platform.apply("fp32-deterministic")
+    try:
+        one = pod_check.run_cases(dataclasses.replace(
+            spec, keep_values=spec.cases))
+    finally:
+        platform.restore(prev)
+    refs = {c: one[c]["values"] for c in spec.cases}
+    fault = dataclasses.replace(spec, cases=("fedavg",), fault=True)
+    ranks, faulty = zip(*dist.spawn(pod_check.rank_main_many, 2,
+                                    (spec, fault), (refs, refs),
+                                    backend="gloo"))
+    cfg = spec.config()
+    for case in spec.cases:
+        kind, rounds, _, hp_kw, _, _ = pod_check.CASES[case]
+        want = tp.merge((tp.round_bytes(
+            cfg, shape, clients=2, batch=spec.batch, seq=spec.seq, mode=kind,
+            lanes_run=2, topk=hp_kw.get("topk")), rounds))
+        tol = {1: 1e-5, 2: 1e-4}[rounds]
+        assert min(one[case]["moved"].values()) > tol, case
+        for rank in ranks:
+            rec = rank[case]
+            assert axis_bytes(rec["log"]) == want, case
+            assert max(rec["max_abs"].values()) <= tol, case
+            np.testing.assert_allclose(
+                [h["loss"] for h in rec["history"]],
+                [h["loss"] for h in one[case]["history"]], rtol=1e-6,
+                atol=tol, err_msg=case)
+            assert rec["launches"]["era_sharpen"] == (
+                0 if kind == "fedavg" else rounds), case
+            assert rec["launches"]["distill_loss_bwd"] == (
+                0 if kind == "fedavg" else 2 * rounds), case
+    assert max(max(f["fedavg"]["max_abs"].values()) for f in faulty) > 1e-5

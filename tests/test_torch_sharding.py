@@ -231,11 +231,13 @@ def test_constrain_is_identity_on_plain_tensors(with_ctx):
 
 @pytest.mark.parametrize("sizes", [(2, 1), (1, 2)])
 def test_data_or_model_axes_above_one_raise(sizes):
-    """This slice executes the "pod" axis only: a mesh that splits "data"
-    or "model" is refused by name, before any collective."""
+    """Tensor parallelism and FSDP run the dense family only: a mesh that
+    splits "data" or "model" is refused for any other family by name,
+    before any group is asked for (the dense family's execution is
+    tests/test_torch_tp.py's)."""
     mesh = stand_in((1,) + sizes, ("pod", "data", "model"))
-    with pytest.raises(NotImplementedError, match="DTensor execution"):
-        pod_group(mesh)
-    with pytest.raises(NotImplementedError, match="later|DTensor"):
-        LLMDSFLAlgorithm(get_config("qwen1.5-4b").smoke(), LLMDsflHP(),
+    with pytest.raises(NotImplementedError, match="Queue 1, item 2.1"):
+        LLMDSFLAlgorithm(get_config("mamba2-2.7b").smoke(), LLMDsflHP(),
                          device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="no 'pod' axis"):
+        pod_group(stand_in(sizes, ("data", "model")))

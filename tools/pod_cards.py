@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The federated client axis across cards: chip_smoke.py phase "pod"'s
-cases over a world of ranks, one client a card, against the same cases
-in one process.
+"""The multi-device plane across cards: the federated client axis, one
+client a card, and the dense family's tensor parallelism inside each
+client, each against the same cases in one process.
 
-    python3 tools/pod_cards.py [--world 2] [--smoke-world 4]
-    python3 tools/pod_cards.py --device cpu --backend gloo    # rehearsal
+    python3 tools/pod_cards.py [--world 2] [--smoke-world 4] [--parts abcde]
+    python3 tools/pod_cards.py --device cpu --backend gloo --smoke  # rehearsal
 
 (a) qwen1.5-4b at full width and 40 layers (``--smoke`` cuts it), K =
 ``--world``, `launch.train`'s defaults (batch 8, seq 128, lr 3e-3), the
@@ -13,14 +13,30 @@ participation-0.5 sparse round, a FedAvg round) under
 ``fp32-deterministic``: first in this process on card 0, then over
 ``--world`` spawned ranks on cards 0 .. world - 1 over ``--backend``
 (NCCL by default).  Every rank's lane must be bitwise the one-process
-client's (`launch.pod_check.fingerprint`; FedAvg's mean only at two
-ranks, beyond which the all-reduce's order is the backend's: its largest
-relative difference of a leaf's float64 sum is printed).  (b) the same
-at the smoke config with K = ``--smoke-world`` ranks, so that more ranks
-than one card holds clients of the full model still cross.  Per case and rank: seconds
-a round, peak memory, the collectives log's bytes by kind and the
-kernels' launches, as one JSON line each; every card's ``nvidia-smi``
-name and power limit first.  A mismatch exits 1.
+client's (`launch.pod_check.fingerprint`).  (b) the same at the smoke
+config with K = ``--smoke-world`` ranks, so that more ranks than one card
+holds clients of the full model still cross; FedAvg's mean, whose
+all-reduce sums more than two terms in the backend's order, is held on
+its values instead: each rank's lane within 4 float32 ulps of each leaf's
+largest magnitude, per leaf (`launch.pod_check.compare_slices`, the
+one-process leaves shared with the ranks).
+
+(c) phi3-medium-14b at full width and its 40 layers (``--smoke``: its
+smoke config) over 4 ranks on the client mesh (2, 1, 2): one client a
+"pod", each client's leaves split over a "model" axis of 2 (`launch.tp`),
+K = 2, 2 ERA rounds then a FedAvg round, chained; seconds a round, peak
+and bytes a rank by axis, held to `launch.tp.round_bytes`.  (d) the same
+mesh at 4 of the 40 layers in float32 under ``fp32-deterministic`` at lr
+3e-2 (HELD_LR), the 2
+ERA rounds and the FedAvg round each from the init, every rank's slices
+and losses held against the one-process run (atol 1e-4 after two rounds,
+1e-5 after one, losses also rtol 1e-6), each one-process leaf shown to
+move past that bound, and the check shown to fail on a FedAvg round with
+one rank's ``w_down`` slice 1% off before it.  (e) as (d) for FSDP on the
+mesh (2, 2, 1): one client a "pod", each client's leaves split over a
+"data" axis of 2, each data rank on half the batch; 2 ERA rounds, a top-k
+8 round and a FedAvg round.  Per case and rank one JSON line; every
+card's ``nvidia-smi`` name and power limit first.  A mismatch exits 1.
 """
 from __future__ import annotations
 
@@ -36,6 +52,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 CASES = ("era", "topk", "sparse", "fedavg")
 PRESET = "fp32-deterministic"
+ULPS = 4 * 2.0 ** -23
+TP_ARCH, TP_SHAPE, TP_CASES = "phi3-medium-14b", (2, 1, 2), ("era", "fedavg")
+TP_CHECK_LAYERS = 4
+FSDP_SHAPE, FSDP_CASES = (2, 2, 1), ("era", "topk", "fedavg")
+ROUND_TOL = {1: 1e-5, 2: 1e-4}
+# the held runs' lr: every leaf must move past ROUND_TOL, which 3e-3 does
+# not do at phi3-medium-14b's full width (tools/tp_movement.py)
+HELD_LR = 3e-2
 
 
 def _cards() -> str:
@@ -48,12 +72,11 @@ def _cards() -> str:
         return f"nvidia-smi unavailable ({e})"
 
 
-def check(label, spec, backend) -> bool:
-    """One-process cases, then the same over ``spec.clients`` ranks."""
+def _one_process(spec):
+    """The cases of ``spec`` in this process under the preset."""
     import torch
 
-    from repro_torch.launch import dist, platform, pod_check
-    from repro_torch.launch.roofline import cross_pod_bytes
+    from repro_torch.launch import platform, pod_check
     prev = platform.snapshot()
     platform.apply(PRESET)
     try:
@@ -62,32 +85,141 @@ def check(label, spec, backend) -> bool:
         platform.restore(prev)
     if spec.device == "cuda":
         torch.cuda.empty_cache()
+    return one
+
+
+def _line(rec, rounds) -> dict:
+    from repro_torch.launch.roofline import axis_bytes
+    return dict(seconds_a_round=rec["seconds"] / rounds,
+                peak_bytes=rec["peak_bytes"],
+                bytes_by_axis=axis_bytes(rec["log"]),
+                losses=[h["loss"] for h in rec["history"]],
+                launches={k: v for k, v in rec["launches"].items()
+                          if k != "ssd_chunk"})
+
+
+def check(label, spec, backend) -> bool:
+    """One-process cases, then the same over ``spec.clients`` ranks: every
+    lane bitwise; beyond two ranks FedAvg's mean within 4 ulps a leaf."""
+    from repro_torch.launch import dist, pod_check
+    values = ("fedavg",) if spec.clients > 2 else ()
+    one = _one_process(dataclasses.replace(spec, keep_values=values))
+    compare = {c: one[c]["values"] for c in values}
     ranks = dist.spawn(pod_check.rank_main, spec.clients,
-                       dataclasses.replace(spec, preset=PRESET),
+                       dataclasses.replace(spec, preset=PRESET), compare,
                        backend=backend)
     ok = True
     for case in spec.cases:
         rounds = {"era": 2}.get(case, 1)
-        # FedAvg's all-reduce sums more than two ranks in the backend's
-        # order: bitwise only at two (ROADMAP deviation 17)
-        held = case != "fedavg" or spec.clients <= 2
         for r, rank in enumerate(ranks):
             rec = rank[case]
-            same = rec["history"] == one[case]["history"] and all(
-                rec["params"][leaf] == [lanes[r]]
-                for leaf, lanes in one[case]["params"].items())
-            ok &= same or not held
-            spread = max(abs(rec["params"][leaf][0][1] - lanes[r][1])
-                         / max(abs(lanes[r][1]), 1e-30)
-                         for leaf, lanes in one[case]["params"].items())
+            same_hist = rec["history"] == one[case]["history"]
+            if case in compare:
+                # the all-reduce sums the terms in the backend's order
+                worst = {leaf: d / max(rec["max_ref"][leaf], 1e-30)
+                         for leaf, d in rec["max_abs"].items()}
+                held = dict(within_4_ulps_a_leaf=all(
+                    d <= ULPS * rec["max_ref"][leaf]
+                    for leaf, d in rec["max_abs"].items()),
+                    worst_leaf=max(worst, key=worst.get),
+                    worst_in_ulps=max(worst.values()) / 2.0 ** -23)
+                ok &= held["within_4_ulps_a_leaf"]
+            else:
+                held = dict(bitwise=same_hist and all(
+                    rec["params"][leaf] == [lanes[r]]
+                    for leaf, lanes in one[case]["params"].items()))
+                ok &= held["bitwise"]
             print(f"{label} rank {r} {case}: " + json.dumps(dict(
-                bitwise=same, held_bitwise=held,
-                leaf_sum_rel_diff=spread,
-                seconds_a_round=rec["seconds"] / rounds,
-                one_process_seconds_a_round=one[case]["seconds"] / rounds,
-                peak_bytes=rec["peak_bytes"],
-                cross_pod_bytes=cross_pod_bytes(rec["log"]),
-                launches=rec["launches"])), flush=True)
+                held, **_line(rec, rounds),
+                one_process_seconds_a_round=one[case]["seconds"] / rounds)),
+                flush=True)
+    return ok
+
+
+def tp_check(label, spec, backend, held: bool) -> bool:
+    """The cases of ``spec`` over its mesh: bytes a rank by axis held to
+    their closed form.  With ``held`` one case a spawn (the one-process
+    leaves of a case stay on card 0 while the ranks run): each leaf of the
+    one-process case moved past the tolerance, every rank's slices and
+    losses held against the one-process run, and the FedAvg round run
+    again with rank `FAULT_RANK`'s ``w_down`` slice 1% off before it,
+    which the check must fail."""
+    from repro_torch.launch import dist, pod_check
+    cfg = spec.config()
+    world = 1
+    for n in spec.mesh_shape:
+        world *= n
+    ok = True
+    for cases in ([(c,) for c in spec.cases] if held else [spec.cases]):
+        runs = [dataclasses.replace(spec, cases=cases)]
+        compares, one = [None], {}
+        if held:
+            one = _one_process(dataclasses.replace(runs[0],
+                                                   keep_values=cases))
+            compares = [{c: one[c].pop("values") for c in cases}]
+            if cases == ("fedavg",):
+                runs.append(dataclasses.replace(runs[0], fault=True))
+                compares.append(compares[0])
+        ranks = dist.spawn(pod_check.rank_main_many, world, tuple(runs),
+                           tuple(compares), backend=backend)
+        del compares
+        if spec.device == "cuda":
+            import torch
+            # the spawn's shared leaves are freed once the ranks let them go
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+        for i, run in enumerate(runs):
+            ok &= _tp_lines(label, cfg, run, [rk[i] for rk in ranks], one)
+    return ok
+
+
+def _tp_lines(label, cfg, spec, rank_recs, one) -> bool:
+    """One JSON line per case and rank of one run (see `tp_check`)."""
+    from repro_torch.launch import pod_check, tp
+    ok = True
+    for case in spec.cases:
+        kind, rounds, _, hp_kw, _, _ = pod_check.CASES[case]
+        want = tp.merge((tp.round_bytes(
+            cfg, spec.mesh_shape, clients=spec.clients, batch=spec.batch,
+            seq=spec.seq, mode=kind, topk=hp_kw.get("topk"),
+            lanes_run=spec.clients // spec.mesh_shape[0]), rounds))
+        tol, worst = ROUND_TOL[rounds], []
+        for r, rec in enumerate(rank_recs):
+            rec = rec[case]
+            line = _line(rec, rounds)
+            res = dict(bytes_closed_form=line["bytes_by_axis"] == want)
+            ok &= res["bytes_closed_form"]
+            if case in one:
+                ref = one[case]
+                moved = ref["moved"]
+                least = min(moved, key=moved.get)
+                leaf = max(rec["max_abs"], key=rec["max_abs"].get)
+                worst.append(rec["max_abs"][leaf])
+                ref_losses = [h["loss"] for h in ref["history"]]
+                res.update(
+                    tol=tol, worst_leaf=leaf, max_abs=rec["max_abs"][leaf],
+                    fault_leaf_max_abs=rec["max_abs"][pod_check.FAULT_LEAF],
+                    least_moved_leaf=least, least_moved=moved[least],
+                    every_leaf_moved_past_tol=moved[least] > tol,
+                    one_process_losses=ref_losses,
+                    one_process_seconds_a_round=ref["seconds"] / rounds)
+                ok &= res["every_leaf_moved_past_tol"]
+                if not spec.fault:
+                    res.update(within_tol=res["max_abs"] <= tol,
+                               losses_within_tol=len(ref_losses) == len(
+                                   line["losses"]) and all(
+                                   abs(a - b) <= tol + 1e-6 * abs(b)
+                                   for a, b in zip(line["losses"],
+                                                   ref_losses)))
+                    ok &= res["within_tol"] and res["losses_within_tol"]
+            print(f"{label}{' fault' if spec.fault else ''} rank {r} {case}: "
+                  + json.dumps(dict(res, **line)), flush=True)
+        if spec.fault:
+            caught = bool(worst) and max(worst) > tol
+            print(f"{label} fault {case}: rank {pod_check.FAULT_RANK}'s "
+                  f"{pod_check.FAULT_LEAF} slice 1% off before the round "
+                  f"{'fails' if caught else 'PASSES'} the check", flush=True)
+            ok &= caught
     return ok
 
 
@@ -97,19 +229,40 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=2)
     ap.add_argument("--smoke-world", type=int, default=4)
     ap.add_argument("--smoke", action="store_true",
-                    help="(a) at the smoke config too")
+                    help="(a), (c), (d) and (e) at the smoke configs too")
+    ap.add_argument("--parts", default="abcde")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl")
     args = ap.parse_args(argv)
     print(f"cards: {_cards()}", flush=True)
     base = dict(batch=8, seq=128, lr=3e-3, device=args.device,
                 use_kernel=args.device == "cuda", scale_embedding=True,
-                cases=CASES, chain=True, fingerprint=True)
-    ok = check(f"pod cards (a) world {args.world}",
-               DrillSpec(smoke=args.smoke, clients=args.world, **base),
-               args.backend)
-    ok &= check(f"pod cards (b) smoke world {args.smoke_world}",
-                DrillSpec(clients=args.smoke_world, **base), args.backend)
+                fingerprint=True)
+    ok = True
+    if "a" in args.parts:
+        ok &= check(f"pod cards (a) world {args.world}",
+                    DrillSpec(smoke=args.smoke, clients=args.world,
+                              cases=CASES, chain=True, **base), args.backend)
+    if "b" in args.parts:
+        ok &= check(f"pod cards (b) smoke world {args.smoke_world}",
+                    DrillSpec(clients=args.smoke_world, cases=CASES,
+                              chain=True, **base), args.backend)
+    tp_base = dict(base, arch=TP_ARCH, smoke=args.smoke, clients=2,
+                   mesh_shape=TP_SHAPE, cases=TP_CASES)
+    if "c" in args.parts:
+        ok &= tp_check(f"tp cards (c) {TP_ARCH} {TP_SHAPE}",
+                       DrillSpec(chain=True, **tp_base), args.backend, False)
+    f32 = dict(tp_base, n_layers=None if args.smoke else TP_CHECK_LAYERS,
+               overrides=(("dtype", "float32"),), preset=PRESET,
+               lr=HELD_LR)
+    if "d" in args.parts:
+        ok &= tp_check(f"tp cards (d) {TP_ARCH} {TP_SHAPE} f32",
+                       DrillSpec(**f32), args.backend, True)
+    if "e" in args.parts:
+        ok &= tp_check(f"tp cards (e) {TP_ARCH} {FSDP_SHAPE} f32",
+                       DrillSpec(**dict(f32, mesh_shape=FSDP_SHAPE,
+                                        cases=FSDP_CASES)),
+                       args.backend, True)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 
