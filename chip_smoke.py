@@ -22,8 +22,10 @@ phi-3-vision-4.2b (patch features through a projector) and whisper-small
 vocabularies of 32,064 and 51,865), training llama4-scout at full width and
 2 of its 48 layers with LLM-scale DS-FL and FedAvg (K1 on the wide-row
 route and K3/K4 at 202,048 classes), and running the examples' torch
-twins.  Phases, in order; any failure exits non-zero and prints no
-result:
+twins, holding the dry run's fake traces to real runs, and decoding
+phi3-medium-14b under tensor parallelism.  K1-K5 run as the
+``torch.library`` ops of `repro_torch.kernels.library`.  Phases, in
+order; any failure exits non-zero and prints no result:
 
  1. device   the card's name and power limit, torch and CUDA versions; the
              ``fp32`` platform preset (`launch.platform`): TF32 off for
@@ -294,7 +296,7 @@ result:
              are bitwise ``eval_params`` of the final state and share no
              storage with the trainer; the window's launches held to K1 2,
              K3/K4 4; swap latencies and the window's peak printed.
-    loadgen  ``serve.run_load`` on the first 5 of those weights' 40 layers
+    loadgen  ``serve.run_load`` on the first of those weights' 40 layers
              (a fresh engine of phase 7's shape each run) with ``LoadSpec(n_requests=32, rate=4.0,
              prompt_len=(4, 48), max_new=(4, 16), vocab=151936, seed=0)``,
              with the defaults, ``decode_chunk=8`` and
@@ -357,7 +359,7 @@ result:
              over `make_client_mesh(2)` bitwise the engine without a mesh
              (every lane of every leaf fingerprinted on the card, history,
              launches; K1 on the all-gathered stack); (b) world 2 over
-             gloo, one client a rank, both ranks on this card, at 4 of
+             gloo, one client a rank, both ranks on this card, at 1 of
              the 40 layers (POD_LAYERS_B), each rank's lane bitwise the
              one-process client at that depth; per case and rank the
              seconds a round, peak, the collectives log's bytes by kind
@@ -378,6 +380,37 @@ result:
              round and peak a rank; every run's bytes a rank by axis
              held to `tp.round_bytes`, K1 once a DS-FL round, K3/K4 once
              a client step.
+    dryrun   the dry run's counters held to the card: qwen1.5-4b at
+             `launch.train`'s defaults (K = 2, batch 8, seq 128, its 40
+             layers, bf16, the embedding scaled) through its ``local``
+             step, a DS-FL client step (K3/K4) and a DS-FL ERA round (K1,
+             K3/K4), and mamba2-2.7b's prediction pass (K5 64 times), each
+             fake-traced on the card's device (`launch.specs`,
+             `launch.costs`; traced at 2 and 3 blocks and extrapolated,
+             `launch.dryrun.extrapolate`) and run for real under the same
+             counters, each window's arguments made just before it and
+             freed after: FLOPs, bytes, arguments, live peak and op calls
+             equal exactly, op calls equal to the launches, the trace's
+             temporaries (its peak less its arguments) within 10% of what
+             ``max_memory_allocated`` rose by over the arguments after
+             ``reset_peak_memory_stats``;
+             each record's `Roofline` beside the measured seconds (not
+             held: host-bound); the ops' host cost a call beyond their
+             launch functions; then the dry run's phi3-medium-14b x
+             decode_32k x 16 x 16 record from ``python -m
+             repro_torch.launch.dryrun`` in a child process (a fake world
+             of 256), which must be ``ok``.
+    tp decode the dense family's decode step under tensor parallelism
+             (`launch.decode_check`): phi3-medium-14b at full width, 4 of
+             its 40 layers in f32, the embedding scaled, a start token and
+             16 greedy tokens from an empty cache, world 2 over gloo on
+             this card: (1, 1, 2) at batch 8 (heads split 40 / 2 and
+             10 / 2) and (1, 2, 1) without FSDP at batch 1 (the ring's
+             window split over "data"), every rank's tokens equal and
+             logits within 1e-5 of the largest one-process logit, bytes a
+             step by axis equal to `tp.decode_bytes`, ms a step and the
+             peak a rank printed; a 1% fault in rank 1's ``wo`` slice, and
+             in its value ring, must fail the check.
     examples the examples' torch twins on the card, each its own process:
              ``examples/torch_quickstart.py --fast`` (must end ``OK``),
              ``examples/torch_serve_batched.py``,
@@ -392,8 +425,11 @@ result:
              ``moe_train_launches`` by window, ``moe_smoke_launches`` by
              model, ``moe_train`` timing rows for K1, K3 and K4,
              ``pod_launches``: phase "pod" (a)'s run over the mesh,
-             ``tp_launches``: phase "tp"'s bf16 run, rank 0), the card's
-             line, and the result line.
+             ``tp_launches``: phase "tp"'s bf16 run, rank 0;
+             ``dryrun_launches`` by window and ``op_host_us``: phase
+             "dryrun"; ``tp_decode_launches``: phase "tp decode", rank 0's by
+             mesh),
+             the card's line, and the result line.
 """
 from __future__ import annotations
 
@@ -3804,9 +3840,12 @@ def phase_moe(smi):
 # the script, which passed 1000 s once phase "modality" joined it (1004 s
 # on an H100 80GB HBM3 at 700 W); at 20 layers it took 69-108 s, and the
 # script reached 1114.9 s on a slow host once phase "pod" joined it; at 10
-# it took 38.0-38.7 s and the script 963.9 s once phase "tp" joined it.
+# it took 38.0-38.7 s and the script 963.9 s once phase "tp" joined it;
+# at 5 it took 26.3 s and the script 1153.0 s on a slow host once phases
+# "dryrun" and "tp decode" joined it; at 3 it took 15.5 s and the script
+# 1105.4 s on a slow host.
 HOT_SWAP_ROUNDS = 2
-LOADGEN_LAYERS = 5
+LOADGEN_LAYERS = 1
 LOADGEN_SPEC = dict(n_requests=32, rate=4.0, prompt_len=(4, 48),
                     max_new=(4, 16), vocab=QWEN_V, seed=0)
 
@@ -4441,12 +4480,15 @@ def phase_moe_train(smi):
 POD_CASES = ("era", "topk", "sparse", "fedavg")
 POD_ROUNDS = {"era": 2, "topk": 1, "sparse": 1, "fedavg": 1}
 POD_PRESET = "fp32-deterministic"
-# (b) at 4 of the 40 layers: at full depth it fit (33.2 GB a rank) but
+# (b) at 1 of the 40 layers: at full depth it fit (33.2 GB a rank) but
 # took 50-63 s, FedAvg's 14.2 GB of f32 through gloo's host staging 20-26 s
 # of it, and the script passed 900 s (955.1-975.0 s on an H100 80GB HBM3 at
 # 700 W); at 20 layers (b) took 57.2 s on a slow host, where the script
-# took 1114.9 s.  Its one-process fingerprints are taken at the same depth
-POD_LAYERS_B = 4
+# took 1114.9 s; at 4 layers 37.0 s, the script 1153.0 s on a slow host
+# once phases "dryrun" and "tp decode" joined it; at 2 layers 35.2 s, the
+# script 1105.4 s on a slow host.  Its one-process fingerprints are taken
+# at the same depth
+POD_LAYERS_B = 1
 
 
 def _pod_spec(**kw):
@@ -4795,6 +4837,351 @@ def phase_tp(smi):
     return launches
 
 
+# ------------------------------------------------------- phase "dryrun" --
+# The single-card windows fake-traced (`launch.costs` over `launch.specs`'
+# fake tensors on the card's device) and held to the same calls run for
+# real: qwen1.5-4b at `launch.train`'s defaults (K = 2, batch 8, seq 128,
+# its 40 layers, bf16) and mamba2-2.7b's prediction pass (64 layers, K5).
+# Each fake record is traced at 2 and 3 blocks and extrapolated to the
+# full depth (`launch.dryrun.extrapolate`, exact on the CPU tests; a full
+# 40-layer trace of the ERA round takes about 90 s of host time).
+DRYRUN_PEAK_RTOL = 0.10
+# PERF.md §5's peaks of the trainer's windows (model init, both stacks and
+# the engine's state included), for scale beside the one-call peaks here
+PERF_PEAKS = {"local": 22_999_360_000, "dsfl era round": 40_305_361_920}
+DRYRUN_RECORD = ("phi3-medium-14b", "decode_32k", "_chip_smoke")
+OP_HOST_ITERS = 300
+
+
+def _dryrun_steps(cfg) -> dict:
+    """{window: its step} of ``cfg``'s family: the dense trainer's local
+    step, DS-FL ERA round and client step, or the prediction pass."""
+    from repro_torch.core.llm_dsfl import (LLMDsflHP, dsfl_client_step,
+                                           dsfl_round_step,
+                                           predict_open_probs, sgd_train_step)
+    hp = LLMDsflHP(lr=3e-3, use_kernel=True)
+    if cfg.arch_type != "dense":
+        return {"mamba prediction": lambda p, o: predict_open_probs(
+            cfg, p, o, use_kernel=True)}
+    return {"local": lambda p, b: sgd_train_step(cfg, p, b, hp.lr),
+            "dsfl era round": lambda s, pv, o: dsfl_round_step(
+                cfg, s, pv, o, hp),
+            "dsfl client step": lambda p, pv, o, t: dsfl_client_step(
+                cfg, p, pv, o, t, hp)}
+
+
+def _dryrun_inputs(cfg, name, device, fake_mode=None, seed=0) -> tuple:
+    """Window ``name``'s arguments at ``cfg``'s depth: fake stand-ins
+    under ``fake_mode``, else seeded tensors on ``device`` (the embedding
+    scaled, tokens int32 as the stand-ins), made for this window alone."""
+    from repro_torch.launch import specs
+    from repro_torch.models.api import model_init
+    era = name == "dsfl era round"
+    if fake_mode is not None:
+        kw = dict(device=device, mode=fake_mode)
+        params = specs.params_struct(cfg, n_clients=LLM_K if era else 1,
+                                     **kw)
+        tokens = lambda lead=(): specs.batch_struct(cfg, LLM_B, LLM_S,
+                                                    lead=lead, **kw)
+        teacher = lambda: specs.teacher_struct(cfg, LLM_B, LLM_S, **kw)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = model_init(cfg, gen, device)
+        if cfg.arch_type == "dense":
+            with torch.no_grad():
+                scale_embedding(cfg, params)
+        if era:
+            params = {k: v[None].expand((LLM_K,) + tuple(v.shape))
+                      .contiguous() for k, v in params.items()}
+        tokens = lambda lead=(): {"tokens": torch.randint(
+            0, cfg.vocab, lead + (LLM_B, LLM_S), generator=gen,
+            device=device, dtype=torch.int32)}
+        teacher = lambda: torch.softmax(torch.randn(
+            (LLM_B, LLM_S, cfg.eff_vocab), generator=gen, device=device),
+            -1).to(torch.bfloat16)
+    if era:
+        return params, tokens((LLM_K,)), tokens()
+    if name == "dsfl client step":
+        batch = tokens()
+        return params, batch, batch, teacher()
+    return params, tokens()
+
+
+def _fake_records(cfg) -> dict:
+    """{window: its `launch.costs` record at ``cfg``'s depth},
+    extrapolated from fake traces at 2 and 3 blocks."""
+    from repro_torch.launch import costs, dryrun, specs
+    recs = {}
+    na, nb = dryrun.EXTRAPOLATE_FROM
+    for n in (na, nb):
+        mode = specs.fake_mode()
+        small = dryrun.reduced(cfg, n)
+        for name, step in _dryrun_steps(small).items():
+            args = _dryrun_inputs(small, name, "cuda", mode)
+            with mode, costs.count(*args) as rec:
+                step(*args)
+            recs.setdefault(name, []).append(rec)
+    return {k: dryrun.extrapolate(a, b, na, nb, cfg.n_blocks)
+            for k, (a, b) in recs.items()}
+
+
+def _window_model_flops(cfg, name) -> float:
+    """6 N D of the window's gradient passes plus 2 N D of its forward
+    passes (`launch.roofline.model_flops_estimate`)."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.roofline import model_flops_estimate
+    grad_seqs, fwd_seqs = {"local": (LLM_B, 0),
+                           "dsfl client step": (2 * LLM_B, 0),
+                           "dsfl era round": (2 * LLM_K * LLM_B, LLM_K * LLM_B),
+                           "mamba prediction": (0, LLM_B)}[name]
+    est = lambda kind, b: model_flops_estimate(
+        cfg, InputShape(kind, LLM_S, b, kind)) if b else 0.0
+    return est("train", grad_seqs) + est("prefill", fwd_seqs)
+
+
+def dryrun_windows(smi, arch, fakes) -> dict:
+    """Each window of ``arch`` run for real on the card under
+    `launch.costs`, its arguments made just before it and freed after,
+    held to its fake record: FLOPs, bytes, arguments and the live peak
+    exactly, op calls exactly and equal to `_build.LAUNCHES`, and the
+    trace's temporaries (its peak less its arguments) within
+    DRYRUN_PEAK_RTOL of what ``max_memory_allocated`` rose by over the
+    arguments; one line each with the record's `Roofline` beside the
+    measured seconds.  Returns each window's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import costs
+    from repro_torch.launch.roofline import Roofline
+    cfg = get_config(arch)
+    out = {}
+    for name, step in _dryrun_steps(cfg).items():
+        fake = fakes[name]
+        torch.cuda.empty_cache()
+        args = _dryrun_inputs(cfg, name, "cuda")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with costs.count(*args, sites=False) as real:
+            res = step(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del res, args
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        temps, rise = fake.peak_bytes - fake.arg_bytes, peak - before
+        rl = Roofline.build(arch=arch, shape=f"b{LLM_B}xs{LLM_S}",
+                            mesh_name="1", step=name, costs=fake,
+                            mesh_shape={"card": 1},
+                            model_flops=_window_model_flops(cfg, name))
+        line = dict(seconds=seconds, fake=fake.to_dict(),
+                    real=real.to_dict(), launches=launches,
+                    predicted_temporaries=temps, measured_rise=rise,
+                    temporaries_gap=(temps - rise) / rise,
+                    held_before=before, max_memory_allocated=peak,
+                    roofline=rl.to_dict())
+        if name in PERF_PEAKS:
+            line["perf_md_window_peak"] = PERF_PEAKS[name]
+        say(f"dryrun {arch} {name} [{smi}]: " + json.dumps(line))
+        for key in ("flops", "bytes", "arg_bytes", "peak_bytes"):
+            if getattr(fake, key) != getattr(real, key):
+                fail(f"dryrun {arch} {name}: fake {key} {getattr(fake, key)}"
+                     f" != real {getattr(real, key)}")
+        if not (fake.ops == real.ops == launches):
+            fail(f"dryrun {arch} {name}: op calls fake {fake.ops}, real "
+                 f"{real.ops}, launched {launches}")
+        if abs(temps - rise) > DRYRUN_PEAK_RTOL * rise:
+            fail(f"dryrun {arch} {name}: predicted temporaries {temps} B, "
+                 f"max_memory_allocated rose {rise} B over the arguments")
+        out[name] = launches
+    return out
+
+
+def op_host_cost(smi) -> dict:
+    """Host microseconds a call of each `kernels.library` op beyond its
+    launch function, at a small shape (the launch itself timed alone; no
+    synchronize between calls)."""
+    from repro_torch.kernels import distill_loss as tdl
+    from repro_torch.kernels import era_sharpen as tes
+    from repro_torch.kernels import ssd_chunk as tssd
+    dev = torch.device("cuda")
+    p = _probs((2, 8, 16), 3).to(dev)
+    w = torch.full((2,), 0.5, device=dev)
+    z, t = _zt(8, 64, 4, torch.float32)
+    z, t = z.to(dev), t.to(dev)
+    rows = torch.ones((8,), device=dev)
+    g = torch.full((1,), 0.125, device=dev)
+    x = _ssd_inputs(2, 16, 4, 8, 1, 8, 5)
+    pairs = {
+        "era_sharpen": (lambda: torch.ops.repro_torch.era_sharpen(p, 0.1),
+                        lambda: tes.launch_era_sharpen(p, 0.1)),
+        "weighted_era_sharpen": (
+            lambda: torch.ops.repro_torch.weighted_era_sharpen(p, w, 0.1,
+                                                               True),
+            lambda: tes.launch_weighted_era_sharpen(p, w, 0.1, True)),
+        "distill_loss_fwd": (
+            lambda: torch.ops.repro_torch.distill_loss_fwd(z, t),
+            lambda: tdl.launch_distill_loss_fwd(z, t)),
+        "distill_loss_bwd": (
+            lambda: torch.ops.repro_torch.distill_loss_bwd(z, t, rows, rows,
+                                                           g),
+            lambda: tdl.launch_distill_loss_bwd(z, t, rows, rows, g)),
+        "ssd_chunk": (lambda: torch.ops.repro_torch.ssd_chunk(*x),
+                      lambda: tssd.launch_ssd_chunk(*x))}
+
+    def host_us(fn):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_HOST_ITERS):
+            fn()
+        us = (time.perf_counter() - t0) / OP_HOST_ITERS * 1e6
+        torch.cuda.synchronize()
+        return us
+    out = {}
+    for name, (op, launch) in pairs.items():
+        a, b, a2, b2 = host_us(op), host_us(launch), host_us(op), \
+            host_us(launch)
+        out[name] = dict(op_us=min(a, a2), launch_us=min(b, b2),
+                         op_extra_us=min(a, a2) - min(b, b2))
+    say(f"op host cost [{smi}]: " + json.dumps(out))
+    return out
+
+
+def phase_dryrun(smi):
+    """Phase "dryrun": the single-card windows' fake records against their
+    real runs (`dryrun_windows`), the ops' host cost, and one
+    production-mesh record of the dry run (phi3-medium-14b x decode_32k x
+    16 x 16) in a child process on a fake world of 256."""
+    t_phase = time.perf_counter()
+    # the production-mesh record traces on the host (fake tensors), so it
+    # runs beside the windows
+    arch_r, shape_r, tag = DRYRUN_RECORD
+    from repro_torch.launch import dryrun
+    path = ROOT / dryrun.RESULTS_DIR / f"{arch_r}_{shape_r}_16x16{tag}.json"
+    path.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [q for q in [os.environ.get("PYTHONPATH")]
+                               if q]))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch_r,
+         "--shape", shape_r, "--mesh", "single", "--tag", tag], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    launches = {}
+    try:
+        from repro_torch.configs import get_config
+        for arch in ("qwen1.5-4b", "mamba2-2.7b"):
+            t0 = time.perf_counter()
+            fakes = _fake_records(get_config(arch))
+            say(f"dryrun {arch}: fake traces at 2 and 3 blocks took "
+                f"{time.perf_counter() - t0:.1f} s")
+            launches.update(dryrun_windows(smi, arch, fakes))
+            torch.cuda.empty_cache()
+        say(f"dryrun: qwen1.5-4b's trainer windows peaked at "
+            f"{PERF_PEAKS['local']} B (local) and "
+            f"{PERF_PEAKS['dsfl era round']} B (ERA) in PERF.md §5: those "
+            f"windows hold the model's init, both client stacks and the "
+            f"engine's state besides one call's arguments and temporaries, "
+            f"which is all a step's peak here counts")
+        host = op_host_cost(smi)
+        try:
+            out, err = child.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            fail(f"dryrun record {arch_r} x {shape_r}: no exit within 300 s")
+    finally:
+        if child.poll() is None:      # a failed check: stop the child too
+            child.kill()
+            child.wait()
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    say(f"dryrun record {arch_r} x {shape_r} x 16x16 [{smi}]: rc "
+        f"{child.returncode} by {time.perf_counter() - t_phase:.1f} s; " +
+        json.dumps({k: v for k, v in rec.items() if k != "trace"}))
+    if child.returncode != 0 or rec.get("status") != "ok":
+        fail(f"dryrun record {arch_r} x {shape_r}: {rec.get('status')} "
+             f"{rec.get('error')} {out[-1000:]} {err[-2000:]}")
+    say(f"dryrun: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches, host
+
+
+# --------------------------------------------------- phase "tp decode" --
+# phi3-medium-14b at full width, 4 of its 40 layers in f32, the embedding
+# scaled: a start token and 16 greedy tokens from an empty cache, world 2
+# over gloo on this card, held to one process (`launch.decode_check`):
+# (1, 1, 2) at batch 8 splits the heads (40 / 2 and 10 / 2), (1, 2, 1)
+# without FSDP at batch 1 splits the ring's window over "data"; a 1% fault
+# in rank 1's ``wo`` slice, and in its value ring, must be caught.
+TP_DECODE = (((1, 1, 2), True, 8, "wo"), ((1, 2, 1), False, 1, "ring"))
+TP_DECODE_RTOL = 1e-5
+
+
+def phase_tp_decode(smi):
+    import dataclasses as dc_
+    from repro_torch.launch import decode_check as dc
+    from repro_torch.launch import dist, tp
+    t_phase = time.perf_counter()
+    base = dc.DecodeSpec(arch=TP_ARCH, smoke=False, n_layers=4,
+                         overrides=(("dtype", "float32"),), steps=16,
+                         scale_embedding=True)
+    cases = [dc_.replace(base, mesh_shape=m, fsdp=f, batch=b)
+             for m, f, b, _ in TP_DECODE]
+    ones = []
+    for spec in cases:
+        params = dc.init_params(spec, "cuda")
+        ones.append(dc.greedy(spec, params, "cuda"))
+        del params
+        torch.cuda.empty_cache()
+    runs = tuple(cases) + tuple(dc_.replace(c, fault=f)
+                                for c, (*_, f) in zip(cases, TP_DECODE))
+    t0 = time.perf_counter()
+    ranks = dist.spawn(dc.rank_main, 2, runs, "cuda", backend="gloo")
+    t_ranks = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    for i, spec in enumerate(cases):
+        want = tp.decode_bytes(spec.config(), spec.mesh_shape,
+                               batch=spec.batch, window=spec.seq_len,
+                               fsdp=spec.fsdp)
+        one = ones[i]
+        for r in range(2):
+            rec, bad = ranks[r][i], ranks[r][i + len(cases)]
+            held = dc.compare(rec, one, TP_DECODE_RTOL)
+            faulted = dc.compare(bad, one, TP_DECODE_RTOL)
+            median = lambda ms: sorted(ms)[len(ms) // 2]
+            line = dict(mesh=spec.mesh_shape, fsdp=spec.fsdp,
+                        batch=spec.batch, held=held, fault=faulted,
+                        step_bytes=rec["step_bytes"], closed_form=want,
+                        ms_a_step_median=median(rec["ms_a_step"]),
+                        ms_a_step_range=[min(rec["ms_a_step"]),
+                                         max(rec["ms_a_step"])],
+                        one_process_ms_a_step_median=median(
+                            one["ms_a_step"]),
+                        peak_bytes=rec["peak_bytes"])
+            line["launches"] = {k: v for k, v in rec["launches"].items()
+                                if v}
+            say(f"tp decode rank {r} [{smi}]: " + json.dumps(line))
+            if not held["ok"]:
+                fail(f"tp decode {spec.mesh_shape} rank {r}: {held}")
+            if rec["step_bytes"] != want:
+                fail(f"tp decode {spec.mesh_shape} rank {r}: bytes "
+                     f"{rec['step_bytes']} != closed form {want}")
+        if all(dc.compare(ranks[r][i + len(cases)], one,
+                          TP_DECODE_RTOL)["ok"] for r in range(2)):
+            fail(f"tp decode {spec.mesh_shape}: rank 1's 1% "
+                 f"{TP_DECODE[i][3]} fault passed the check")
+    say(f"tp decode: {TP_ARCH} at full width, 4 layers f32, 16 greedy "
+        f"tokens; world 2 over gloo on this card {t_ranks:.1f} s (spawn "
+        f"included); tokens and logits of every rank within "
+        f"{TP_DECODE_RTOL} of the largest logit of one process, bytes equal "
+        f"to tp.decode_bytes, both faults caught; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # rank 0's launches of each held case, counted from zero just before
+    # its decode (`decode_check.run_rank`)
+    return {str(spec.mesh_shape): ranks[0][i]["launches"]
+            for i, spec in enumerate(cases)}
+
+
 def _fake_param_count(cfg) -> int:
     """One client's parameter count, the model made under fake tensors."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -4822,18 +5209,28 @@ def phase_examples(smi):
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p]))
     t_phase = time.perf_counter()
-    for script, args, want in EXAMPLES:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(ROOT / "examples" / script),
-                               *args], cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=300)
-        tail = proc.stdout.strip().splitlines()[-4:]
+    # all three at once: each is a small model, most of its time the
+    # interpreter's and torch's start
+    procs = [(script, args, want, subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / script), *args], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for script, args, want in EXAMPLES]
+    for script, args, want, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for *_, p in procs:
+                p.kill()
+            fail(f"examples {script}: no exit within 300 s")
+        tail = out.strip().splitlines()[-4:]
         say(f"examples {script} {' '.join(args)} [{smi}]: rc "
-            f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+            f"{proc.returncode} by {time.perf_counter() - t_phase:.1f} s; "
             + " | ".join(tail))
-        if proc.returncode != 0 or want not in proc.stdout + "\n":
+        if proc.returncode != 0 or want not in out + "\n":
+            for *_, p in procs:
+                p.kill()
             fail(f"examples {script}: rc {proc.returncode}, expected "
-                 f"{want!r}; stderr: {proc.stderr[-2000:]}")
+                 f"{want!r}; stderr: {err[-2000:]}")
     say(f"examples: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -4887,6 +5284,10 @@ def main():
     pod_launches = phase_pod(smi)
     torch.cuda.empty_cache()
     tp_launches = phase_tp(smi)
+    torch.cuda.empty_cache()
+    dryrun_launches, op_host = phase_dryrun(smi)
+    torch.cuda.empty_cache()
+    tp_decode_launches = phase_tp_decode(smi)
     phase_examples(smi)
     kernels = []
     for name, r in recs.items():
@@ -4922,6 +5323,11 @@ def main():
             moe_train_max_abs_err=moe_errs.get(name),
             pod_launches=pod_launches[name],
             tp_launches=tp_launches[name],
+            dryrun_launches={w: v.get(name, 0)
+                             for w, v in dryrun_launches.items()},
+            tp_decode_launches={m: v[name]
+                                for m, v in tp_decode_launches.items()},
+            op_host_us=op_host[name],
             llm_max_abs_err=llm_errs[name],
             llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -9,7 +9,8 @@ one is reused.  `build` starts one ``nvcc`` per source, all together.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; `check`
 turns a nonzero code into an exception.  ``LAUNCHES`` counts, per kernel,
-how many times a wrapper launched it (the wrappers add one right after a
+how many times it was launched (each launch function, the CUDA
+implementation of its op in `kernels.library`, adds one right after the
 launch and nowhere else).
 """
 from __future__ import annotations
@@ -130,9 +131,17 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def require_device(t, what: str) -> None:
+    """The ops run on CPU tensors (their plain versions) and CUDA tensors
+    (the kernels), and trace on fake tensors of either device; anything
+    else is refused."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: expected a CUDA or CPU tensor, got "
+                         f"{t.device}")
+
+
 def require_cuda(t, what: str) -> None:
-    """A wrapper takes its plain version only for a CPU tensor; anything
-    else but a CUDA tensor is refused."""
+    """A launch takes a CUDA tensor; anything else is refused."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA or CPU tensor, got "
                          f"{t.device}")

@@ -7,9 +7,10 @@ the pointers allow) before it uses any; a row that does not start on a
 vector boundary takes a scalar head and tail around its vector body;
 short rows share a warp, L lanes a row.  `launch_plan` picks all of that
 from the shape.  K4: one
-elementwise pass.  Any N and V: nothing is padded.  A wrapper given CPU
-tensors computes the plain version; given CUDA tensors it launches the
-kernel or raises.
+elementwise pass.  Any N and V: nothing is padded.  The wrappers call the
+ops of `kernels.library`: CPU tensors take the plain versions, CUDA
+tensors the kernels (or an exception), fake tensors the fake
+implementations.
 """
 from __future__ import annotations
 
@@ -101,8 +102,9 @@ def distill_loss_bwd_plain(z, t, logz, tmass, gscale):
     return (gscale[0] * (p * tmass[:, None] - t.to(F32))).to(z.dtype)
 
 
-def _check_pair(z, t, what: str):
-    _build.require_cuda(z, what)
+def check_pair(z, t, what: str):
+    """(N, V) of a pair the kernels take, or ValueError: the checks that
+    need no pointer (the fake implementations run them too)."""
     if z.ndim != 2 or t.shape != z.shape:
         raise ValueError(f"{what}: expected z, t of one (N, V) shape, got "
                          f"{tuple(z.shape)} and {tuple(t.shape)}")
@@ -117,18 +119,26 @@ def _check_pair(z, t, what: str):
     return N, V
 
 
-def _check_rows(name: str, a, N: int, device, what: str):
+def check_rows(name: str, a, N: int, device, what: str):
     if a.shape != (N,) or a.dtype != F32 or a.device != device \
             or not a.is_contiguous():
         raise ValueError(f"{what}: {name} must be a contiguous ({N},) float32 "
                          f"tensor on {device}")
 
 
-def distill_loss_fwd(z: torch.Tensor, t: torch.Tensor):
-    """K3.  z, t: (N, V) f32 or bf16 -> (per-row loss (N,), logZ (N,)) f32."""
-    if z.device.type == "cpu":
-        return distill_loss_fwd_plain(z, t)
-    N, V = _check_pair(z, t, "distill_loss_fwd")
+def check_bwd(z, t, logz, tmass, gscale):
+    N, V = check_pair(z, t, "distill_loss_bwd")
+    check_rows("logz", logz, N, z.device, "distill_loss_bwd")
+    check_rows("tmass", tmass, N, z.device, "distill_loss_bwd")
+    check_rows("gscale", gscale, 1, z.device, "distill_loss_bwd")
+    return N, V
+
+
+def launch_distill_loss_fwd(z: torch.Tensor, t: torch.Tensor):
+    """K3's launch on CUDA tensors (the CUDA implementation of
+    ``torch.ops.repro_torch.distill_loss_fwd``)."""
+    _build.require_cuda(z, "distill_loss_fwd")
+    N, V = check_pair(z, t, "distill_loss_fwd")
     plan = launch_plan(N, V, z.dtype, pointer_align(z, t),
                        _build.sm_count(z.device))
     loss = torch.empty((N,), dtype=F32, device=z.device)
@@ -142,16 +152,11 @@ def distill_loss_fwd(z: torch.Tensor, t: torch.Tensor):
     return loss, logz
 
 
-def distill_loss_bwd(z, t, logz, tmass, gscale):
-    """K4.  Gradient of the mean loss wrt z: ``gscale * (softmax(z) * tmass -
-    t)`` in z's dtype.  ``gscale`` is a (1,) f32 tensor on z's device, read
-    by the kernel, so the caller need not bring it to the host."""
-    if z.device.type == "cpu":
-        return distill_loss_bwd_plain(z, t, logz, tmass, gscale)
-    N, V = _check_pair(z, t, "distill_loss_bwd")
-    _check_rows("logz", logz, N, z.device, "distill_loss_bwd")
-    _check_rows("tmass", tmass, N, z.device, "distill_loss_bwd")
-    _check_rows("gscale", gscale, 1, z.device, "distill_loss_bwd")
+def launch_distill_loss_bwd(z, t, logz, tmass, gscale):
+    """K4's launch on CUDA tensors (the CUDA implementation of
+    ``torch.ops.repro_torch.distill_loss_bwd``)."""
+    _build.require_cuda(z, "distill_loss_bwd")
+    N, V = check_bwd(z, t, logz, tmass, gscale)
     dz = torch.empty_like(z)
     lib = _lib()
     err = lib.distill_loss_bwd(_build.ptr(z), _build.ptr(t), _build.ptr(logz),
@@ -161,3 +166,22 @@ def distill_loss_bwd(z, t, logz, tmass, gscale):
     _build.check(lib, err, "distill_loss_bwd")
     _build.LAUNCHES["distill_loss_bwd"] += 1
     return dz
+
+
+def distill_loss_fwd(z: torch.Tensor, t: torch.Tensor):
+    """K3.  z, t: (N, V) f32 or bf16 -> (per-row loss (N,), logZ (N,)) f32,
+    through the op ``torch.ops.repro_torch.distill_loss_fwd``."""
+    _build.require_device(z, "distill_loss_fwd")
+    return torch.ops.repro_torch.distill_loss_fwd(z, t)
+
+
+def distill_loss_bwd(z, t, logz, tmass, gscale):
+    """K4.  Gradient of the mean loss wrt z: ``gscale * (softmax(z) * tmass -
+    t)`` in z's dtype.  ``gscale`` is a (1,) f32 tensor on z's device, read
+    by the kernel, so the caller need not bring it to the host.  Through
+    the op ``torch.ops.repro_torch.distill_loss_bwd``."""
+    _build.require_device(z, "distill_loss_bwd")
+    return torch.ops.repro_torch.distill_loss_bwd(z, t, logz, tmass, gscale)
+
+
+from . import library  # noqa: E402,F401  (registers the ops)

@@ -12,9 +12,10 @@ shared memory (C > 58,080 f32 values) takes the wide-row route instead:
 one block a row in two passes, an online (max, sum of exp) in the first,
 the sharpened values written in the second.  `launch_plan` picks the route,
 R, the vector width, S and the threads from the shape.  The note in the
-source gives the bound and the summation order.  A wrapper given a CPU tensor
-computes the plain version; given a CUDA tensor it launches the kernel or
-raises.
+source gives the bound and the summation order.  The wrappers call the
+ops of `kernels.library`: a CPU tensor takes the plain version, a CUDA
+tensor the kernel (or an exception), a fake tensor the op's fake
+implementation.
 """
 from __future__ import annotations
 
@@ -188,8 +189,9 @@ def weighted_era_sharpen_plain(local_probs: torch.Tensor, weights: torch.Tensor,
     return _softmax_rows(acc * (1.0 / temperature))
 
 
-def _check_probs(p: torch.Tensor, what: str):
-    _build.require_cuda(p, what)
+def check_probs(p: torch.Tensor, what: str):
+    """(K, N, C) of a stack the kernels take, or ValueError: the checks
+    that need no pointer (the fake implementations run them too)."""
     if p.ndim != 3:
         raise ValueError(f"{what}: expected (K, N, C), got {tuple(p.shape)}")
     if p.dtype not in _DTYPE_CODE:
@@ -200,17 +202,32 @@ def _check_probs(p: torch.Tensor, what: str):
     K, N, C = p.shape
     if K == 0 or N == 0 or C == 0:
         raise ValueError(f"{what}: empty shape {tuple(p.shape)}")
+    return K, N, C
+
+
+def check_weights(weights: torch.Tensor, p: torch.Tensor) -> None:
+    K = p.shape[0]
+    if (weights.shape != (K,) or weights.dtype != F32
+            or weights.device != p.device or not weights.is_contiguous()):
+        raise ValueError(f"weighted_era_sharpen: weights must be a contiguous "
+                         f"({K},) float32 tensor on {p.device}, got "
+                         f"{tuple(weights.shape)} {weights.dtype} on "
+                         f"{weights.device}")
+
+
+def _plan(p: torch.Tensor, what: str):
+    _build.require_cuda(p, what)
+    K, N, C = check_probs(p, what)
     ptr = p.data_ptr()
     return K, N, C, launch_plan(K, N, C, p.dtype, ptr & -ptr,
                                 _build.sm_count(p.device))
 
 
-def era_sharpen(local_probs: torch.Tensor, temperature: float) -> torch.Tensor:
-    """K1.  (K, N, C) f32 or bf16 -> (N, C) f32:
-    ``softmax((sum_k p_k) * (1/K) / T)``."""
-    if local_probs.device.type == "cpu":
-        return era_sharpen_plain(local_probs, temperature)
-    K, N, C, plan = _check_probs(local_probs, "era_sharpen")
+def launch_era_sharpen(local_probs: torch.Tensor,
+                       temperature: float) -> torch.Tensor:
+    """K1's launch on a CUDA tensor (the CUDA implementation of
+    ``torch.ops.repro_torch.era_sharpen``); raises where it refuses."""
+    K, N, C, plan = _plan(local_probs, "era_sharpen")
     out = torch.empty((N, C), dtype=F32, device=local_probs.device)
     lib = _lib()
     fn = lib.era_sharpen_wide if plan.wide else lib.era_sharpen
@@ -222,23 +239,13 @@ def era_sharpen(local_probs: torch.Tensor, temperature: float) -> torch.Tensor:
     return out
 
 
-def weighted_era_sharpen(local_probs: torch.Tensor, weights: torch.Tensor,
-                         temperature: float = 0.1,
-                         sharpen: bool = True) -> torch.Tensor:
-    """K2.  (K, N, C) f32 or bf16 x (K,) normalized f32 weights -> (N, C)
-    f32: ``softmax(sum_k w_k p_k / T)``, or the weighted mean itself with
-    ``sharpen=False``.  A zero-weight client changes no bit."""
-    if local_probs.device.type == "cpu":
-        return weighted_era_sharpen_plain(local_probs, weights, temperature,
-                                          sharpen)
-    K, N, C, plan = _check_probs(local_probs, "weighted_era_sharpen")
-    if (weights.shape != (K,) or weights.dtype != F32
-            or weights.device != local_probs.device
-            or not weights.is_contiguous()):
-        raise ValueError(f"weighted_era_sharpen: weights must be a contiguous "
-                         f"({K},) float32 tensor on {local_probs.device}, got "
-                         f"{tuple(weights.shape)} {weights.dtype} on "
-                         f"{weights.device}")
+def launch_weighted_era_sharpen(local_probs: torch.Tensor,
+                                weights: torch.Tensor, temperature: float,
+                                sharpen: bool) -> torch.Tensor:
+    """K2's launch on CUDA tensors (the CUDA implementation of
+    ``torch.ops.repro_torch.weighted_era_sharpen``)."""
+    K, N, C, plan = _plan(local_probs, "weighted_era_sharpen")
+    check_weights(weights, local_probs)
     out = torch.empty((N, C), dtype=F32, device=local_probs.device)
     lib = _lib()
     fn = (lib.weighted_era_sharpen_wide if plan.wide
@@ -249,3 +256,26 @@ def weighted_era_sharpen(local_probs: torch.Tensor, weights: torch.Tensor,
     _build.check(lib, err, "weighted_era_sharpen")
     _build.LAUNCHES["weighted_era_sharpen"] += 1
     return out
+
+
+def era_sharpen(local_probs: torch.Tensor, temperature: float) -> torch.Tensor:
+    """K1.  (K, N, C) f32 or bf16 -> (N, C) f32:
+    ``softmax((sum_k p_k) * (1/K) / T)``, through the op
+    ``torch.ops.repro_torch.era_sharpen`` (`kernels.library`)."""
+    _build.require_device(local_probs, "era_sharpen")
+    return torch.ops.repro_torch.era_sharpen(local_probs, temperature)
+
+
+def weighted_era_sharpen(local_probs: torch.Tensor, weights: torch.Tensor,
+                         temperature: float = 0.1,
+                         sharpen: bool = True) -> torch.Tensor:
+    """K2.  (K, N, C) f32 or bf16 x (K,) normalized f32 weights -> (N, C)
+    f32: ``softmax(sum_k w_k p_k / T)``, or the weighted mean itself with
+    ``sharpen=False``.  A zero-weight client changes no bit.  Through the
+    op ``torch.ops.repro_torch.weighted_era_sharpen``."""
+    _build.require_device(local_probs, "weighted_era_sharpen")
+    return torch.ops.repro_torch.weighted_era_sharpen(
+        local_probs, weights, temperature, sharpen)
+
+
+from . import library  # noqa: E402,F401  (registers the ops)

@@ -6,9 +6,10 @@ The CUDA kernel is in ``csrc/ssd_chunk.cu``: one block per chunk, group,
 forms the scores C·Bᵀ of its query rows once, keeps them in shared memory
 and walks each head of the slice over its key tiles, with both products on
 the tensor cores in 3xTF32 (fp32 accuracy).  The note there gives its bound.
-`launch_plan` picks the slice size and checks the shared memory.  A wrapper
-given a CPU tensor computes the plain version; given a CUDA tensor it
-launches the kernel or raises.
+`launch_plan` picks the slice size and checks the shared memory.  The
+wrapper calls the op of `kernels.library`: a CPU tensor takes the plain
+version, a CUDA tensor the kernel (or an exception), a fake tensor the
+fake implementation.
 """
 from __future__ import annotations
 
@@ -95,8 +96,9 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     return torch.einsum("mhqk,mkhp->mqhp", W, x.to(F32))
 
 
-def _check(x, dt, dA, Bm, Cm):
-    _build.require_cuda(x, "ssd_chunk")
+def check(x, dt, dA, Bm, Cm):
+    """(M, Q, H, P, G, N) of inputs the kernel takes, or an exception: the
+    checks that need no pointer (the fake implementation runs them too)."""
     if x.ndim != 4 or Bm.ndim != 4:
         raise ValueError(f"ssd_chunk: expected x (M, Q, H, P) and B, C "
                          f"(M, Q, G, N), got {tuple(x.shape)} and "
@@ -124,23 +126,16 @@ def _check(x, dt, dA, Bm, Cm):
     if H % G:
         raise ValueError(f"ssd_chunk: H={H} heads do not split into G={G} "
                          f"groups")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in
-                                       (x, dt, dA, Bm, Cm)):
-        raise RuntimeError("ssd_chunk: the kernel has no backward (it "
-                           "serves inference, as in the reference); run it "
-                           "under torch.no_grad() or take the plain route")
     return M, Q, H, P, G, N
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
-              Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
-    """K5.  x: (M, Q, H, P); dt/dA: (M, Q, H); Bm/Cm: (M, Q, G, N), all
-    contiguous f32 -> y (M, Q, H, P) f32; head h reads group h // (H/G)."""
-    if x.device.type == "cpu":
-        return ssd_chunk_plain(x, dt, dA, Bm, Cm)
-    M, Q, H, P, G, N = _check(x, dt, dA, Bm, Cm)
-    plan = launch_plan(M, Q, H, G, N, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
+def launch_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """K5's launch on CUDA tensors (the CUDA implementation of
+    ``torch.ops.repro_torch.ssd_chunk``)."""
+    _build.require_cuda(x, "ssd_chunk")
+    M, Q, H, P, G, N = check(x, dt, dA, Bm, Cm)
+    plan = launch_plan(M, Q, H, G, N, _build.sm_count(x.device))
     if plan.blocks >= 2 ** 31:
         raise ValueError(f"ssd_chunk: {plan.blocks} blocks exceed the grid "
                          f"limit")
@@ -153,3 +148,24 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     _build.check(lib, err, "ssd_chunk")
     _build.LAUNCHES["ssd_chunk"] += 1
     return y
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
+              Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """K5.  x: (M, Q, H, P); dt/dA: (M, Q, H); Bm/Cm: (M, Q, G, N), all
+    contiguous f32 -> y (M, Q, H, P) f32; head h reads group h // (H/G).
+    Through the op ``torch.ops.repro_torch.ssd_chunk``, which has no
+    backward: on CUDA tensors an input that needs a gradient is refused;
+    on CPU tensors it takes the (differentiable) plain version itself."""
+    _build.require_device(x, "ssd_chunk")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (x, dt, dA, Bm, Cm)):
+        if x.device.type == "cpu":
+            return ssd_chunk_plain(x, dt, dA, Bm, Cm)
+        raise RuntimeError("ssd_chunk: the kernel has no backward (it "
+                           "serves inference, as in the reference); run it "
+                           "under torch.no_grad() or take the plain route")
+    return torch.ops.repro_torch.ssd_chunk(x, dt, dA, Bm, Cm)
+
+
+from . import library  # noqa: E402,F401  (registers the ops)

@@ -7,6 +7,8 @@ tensor parallelism (`launch.tp`).
     stack in rank (client) order;
   * `all_gather` -- the ranks' pieces concatenated along any dimension;
   * `all_reduce_sum` -- the element-wise sum over the ranks, in place;
+  * `all_reduce_max` -- the element-wise maximum, in place (a decode
+    ring's merge over ranks: `models.shardctx.ring_merge`);
   * `reduce_scatter_sum` -- that sum, each rank keeping its piece along a
     dimension (gloo, which has no reduce-scatter for CUDA tensors, runs it
     as a whole all-reduce and a slice there; the log records the
@@ -66,6 +68,9 @@ class AxisGroup:
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return reduce_scatter_sum(x, self, dim)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_max(x, self)
 
 
 def axis_group(mesh, axis: str) -> AxisGroup:
@@ -153,6 +158,14 @@ def all_gather_clients_async(x: torch.Tensor, pg: AxisGroup) -> Pending:
 def all_reduce_sum(x: torch.Tensor, pg: AxisGroup) -> torch.Tensor:
     """The sum of ``x`` over the ranks, written into ``x`` (contiguous)."""
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=pg.group)
+    _record("all-reduce", pg, x)
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, pg: AxisGroup) -> torch.Tensor:
+    """The element-wise maximum of ``x`` over the ranks, written into
+    ``x`` (contiguous); logged as an "all-reduce"."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=pg.group)
     _record("all-reduce", pg, x)
     return x
 

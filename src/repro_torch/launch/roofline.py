@@ -1,21 +1,25 @@
 """The card's roofline: its published peaks, the least time of a call, and
-a step's useful FLOPs (mirrors the single-device half of
-``repro/launch/roofline.py``).
+a step's useful FLOPs (mirrors ``repro/launch/roofline.py``).
 
-  compute = operations / the peak rate of their type
-  memory  = bytes moved / the HBM rate
+  compute    = operations / the peak rate of their type
+  memory     = bytes moved / the HBM rate
+  collective = each mesh axis's collective bytes / the link its groups span
 
 The constants are one NVIDIA H100 SXM's, from NVIDIA's data sheet (dense
 rates, without sparsity, at the full 700 W power limit; a card set below
-it runs slower under load).  The reference's constants are a TPU v5e's and
-are not used here.
+it runs slower under load), and a DGX H100's links: eight cards a node on
+NVLink 4 (450 GB/s a direction a card), nodes joined by one 400 Gb/s NDR
+InfiniBand port a card (50 GB/s).  The reference's constants are a TPU
+v5e's and are not used here.
 
 The reference parses collective bytes out of compiled HLO; here
 `collective_bytes`, `cross_pod_bytes` and `axis_bytes` (per mesh axis)
 sum the collectives log of `launch.collectives` instead (the per-rank
-result bytes, the reference's convention).  Its ``Roofline.build`` from an XLA executable's cost and
-memory analyses is not ported: the caller passes the terms, and the peak
-memory it measured (``torch.cuda.max_memory_allocated()`` on the card).
+result bytes, the reference's convention).  `Roofline.build` reads a
+record of `launch.costs` (FLOPs, bytes, collectives by axis, live peak,
+argument bytes: the counterparts of an XLA executable's cost and memory
+analyses); `Roofline.from_terms` takes one card's terms and the peak
+memory the caller measured (``torch.cuda.max_memory_allocated()``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS = 495e12           # H100 SXM dense TF32 on the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 on the tensor cores
 L2_BYTES = 50 * 2 ** 20       # H100 SXM L2 cache
+NVLINK_BYTES_PER_S = 450e9    # NVLink 4, a direction a card (DGX H100)
+IB_BYTES_PER_S = 50e9         # one 400 Gb/s NDR InfiniBand port a card
+NODE_CARDS = 8                # cards a DGX H100 node joins by NVLink
 
 
 def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0):
@@ -64,6 +71,25 @@ def axis_bytes(log) -> dict[str, dict[str, int]]:
     return out
 
 
+def axis_groups(mesh_shape: dict, axis: str) -> list:
+    """The rank groups of ``axis`` on a row-major mesh of ``mesh_shape``
+    ({axis: size}, in mesh order), as lists of world ranks."""
+    import numpy as np
+    names = list(mesh_shape)
+    ids = np.arange(int(np.prod(list(mesh_shape.values())))).reshape(
+        tuple(mesh_shape.values()))
+    d = names.index(axis)
+    return np.moveaxis(ids, d, -1).reshape(-1, mesh_shape[axis]).tolist()
+
+
+def link_rate(mesh_shape: dict, axis: str) -> float:
+    """Bytes a second a rank moves over ``axis``: NVLink where every group
+    lies in one node of NODE_CARDS consecutive ranks, else InfiniBand."""
+    inside = all(len({r // NODE_CARDS for r in g}) == 1
+                 for g in axis_groups(mesh_shape, axis))
+    return NVLINK_BYTES_PER_S if inside else IB_BYTES_PER_S
+
+
 @dataclass
 class Roofline:
     arch: str
@@ -81,6 +107,8 @@ class Roofline:
     useful_ratio: float           # model_flops / flops
     peak_mem_bytes: float
     arg_bytes: float
+    mesh: str = "1"
+    n_devices: int = 1
 
     @classmethod
     def from_terms(cls, *, arch, shape, step, flops, bytes_accessed,
@@ -99,6 +127,41 @@ class Roofline:
                    useful_ratio=model_flops / flops if flops else 0.0,
                    peak_mem_bytes=float(peak_mem_bytes),
                    arg_bytes=float(arg_bytes))
+
+    @classmethod
+    def build(cls, *, arch, shape, mesh_name, step, costs, mesh_shape: dict,
+              model_flops):
+        """One rank's roofline from a `launch.costs` record (a `Costs` or
+        its dict) of its step on a mesh of ``mesh_shape`` ({axis: size}):
+        its operations at the bf16 tensor-core rate, its bytes at the HBM
+        rate, and each axis's collective bytes at the rate of the link its
+        groups span (`link_rate`), the axes one after another.
+        ``useful_ratio`` is ``model_flops`` over the FLOPs of every rank."""
+        c = costs if isinstance(costs, dict) else costs.to_dict()
+        n = 1
+        for size in mesh_shape.values():
+            n *= size
+        coll = {kind: 0 for per in c["coll"].values() for kind in per}
+        tx = 0.0
+        for axis, per in c["coll"].items():
+            for kind, nbytes in per.items():
+                coll[kind] += nbytes
+            if axis:                  # "": one-rank groups move nothing
+                tx += sum(per.values()) / link_rate(mesh_shape, axis)
+        tc = c["flops"] / BF16_FLOPS
+        tm = c["bytes"] / HBM_BYTES_PER_S
+        terms = {"compute": tc, "memory": tm, "collective": tx}
+        total = c["flops"] * n
+        return cls(arch=arch, shape=shape, step=step, flops=c["flops"],
+                   bytes_accessed=c["bytes"],
+                   coll_bytes=float(sum(coll.values())),
+                   coll_breakdown=coll, t_compute=tc, t_memory=tm,
+                   t_collective=tx, bottleneck=max(terms, key=terms.get),
+                   model_flops=model_flops,
+                   useful_ratio=model_flops / total if total else 0.0,
+                   peak_mem_bytes=float(c["peak_bytes"]),
+                   arg_bytes=float(c["arg_bytes"]), mesh=mesh_name,
+                   n_devices=n)
 
     def to_dict(self):
         return asdict(self)

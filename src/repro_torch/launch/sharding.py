@@ -137,15 +137,36 @@ def param_specs(cfg: ModelConfig, params, mesh, client_axis=None,
 
 
 @functools.lru_cache(maxsize=None)
-def _shapes(cfg: ModelConfig) -> tuple:
+def leaf_structs(cfg: ModelConfig) -> tuple:
+    """((name, shape, dtype), ...) of one model of ``cfg``: its
+    `model_init` run once under fake tensors (no memory), at one
+    pattern-repeat (one encoder layer), the stacked leaves' leading axis
+    then set to the config's depth (a MoE init draws expert by expert:
+    maverick's 48 layers take 36,000 fake ops)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     import torch
 
     from ..models.api import model_init
+    one = cfg.replace(n_layers=len(cfg.pattern),
+                      **({"enc_layers": 1} if cfg.enc_layers else {}))
+    depth = {"blocks": cfg.n_blocks, "dec": cfg.n_layers,
+             "enc": cfg.enc_layers}
     with FakeTensorMode():
-        return tuple((k, tuple(v.shape)) for k, v in
-                     model_init(cfg, torch.Generator(), "cpu").items())
+        params = model_init(one, torch.Generator(), "cpu")
+    out = []
+    for k, v in params.items():
+        shape = tuple(v.shape)
+        stack = k.split("/")[0]
+        if stack in _STACK_KEYS:
+            assert shape[0] == 1, (k, shape)
+            shape = (depth[stack],) + shape[1:]
+        out.append((k, shape, v.dtype))
+    return tuple(out)
+
+
+def _shapes(cfg: ModelConfig) -> tuple:
+    return tuple((k, s) for k, s, _ in leaf_structs(cfg))
 
 
 def model_shapes(cfg: ModelConfig, lead: tuple = ()) -> dict:
@@ -273,6 +294,33 @@ def local_slice(tensor, spec, mesh, rank: int):
                              f"over {entry!r} ({n} shards)")
         out = out.narrow(d, i * (size // n), size // n)
     return out
+
+
+def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """The shape of a rank's `local_slice` of a leaf of ``shape`` laid out
+    by ``spec`` (every rank's is the same)."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        n = 1
+        for a in _axes(entry):
+            n *= sizes[a]
+        if out[d] % n:
+            raise ValueError(f"dimension {d} of size {out[d]} does not "
+                             f"split over {entry!r} ({n} shards)")
+        out[d] //= n
+    return tuple(out)
+
+
+def local_cache_shapes(cfg: ModelConfig, shapes: dict, mesh,
+                       batch: int) -> dict:
+    """{leaf: a rank's shape} of a decode cache whose full leaf shapes are
+    ``shapes``, under `cache_specs` (the layout a decode step under a
+    `launch.tp` plan reads)."""
+    specs = cache_specs(cfg, {k: SimpleNamespace(shape=tuple(v))
+                              for k, v in shapes.items()}, mesh, batch)
+    return {k: local_shape(tuple(v), specs[k], mesh)
+            for k, v in shapes.items()}
 
 
 @dataclass(frozen=True)

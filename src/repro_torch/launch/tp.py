@@ -53,8 +53,8 @@ import torch
 
 from .collectives import AxisGroup, all_gather, all_reduce_sum, axis_group
 from .mesh import axis_size
-from .sharding import (Ruler, _axes, _ok, local_slice, model_shapes,
-                       param_specs)
+from .sharding import (Ruler, _axes, _ok, local_cache_shapes, local_slice,
+                       model_shapes, param_specs)
 
 # what each later slice adds (ROADMAP, Queue 1, item 2.1's follow-ups)
 _NOT_YET = {
@@ -83,6 +83,7 @@ class TPPlan:
     specs: dict          # flat leaf name -> its spec in one model
     data_dims: dict      # flat leaf name -> its "data" dim (block leaves:
                          # within one block) or None
+    fsdp: bool = True    # the leaves split over "data" (False: replicated)
 
     # ------------------------------------------------------------ layout --
     def slices(self, params: dict) -> dict:
@@ -120,6 +121,34 @@ class TPPlan:
         """This rank's part of the mean loss over the data ranks."""
         return loss / self.data.size if self.data.size > 1 else loss
 
+    def check_family(self, cfg) -> None:
+        """`check_family` of ``cfg`` on the plan's mesh."""
+        check_family(cfg, self.mesh)
+
+    def cache_shapes(self, cfg, shapes: dict, batch: int) -> dict:
+        """{leaf: this rank's shape} of a decode cache whose whole leaves
+        have ``shapes``, for a global batch of ``batch`` rows
+        (`sharding.local_cache_shapes`)."""
+        return local_cache_shapes(cfg, shapes, self.mesh, batch)
+
+    def ring(self, cfg, batch: int, window: int) -> "Ring":
+        """How `sharding.cache_specs` lays out a decode ring of ``window``
+        slots for a global batch of ``batch`` rows on this mesh, from this
+        rank (`Ring`)."""
+        spec = _ring_spec(cfg, self.mesh, batch, window)
+        if (spec[3] == "model") != self.attn_tp:
+            raise NotImplementedError(
+                f"{cfg.name}: the cache splits the key/value heads over "
+                f"'model' but the plan does not split attention (or the "
+                f"reverse)")
+        groups = {"data": self.data, "model": self.model}
+        shards, index = 1, 0
+        for a in _axes(spec[2]):
+            g = groups[a]
+            shards, index = shards * g.size, index * g.size + g.rank
+        return Ring(batch_split=spec[1] == "data", axes=_axes(spec[2]),
+                    shards=shards, index=index, window=window)
+
     def sum_losses(self, losses: torch.Tensor) -> torch.Tensor:
         """The ranks' `loss_share`s summed over "data"."""
         if self.data.size == 1:
@@ -139,20 +168,54 @@ def _data_dims(specs: dict) -> dict:
     return out
 
 
-def plan_for(cfg, mesh) -> Optional[TPPlan]:
+def plan_for(cfg, mesh, fsdp: bool = True) -> Optional[TPPlan]:
     """The plan of ``cfg`` on ``mesh`` (a ``DeviceMesh``), or None when
     neither "data" nor "model" has more than one rank.  A family other than
-    the dense one raises there: it must not run replicated in silence."""
+    the dense one raises there: it must not run replicated in silence.
+    ``fsdp=False`` keeps the leaves whole on "data" (`param_specs`'
+    option, the reference's serving layout): "data" then splits only the
+    batch and, where `sharding.cache_specs` puts it there, a decode
+    ring."""
     if axis_size(mesh, "data") == 1 and axis_size(mesh, "model") == 1:
         return None
     check_family(cfg, mesh)
     r = Ruler(cfg, mesh)
-    specs = param_specs(cfg, model_shapes(cfg), mesh)
+    specs = param_specs(cfg, model_shapes(cfg), mesh, fsdp=fsdp)
     return TPPlan(mesh=mesh, data=axis_group(mesh, "data"),
                   model=axis_group(mesh, "model"), attn_tp=r.attn_tp,
                   mlp_tp=r.M(cfg.d_ff) is not None,
                   vocab_tp=r.M(cfg.eff_vocab) is not None, specs=specs,
-                  data_dims=_data_dims(specs))
+                  data_dims=_data_dims(specs), fsdp=fsdp)
+
+
+@dataclass(frozen=True)
+class Ring:
+    """A decode ring's layout under `sharding.cache_specs` seen from one
+    rank: the batch over "data" (``batch_split``) and the window's slots
+    over ``axes`` (major first), cut into ``shards`` of which this rank
+    holds number ``index``: slots [index * W / shards, (index + 1) * W /
+    shards).  The key/value heads are split over "model" exactly where
+    the plan splits attention."""
+    batch_split: bool
+    axes: tuple
+    shards: int
+    index: int
+    window: int
+
+    @property
+    def local_window(self) -> int:
+        return self.window // self.shards
+
+    @property
+    def first_slot(self) -> int:
+        return self.index * self.local_window
+
+
+def _ring_spec(cfg, mesh, batch: int, window: int) -> tuple:
+    """`cache_specs`' spec of one attention ring (L, B, W, Kh, hd)."""
+    from .sharding import cache_specs
+    leaf = SimpleNamespace(shape=(1, batch, window, cfg.eff_kv_heads, cfg.hd))
+    return cache_specs(cfg, {"s0/k": leaf}, mesh, batch)["s0/k"]
 
 
 def check_family(cfg, mesh) -> None:
@@ -183,15 +246,19 @@ def _rows(b: int, D: int) -> int:
     return b // D if _ok(b, D) else b
 
 
-def _leaves(cfg, shape: tuple):
+def _mesh(shape: tuple):
+    return SimpleNamespace(axis_names=("pod", "data", "model"),
+                           devices=np.empty(shape))
+
+
+def _leaves(cfg, shape: tuple, fsdp: bool = True):
     """(name, spec (within one block for a stacked leaf), the blocks it
     stands for, its local values (one block's), their element size) of
     each leaf of one model on a ("pod", "data", "model") mesh of
     ``shape``."""
-    mesh = SimpleNamespace(axis_names=("pod", "data", "model"),
-                           devices=np.empty(shape))
+    mesh = _mesh(shape)
     sizes = dict(zip(("pod", "data", "model"), shape))
-    specs = param_specs(cfg, model_shapes(cfg), mesh)
+    specs = param_specs(cfg, model_shapes(cfg), mesh, fsdp=fsdp)
     for k, sh in model_shapes(cfg).items():
         sp, n, times = specs[k], math.prod(sh.shape), 1
         if k.startswith("blocks/"):
@@ -286,3 +353,42 @@ def round_bytes(cfg, shape: tuple, *, clients: int, batch: int, seq: int,
         parts.append({"data": {"all-reduce": 4 * (clients // P)}})
     parts.append({pod: {"all-gather": 4 * clients}})
     return merge(*parts)
+
+
+def decode_bytes(cfg, shape: tuple, *, batch: int, window: int,
+                 fsdp: bool = True) -> dict:
+    """{axis: {kind: bytes}} one rank's collectives move in one decode
+    step of a global ``batch`` against rings of ``window`` slots on a
+    ("pod", "data", "model") mesh of ``shape``: FSDP's all-gathers of the
+    leaves "data" splits (``fsdp``), the "model" all-reduces of the
+    embedding and each block's row-parallel products and the logits'
+    all-gather, and, where `sharding.cache_specs` splits the window, each
+    attention layer's merge over each of the window's axes: the all-reduce
+    of the row maxima (B, H) f32, then of the sums of exp and the weighted
+    values (B, H, hd + 1) f32."""
+    _, D, M = shape
+    out: dict = {}
+
+    def add(axis, kind, n):
+        per = out.setdefault(axis, {})
+        per[kind] = per.get(kind, 0) + n
+
+    if D > 1 and fsdp:
+        for k, sp, times, n, elt in _leaves(cfg, shape):
+            if any("data" in _axes(e) for e in sp):
+                add("data", "all-gather", n * elt * D * times)
+    spec = _ring_spec(cfg, _mesh(shape), batch, window)
+    rows = batch // D if spec[1] == "data" else batch
+    e = torch.empty((), dtype=cfg.cdtype).element_size()
+    if M > 1:
+        r = Ruler(cfg, _mesh(shape))
+        act = rows * cfg.d_model * e
+        vocab = r.M(cfg.eff_vocab) is not None
+        per_block = (r.attn_tp + (r.M(cfg.d_ff) is not None)) * act
+        add("model", "all-reduce", vocab * act + cfg.n_blocks * per_block)
+        add("model", "all-gather", vocab * rows * cfg.eff_vocab * e)
+    heads = cfg.eff_heads // (M if spec[3] == "model" else 1)
+    n_attn = cfg.n_blocks * sum(m == "attn" for m, _ in cfg.pattern)
+    for a in _axes(spec[2]):
+        add(a, "all-reduce", n_attn * rows * heads * 4 * (cfg.hd + 2))
+    return merge(out)

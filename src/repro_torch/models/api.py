@@ -14,6 +14,22 @@ from ..device import resolve_device
 from . import encdec as ED
 from . import transformer as T
 from .base import ModelConfig
+from .shardctx import current_plan
+
+
+def _check_plan(cfg: ModelConfig, prefill: bool = False) -> None:
+    """Under a tensor-parallel plan only the dense family decodes (other
+    families raise the plan's `check_family` error), and nothing prefills
+    yet."""
+    plan = current_plan()
+    if plan is None:
+        return
+    plan.check_family(cfg)
+    if prefill:
+        raise NotImplementedError(
+            f"{cfg.name}: prefill under a tensor-parallel plan is queued "
+            f"(ROADMAP, Queue 1: serving under a plan); the decode step "
+            f"runs under one")
 
 
 def _check_inputs(cfg: ModelConfig, batch: dict) -> None:
@@ -52,7 +68,10 @@ def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
                      seq_len: int, batch: dict | None = None) -> dict:
     """An empty decode cache for ``seq_len`` positions (it sizes the
     attention ring buffers) on the parameters' device; an audio model's
-    also holds the cross keys and values of ``batch["frames"]``."""
+    also holds the cross keys and values of ``batch["frames"]``.  Under a
+    tensor-parallel plan (the dense family) it is this rank's part under
+    `launch.sharding.cache_specs`."""
+    _check_plan(cfg)
     if cfg.arch_type == "audio":
         with torch.no_grad():
             enc_out = ED.encode(cfg, params, batch["frames"])
@@ -63,12 +82,15 @@ def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
 
 
 def model_decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                      token: torch.Tensor, pos):
+                      token: torch.Tensor, pos, seq_len: int | None = None):
     """One decode step at each row's position ``pos`` ((B,) or a scalar);
-    writes ``cache`` in place (see `transformer.decode_step`)."""
+    writes ``cache`` in place (see `transformer.decode_step`, also for the
+    dense family's step under a tensor-parallel plan, which needs the
+    ``seq_len`` given to `model_init_cache`)."""
+    _check_plan(cfg)
     if cfg.arch_type == "audio":
         return ED.encdec_decode_step(cfg, params, cache, token, pos)
-    return T.decode_step(cfg, params, cache, token, pos)
+    return T.decode_step(cfg, params, cache, token, pos, seq_len)
 
 
 def model_prefill(cfg: ModelConfig, params: dict, batch: dict,
@@ -79,6 +101,7 @@ def model_prefill(cfg: ModelConfig, params: dict, batch: dict,
     values, so its decode continues the teacher-forced decoder (the
     reference leaves them empty: ROADMAP, deviation 16)."""
     _check_inputs(cfg, batch)
+    _check_plan(cfg, prefill=True)
     if cfg.arch_type == "audio":
         with torch.no_grad():
             enc_out = ED.encode(cfg, params, batch["frames"])

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .shardctx import copy_to_model, current_plan, reduce_model
+from .shardctx import copy_to_model, current_plan, reduce_model, ring_merge
 from .base import ModelConfig
 from .layers import F32, _init, apply_rope, rope_freqs
 
@@ -191,14 +191,31 @@ def ring_layout(kv: torch.Tensor, W: int) -> torch.Tensor:
 
 
 def attn_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: dict, pos) -> tuple[torch.Tensor, dict]:
+                     cache: dict, pos, ring=None) -> tuple[torch.Tensor, dict]:
     """One-token decode.  x: (B, 1, D); cache k/v: (B, W, Kh, hd) ring
     buffers holding (RoPE'd) keys for positions (pos-W, pos-1], token t at
     slot t % W.  ``pos`` is each row's current position, (B,) or a scalar
     for every row.  Writes row b's new key and value at slot pos[b] % W of
-    ``cache`` in place and returns (out (B, 1, D), cache)."""
+    ``cache`` in place and returns (out (B, 1, D), cache).
+
+    Under a tensor-parallel plan that splits the heads the rank runs its
+    heads against its key/value heads, ``wo`` row-parallel and all-reduced
+    over "model", as `attn_forward`.  ``ring`` (`launch.tp.Ring`) says how
+    `sharding.cache_specs` cut the ring: where it splits the window over
+    ranks, ``cache`` holds this rank's slots [first, first + W_local) of
+    the ring of ``ring.window`` slots, a row's new key and value are
+    written only by the rank holding its slot, and each rank's (max, sum,
+    weighted values) over its slots merge over the ring's ranks
+    (`shardctx.ring_merge`)."""
     B = x.shape[0]
-    W = cache["k"].shape[1]
+    plan = current_plan()
+    split = plan is not None and plan.attn_tp
+    if split:
+        x = copy_to_model(plan, x)
+    ck, cv = cache["k"], cache["v"]
+    Wl = ck.shape[1]
+    spread = ring is not None and ring.shards > 1
+    W, lo = (ring.window, ring.first_slot) if spread else (Wl, 0)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64).expand(B)
     q, k, v = qkv_proj(p, cfg, x)
     if cfg.pos_embed == "rope":
@@ -206,27 +223,45 @@ def attn_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     rows = torch.arange(B, device=x.device)
-    ck, cv = cache["k"], cache["v"]
-    ck[rows, pos % W] = k[:, 0]
-    cv[rows, pos % W] = v[:, 0]
+    if spread:
+        # only the rank holding a row's slot writes it (no data-dependent
+        # shapes: every rank writes back its old value elsewhere)
+        slot = pos % W
+        own = ((slot >= lo) & (slot < lo + Wl))[:, None, None]
+        idx = torch.clamp(slot - lo, 0, Wl - 1)
+        ck[rows, idx] = torch.where(own, k[:, 0], ck[rows, idx])
+        cv[rows, idx] = torch.where(own, v[:, 0], cv[rows, idx])
+    else:
+        ck[rows, pos % W] = k[:, 0]
+        cv[rows, pos % W] = v[:, 0]
 
     # position held by each slot j: largest t <= pos with t = j (mod W)
-    j = torch.arange(W, device=x.device)
+    j = lo + torch.arange(Wl, device=x.device)
     p_ = pos[:, None]
-    slot_pos = p_ - torch.remainder(p_ - j, W)                # (B, W)
+    slot_pos = p_ - torch.remainder(p_ - j, W)                # (B, Wl)
     valid = (slot_pos >= 0) & (slot_pos > p_ - W)
     if cfg.sliding_window is not None:
         valid &= slot_pos > p_ - cfg.sliding_window
 
-    Kh, hd = cfg.eff_kv_heads, cfg.hd
-    G = cfg.eff_heads // Kh
+    Kh, hd = ck.shape[2], cfg.hd
+    G = q.shape[2] // Kh
     qg = q.reshape(B, Kh, G, hd)
     s = torch.einsum("bkgd,bckd->bkgc", qg, ck).to(F32) * hd ** -0.5
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgc,bckd->bkgd", w.to(cv.dtype), cv)
-    o = head_mask(cfg, o.reshape(B, 1, Kh * G, hd)).reshape(
+    mask = valid[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    if spread:
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.where(mask, torch.exp(s - m), 0.0)
+        acc = torch.einsum("bkgc,bckd->bkgd", e.to(cv.dtype), cv).to(F32)
+        o = ring_merge(plan, ring, m, e.sum(dim=-1), acc).to(cv.dtype)
+    else:
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgc,bckd->bkgd", w.to(cv.dtype), cv)
+    o = head_mask(cfg, o.reshape(B, 1, Kh * G, hd),
+                  plan.head_start(Kh * G) if split else 0).reshape(
         B, 1, Kh * G * hd) @ p["wo"]
+    if split:
+        o = reduce_model(plan, o)
     return o, cache
 
 

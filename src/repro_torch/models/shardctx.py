@@ -20,7 +20,8 @@ the all-reduce whose backward is the identity (`_ReduceFromModel`), the
 vocabulary all-gather whose backward keeps the rank's columns
 (`gather_vocab`), FSDP's gather whose backward reduce-scatters
 (`_GatherData`: `gather_block`, `gather_top`), and the identity whose
-backward sums over "data" (`_SumOverData`).  The plan is process-wide, not
+backward sums over "data" (`_SumOverData`), and the decode step's merge
+of a ring split over ranks (`ring_merge`).  The plan is process-wide, not
 thread-local: a block's recompute runs on autograd's thread inside the
 round that set it.
 """
@@ -220,3 +221,24 @@ def gather_top(params: dict) -> dict:
         return params
     return {k: (v if k.startswith("blocks/") else _data_leaf(plan, k, v))
             for k, v in params.items()}
+
+
+def ring_merge(plan, ring, m: torch.Tensor, l: torch.Tensor,
+               acc: torch.Tensor) -> torch.Tensor:
+    """Attention over a ring whose slots lie on several ranks
+    (``ring.axes``, `launch.tp.Ring`), from each rank's statistics of its
+    slots: the row maxima ``m`` (..., 1) f32, the sums of ``exp(s - m)``
+    ``l`` (...,) and the exp-weighted values ``acc`` (..., hd) f32.  The
+    maxima are all-reduced (max) over the ring's axes, each rank rescales
+    its sums to the global maximum, and the sums and values are all-reduced
+    together: the online softmax's (max, sum) merge.  Returns the
+    normalized output (..., hd) f32."""
+    groups = [{"data": plan.data, "model": plan.model}[a] for a in ring.axes]
+    g_max = m.clone()
+    for g in groups:
+        g_max = g.all_reduce_max(g_max)
+    scale = torch.exp(m - g_max)
+    both = torch.cat([acc * scale, (l[..., None] * scale)], dim=-1)
+    for g in groups:
+        both = g.all_reduce(both.contiguous())
+    return both[..., :-1] / both[..., -1:]

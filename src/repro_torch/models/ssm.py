@@ -219,17 +219,22 @@ def _last(a: torch.Tensor, w1: int) -> torch.Tensor:
     return F.pad(tail, (0, 0, w1 - tail.shape[1], 0))
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, device) -> dict:
+def ssm_cache_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """{leaf: (shape, dtype)} of one Mamba sub-layer's decode cache."""
     w1 = cfg.ssm_conv - 1
     gn = cfg.ssm_groups * cfg.ssm_state
-    z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     return {
-        "state": z((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-                   F32),
-        "conv_x": z((batch, w1, cfg.d_inner), cfg.cdtype),
-        "conv_b": z((batch, w1, gn), cfg.cdtype),
-        "conv_c": z((batch, w1, gn), cfg.cdtype),
+        "state": ((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                  F32),
+        "conv_x": ((batch, w1, cfg.d_inner), cfg.cdtype),
+        "conv_b": ((batch, w1, gn), cfg.cdtype),
+        "conv_c": ((batch, w1, gn), cfg.cdtype),
     }
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, (shape, dtype) in ssm_cache_shapes(cfg, batch).items()}
 
 
 def _conv_step(window_prev, new, w, b):

@@ -37,22 +37,26 @@ Over a mesh that splits "data" or "model" (a plan in force:
 `shardctx.active_plan`),
 ``lm_logits`` gathers the leaves outside the stack over "data" once and
 each block's inside its checkpoint (the recompute gathers again, whole:
-no early stop), and returns the rank's vocabulary columns.
+no early stop), and returns the rank's vocabulary columns; ``decode_step``
+gathers them the same way, runs against the rank's part of the cache
+(`init_cache` lays it out by `sharding.cache_specs`) and returns whole
+rows of the vocabulary.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .shardctx import current_plan, gather_block, gather_top
+from .shardctx import current_plan, gather_block, gather_top, gather_vocab
 
 from .attention import (attn_decode_step, attn_forward, init_attn,
-                        init_kv_cache, ring_layout)
+                        ring_layout)
 from .base import ModelConfig
 from .layers import (_init, embed, init_embed, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, sub, unembed)
 from .moe import init_moe, moe_ffn
-from .ssm import init_mamba, init_ssm_cache, mamba_decode_step, mamba_forward
+from .ssm import (init_mamba, mamba_decode_step, mamba_forward,
+                  ssm_cache_shapes)
 
 
 def _block(params: dict, i: int, stack: str = "blocks") -> dict:
@@ -203,26 +207,37 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
     """Decode cache for ``seq_len`` positions, ``s{i}/<leaf>`` with the
     leading n_blocks axis: attention sub-layers get ring buffers ``k`` and
     ``v`` of (n_blocks, batch, W, Kh, hd), W = min(seq_len, sliding_window);
-    Mamba sub-layers the O(1) SSM state and conv windows."""
-    cache = {}
+    Mamba sub-layers the O(1) SSM state and conv windows.  Under a plan
+    (`shardctx.current_plan`) each leaf is this rank's part under
+    `sharding.cache_specs` (`TPPlan.cache_shapes`)."""
+    plan = current_plan()
+    full = {}
     for i, (mixer, _) in enumerate(cfg.pattern):
-        one = (init_kv_cache(cfg, batch, _window(cfg, seq_len), device)
-               if mixer == "attn" else init_ssm_cache(cfg, batch, device))
-        for k, v in one.items():
-            cache[f"s{i}/{k}"] = v[None].expand(
-                (cfg.n_blocks,) + tuple(v.shape)).contiguous()
-    return cache
+        if mixer == "attn":
+            kv = ((batch, _window(cfg, seq_len), cfg.eff_kv_heads, cfg.hd),
+                  cfg.cdtype)
+            one = {"k": kv, "v": kv}
+        else:
+            one = ssm_cache_shapes(cfg, batch)
+        for k, (shape, dtype) in one.items():
+            full[f"s{i}/{k}"] = ((cfg.n_blocks,) + shape, dtype)
+    shapes = {k: sh for k, (sh, _) in full.items()}
+    if plan is not None:
+        shapes = plan.cache_shapes(cfg, shapes, batch)
+    return {k: torch.zeros(shapes[k], dtype=dt, device=device)
+            for k, (_, dt) in full.items()}
 
 
 def _block_decode(cfg: ModelConfig, bp: dict, bc: dict, x: torch.Tensor,
-                  pos: torch.Tensor):
+                  pos: torch.Tensor, ring=None):
     """One pattern-repeat of decode; writes its cache views ``bc`` in
     place."""
     for i, (mixer, ffn) in enumerate(cfg.pattern):
         h = rmsnorm(sub(bp, f"s{i}_n1"), x, cfg.norm_eps)
         mine = sub(bc, f"s{i}")
         if mixer == "attn":
-            out, _ = attn_decode_step(sub(bp, f"s{i}_mix"), cfg, h, mine, pos)
+            out, _ = attn_decode_step(sub(bp, f"s{i}_mix"), cfg, h, mine, pos,
+                                      ring)
         else:
             out, new = mamba_decode_step(sub(bp, f"s{i}_mix"), cfg, h, mine)
             for k, v in new.items():
@@ -231,22 +246,57 @@ def _block_decode(cfg: ModelConfig, bp: dict, bc: dict, x: torch.Tensor,
     return x
 
 
+def _ring(cfg: ModelConfig, plan, cache: dict, batch: int, seq_len):
+    """The `launch.tp.Ring` of the rings in ``cache``, this rank's part of
+    a cache of ``seq_len`` positions for a global ``batch`` (a rank's
+    slots do not tell the whole window: 6 of them are a ring of 6 kept
+    whole or of 24 split 4 ways)."""
+    if seq_len is None:
+        raise ValueError(f"{cfg.name}: a decode step under a plan needs "
+                         f"the seq_len its cache was made for")
+    ring = plan.ring(cfg, batch, _window(cfg, seq_len))
+    local = next(v.shape[2] for k, v in cache.items() if k.endswith("/k"))
+    if ring.local_window != local:
+        raise ValueError(f"{cfg.name}: the cache holds {local} slots a "
+                         f"ring, not the {ring.local_window} of this rank's "
+                         f"part of {seq_len} positions at batch {batch}")
+    return ring
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                token: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
+                token: torch.Tensor, pos, seq_len: int | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step.  token: (B,) int; ``pos``: each row's position,
     (B,) or one scalar for every row.  Returns (logits (B, V), cache).
 
     The cache passed in is written in place and returned: each attention
     ring buffer (``s{i}/k``, ``s{i}/v``) at slot pos % W of each row, and
     every Mamba leaf (``state``, ``conv_*``) whole.  A caller that needs
-    the cache as it was clones it first."""
+    the cache as it was clones it first.
+
+    Under a tensor-parallel plan (the dense family) ``params`` are the
+    rank's slices, ``cache`` the rank's part (`init_cache`), and ``token``
+    and ``pos`` the whole batch's: the rank takes its rows where the
+    cache splits the batch over "data" and returns their whole-vocabulary
+    logits (B_local, V); ``seq_len`` is the one `init_cache` was given.
+    The leaves outside the stack are gathered over "data" once a step and
+    each block's once a block (FSDP), as `lm_logits` does."""
+    plan = current_plan()
+    ring = None
+    if plan is not None:
+        ring = _ring(cfg, plan, cache, token.shape[0], seq_len)
+        if ring.batch_split:
+            token = plan.data_rows({"t": token})["t"]
+            if torch.as_tensor(pos).ndim:
+                pos = plan.data_rows({"p": pos})["p"]
+        params = gather_top(params)
     x = embed(sub(params, "embed"), cfg, token[:, None])
     pos = torch.as_tensor(pos, device=x.device)
     for b in range(cfg.n_blocks):
-        x = _block_decode(cfg, _block(params, b),
-                          {k: v[b] for k, v in cache.items()}, x, pos)
+        x = _block_decode(cfg, gather_block(_block(params, b)),
+                          {k: v[b] for k, v in cache.items()}, x, pos, ring)
     x = rmsnorm(sub(params, "final_norm"), x, cfg.norm_eps)
-    return unembed(sub(params, "embed"), cfg, x)[:, 0], cache
+    return gather_vocab(unembed(sub(params, "embed"), cfg, x)[:, 0]), cache
 
 
 # ---------------------------------------------------------------- prefill ----

@@ -1014,3 +1014,78 @@ def test_tp_world_two_over_gloo_on_one_card(cuda_device, shape):
             assert rec["launches"]["distill_loss_bwd"] == (
                 0 if kind == "fedavg" else 2 * rounds), case
     assert max(max(f["fedavg"]["max_abs"].values()) for f in faulty) > 1e-5
+
+# ------------------------------------------------- K1-K5 as library ops --
+def _op_inputs(device, name):
+    """Small CUDA inputs of op ``name`` of `kernels.library`."""
+    if name in ("era_sharpen", "weighted_era_sharpen"):
+        p = _probs(device, (3, 5, 70), 31)
+        w = _weights(device, 3, 32)
+        return (p, 0.1) if name == "era_sharpen" else (p, w, 0.1, True)
+    z = torch.randn((6, 90), generator=_gen(device, 33), device=device) * 3
+    t = _probs(device, (6, 90), 34)
+    if name == "distill_loss_fwd":
+        return z, t
+    if name == "distill_loss_bwd":
+        _, logz = tdl.distill_loss_fwd_plain(z, t)
+        return z, t, logz, t.sum(-1), torch.full((1,), 0.25, device=device)
+    g = _gen(device, 35)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
+    dt = torch.nn.functional.softplus(rn(2, 8, 4))
+    return rn(2, 8, 4, 3), dt, -0.3 * dt, rn(2, 8, 2, 5), rn(2, 8, 2, 5)
+
+
+LIB_OPS = ("era_sharpen", "weighted_era_sharpen", "distill_loss_fwd",
+           "distill_loss_bwd", "ssd_chunk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LIB_OPS)
+def test_library_op_on_the_card(cuda_device, name):
+    """Each op on CUDA tensors: ``torch.library.opcheck`` (schema, the fake
+    implementation against the kernel, AOT dispatch), one launch counted a
+    call, bitwise the launch function it wraps, and against the plain
+    version on the CPU within the kernel's tolerance."""
+    from torch.library import opcheck
+
+    from repro_torch.kernels import library
+    op = getattr(torch.ops.repro_torch, name)
+    args = _op_inputs(cuda_device, name)
+    opcheck(op, args)
+    launch = {"era_sharpen": tes.launch_era_sharpen,
+              "weighted_era_sharpen": tes.launch_weighted_era_sharpen,
+              "distill_loss_fwd": tdl.launch_distill_loss_fwd,
+              "distill_loss_bwd": tdl.launch_distill_loss_bwd,
+              "ssd_chunk": tssd.launch_ssd_chunk}[name]
+    _build.reset_launches()
+    got, want = op(*args), launch(*args)
+    assert _build.LAUNCHES[name] == 2
+    as_tuple = lambda r: r if isinstance(r, tuple) else (r,)
+    cpu = as_tuple(op(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                        for a in args)))
+    for g, w, c in zip(as_tuple(got), as_tuple(want), cpu):
+        assert torch.equal(g, w)
+        torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+    assert library.op_bytes(name, *args) == sum(
+        a.nbytes for a in args if isinstance(a, torch.Tensor)) + sum(
+        g.nbytes for g in as_tuple(got))
+
+
+@pytest.mark.cuda
+def test_library_ops_refuse_on_the_card(cuda_device):
+    """A CUDA tensor a kernel refuses still raises through the op, with no
+    launch counted; a fake CUDA tensor takes the fake implementation."""
+    from repro_torch.launch import specs
+    p = _probs(cuda_device, (4, 8, 10), 36)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="dtype"):
+        tes.era_sharpen(p.half(), 0.1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tssd.ssd_chunk(*(t.requires_grad_() for t in
+                         _op_inputs(cuda_device, "ssd_chunk")))
+    mode = specs.fake_mode()
+    with mode:
+        f = torch.empty((4, 8, 10), device=cuda_device)
+        out = tes.era_sharpen(f, 0.1)
+    assert out.shape == (8, 10) and out.device.type == "cuda"
+    assert all(v == 0 for v in _build.LAUNCHES.values())

@@ -3,7 +3,7 @@
 client a card, and the dense family's tensor parallelism inside each
 client, each against the same cases in one process.
 
-    python3 tools/pod_cards.py [--world 2] [--smoke-world 4] [--parts abcde]
+    python3 tools/pod_cards.py [--world 2] [--smoke-world 4] [--parts abcdef]
     python3 tools/pod_cards.py --device cpu --backend gloo --smoke  # rehearsal
 
 (a) qwen1.5-4b at full width and 40 layers (``--smoke`` cuts it), K =
@@ -35,8 +35,18 @@ move past that bound, and the check shown to fail on a FedAvg round with
 one rank's ``w_down`` slice 1% off before it.  (e) as (d) for FSDP on the
 mesh (2, 2, 1): one client a "pod", each client's leaves split over a
 "data" axis of 2, each data rank on half the batch; 2 ERA rounds, a top-k
-8 round and a FedAvg round.  Per case and rank one JSON line; every
-card's ``nvidia-smi`` name and power limit first.  A mismatch exits 1.
+8 round and a FedAvg round.  (f) the dense family's decode step under
+tensor parallelism (`launch.decode_check`) on (1, 1, 4) over the four
+cards: phi3-medium-14b at full width and its 40 layers in bf16 (the
+embedding scaled), whose 10 key/value heads do not split 4 ways, so
+attention is replicated and the ring's window split over "model"; batch
+8, a 512-token prompt fed through decode, then 32 greedy tokens: ms a
+step, peak a rank, bytes a step by axis held to `launch.tp.decode_bytes`;
+then the same at 4 layers in float32 held against one process on card 0
+(tokens equal, logits within 1e-5 of the largest), and with rank 1's
+value ring 1% off before a late step, which the check must fail.  Per
+case and rank one JSON line; every card's ``nvidia-smi`` name and power
+limit first.  A mismatch exits 1.
 """
 from __future__ import annotations
 
@@ -223,6 +233,63 @@ def _tp_lines(label, cfg, spec, rank_recs, one) -> bool:
     return ok
 
 
+DECODE_SHAPE, DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = (1, 1, 4), 8, 512, 32
+DECODE_RTOL = 1e-5
+
+
+def decode_check(label, smoke: bool, device: str, backend: str) -> bool:
+    """Case (f): see the module's docstring."""
+    import dataclasses as dc_
+
+    from repro_torch.launch import decode_check as dc
+    from repro_torch.launch import dist, tp
+    over = (("n_heads", 8), ("n_kv_heads", 2)) if smoke else ()
+    timed = dc.DecodeSpec(arch=TP_ARCH, smoke=smoke, overrides=over,
+                          mesh_shape=DECODE_SHAPE, batch=DECODE_BATCH,
+                          prompt=DECODE_PROMPT, steps=DECODE_STEPS,
+                          scale_embedding=True)
+    held = dc_.replace(timed, n_layers=None if smoke else TP_CHECK_LAYERS,
+                       overrides=over + (("dtype", "float32"),))
+    params = dc.init_params(held, device)
+    one = dc.greedy(held, params, device)
+    del params
+    world = 1
+    for n in DECODE_SHAPE:
+        world *= n
+    runs = (timed, held, dc_.replace(held, fault="ring"))
+    ranks = dist.spawn(dc.rank_main, world, runs, device, backend=backend)
+    ok = True
+    for i, spec in enumerate(runs):
+        want = tp.decode_bytes(spec.config(), DECODE_SHAPE, batch=spec.batch,
+                               window=spec.seq_len)
+        checks = []
+        for r, rk in enumerate(ranks):
+            rec = rk[i]
+            ms = sorted(rec["ms_a_step"])
+            line = dict(ms_a_step_median=ms[len(ms) // 2],
+                        ms_a_step_min=ms[0], ms_a_step_max=ms[-1],
+                        steps_timed=len(ms), peak_bytes=rec["peak_bytes"],
+                        step_bytes=rec["step_bytes"],
+                        bytes_closed_form=rec["step_bytes"] == want)
+            ok &= line["bytes_closed_form"]
+            if spec is not timed:
+                checks.append(dc.compare(rec, one, DECODE_RTOL))
+                line.update(checks[-1])
+                if spec.fault is None:
+                    ok &= checks[-1]["ok"]
+
+            cfg = spec.config()
+            kind = (f"{'fault' if spec.fault else 'timed' if spec is timed else 'held'}"
+                    f" {cfg.dtype} {cfg.n_layers} layers")
+            print(f"{label} {kind} rank {r}: " + json.dumps(line), flush=True)
+        if spec.fault is not None:
+            caught = not all(c["ok"] for c in checks)
+            print(f"{label}: rank 1's value ring 1% off "
+                  f"{'fails' if caught else 'PASSES'} the check", flush=True)
+            ok &= caught
+    return ok
+
+
 def main(argv=None) -> int:
     from repro_torch.launch.pod_check import DrillSpec
     ap = argparse.ArgumentParser()
@@ -230,7 +297,7 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke-world", type=int, default=4)
     ap.add_argument("--smoke", action="store_true",
                     help="(a), (c), (d) and (e) at the smoke configs too")
-    ap.add_argument("--parts", default="abcde")
+    ap.add_argument("--parts", default="abcdef")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl")
     args = ap.parse_args(argv)
@@ -263,6 +330,9 @@ def main(argv=None) -> int:
                        DrillSpec(**dict(f32, mesh_shape=FSDP_SHAPE,
                                         cases=FSDP_CASES)),
                        args.backend, True)
+    if "f" in args.parts:
+        ok &= decode_check(f"tp cards (f) {TP_ARCH} {DECODE_SHAPE} decode",
+                           args.smoke, args.device, args.backend)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 
