@@ -132,8 +132,8 @@ order; any failure exits non-zero and prints no result:
              through ``FedEngine.run`` with ``DSFLAlgorithm(use_kernel=True)``
              and ``DSFLConfig``'s defaults (ERA at T = 0.1, 5 + 5 epochs,
              batch 100, |o_r| = 1000, SGD; fmnist_cnn at lr 0.01, where 0.1
-             diverges, see PAPER_MODELS), 2 rounds each, the first printed
-             apart: ``fmnist_cnn`` (2,759,976 values) at K=100 on
+             diverges, see PAPER_MODELS), PAPER_ROUNDS (1) each:
+             ``fmnist_cnn`` (2,759,976 values) at K=100 on
              ``build_image_task(0, K=100, n_private=20_000, n_open=10_000,
              n_test=2_000, "non_iid", hw=28)``, K1 at (100, 1000, 10);
              ``reuters_dnn`` (5,194,670) at K=10 on ``make_bow`` documents
@@ -155,12 +155,12 @@ order; any failure exits non-zero and prints no result:
     sim      the simulator at full width (``mnist_cnn`` at paper width,
              examples/sim_stragglers.py's lognormal fleet, ``SyncScheduler(
              fraction, deadline=20, straggler="admit", sampler="available")``),
-             launch counts zeroed before each 8-round run and read after it
-             (K2 8, nothing else): (a) ``SimRunner`` at K=100 on
+             launch counts zeroed before each SIM_ROUNDS-round run (4) and
+             read after it (K2 once a round, nothing else): (a) ``SimRunner`` at K=100 on
              ``build_image_task(0, K=100, n_private=20_000, n_open=10_000,
-             n_test=2_000, "non_iid")``, ``DSFLConfig()`` with 8 rounds,
-             fraction 0.1 (budget 20), ``active_budget="auto"``, chunks of 4
-             with ``log_every=4``, under deterministic algorithms: fused,
+             n_test=2_000, "non_iid")``, ``DSFLConfig()`` with 4 rounds,
+             fraction 0.1 (budget 20), ``active_budget="auto"``, chunks of 2
+             (SIM_CHUNK) with ``log_every=2``, under deterministic algorithms: fused,
              one round at a time and pipelined (``overlap=True``), and
              resumed after chunk 1 from a checkpoint into a fresh engine and
              runner; plans, virtual clock and bytes equal exactly, leaves
@@ -171,23 +171,25 @@ order; any failure exits non-zero and prints no result:
              aggregation; K2 on each round's slab stack and on its dense
              stack, each within 1e-6 of its plain version and the two
              teachers within 1e-6. (b) ``CohortRunner`` at K=1,000,000 and
-             fraction 1e-4 (budget 200, slabs of 800 lanes) over
+             fraction 1e-4 (budget 200, slabs of 400 lanes) over
              ``SyntheticProvider(n_per_client=20, n_open=200, n_test=300,
-             hw=28)``, 1 + 1 epochs, batch 20, open batch 200, 8 rounds in
-             chunks of 4, saved after chunk 1 and loaded into a fresh
+             hw=28)``, 1 + 1 epochs, batch 20, open batch 200, 4 rounds in
+             chunks of 2, saved after chunk 1 and loaded into a fresh
              engine, runner and store; resident and slab bytes, touched
              clients and the host seconds of each span (plan, gather with
              its lazy inits, provider, scatter, engine chunk); K2 on round
-             0's (800, 200, 10) slab against its participants' stack, as in
+             0's (400, 200, 10) slab against its participants' stack, as in
              (c). (d) keyed
              permutations and open batches bitwise equal on the card and
              the CPU; a K=4 cohort round on the card (native
              convolutions, as phase 6) against the CPU's float64 round.
              (e) ``torch.profiler``
-             over the second chunk of (b): host time, the card's busy time
-             (the union of its activities) and idle share, top ops ((a)'s
-             resumed chunk is no longer profiled: reading its trace took
-             about two minutes).
+             over the second chunk of (b), the card's activities only (as
+             every trace here): host time, the card's busy time (the union
+             of its activities) and idle share, top kernels (with the
+             host's ops recorded too, turning the trace into events took
+             over a minute; (a)'s resumed chunk is no longer profiled:
+             reading its trace took about two minutes).
  7. serve    the serving path: mamba2-2.7b at the config's widths and its 64
              layers in bf16 (2,702,579,200 values from the port's seeded
              init on the card) through ``ServeEngine(slots=8,
@@ -203,8 +205,9 @@ order; any failure exits non-zero and prints no result:
              decode ms per step, generated tokens per second, peak device
              memory and K5's share of the (4, 2048) prefill.
     trace    after that window, a ``torch.profiler`` trace of one (4,
-             2048) prefill shot and of decode steps (d=1 and d=4): host
-             time, device time, idle share and the top ops by device time.
+             2048) prefill shot and of decode steps (d=1 and d=4), the
+             card's activities only: host time, device time, idle share
+             and the top kernels by device time.
  8. routes   the same weights widened to float32, at all 64 layers, and the
              same (4, 2048) prefill through K5 and through its plain
              version patched in: last-token logits, the decode cache and
@@ -364,22 +367,33 @@ order; any failure exits non-zero and prints no result:
              one-process client at that depth; per case and rank the
              seconds a round, peak, the collectives log's bytes by kind
              (held to the closed forms) and K1-K4 launches.
-    tp       the dense family's tensor parallelism over "model" and FSDP
-             over "data" (`launch.tp`): phi3-medium-14b at full width,
-             K = 2, batch 8, seq 128, the embedding scaled, world 2 over
-             gloo with both ranks on this card, the runs of TP_SPAWNS:
-             (1, 1, 2) (`make_smoke_mesh(multi_pod=True)`) in f32 at 4 of
-             the 40 layers (2 ERA rounds, a top-k 8 round, a FedAvg
-             round, each from the init) and (1, 2, 1) in f32 at 1 layer
-             (a FedAvg round), each rank's slices and losses held
-             against the one-process run (atol 1e-4 after two rounds,
-             1e-5 after one, losses also rtol 1e-6), each one-process
-             leaf shown to move past that bound, and the check shown to
-             fail on a FedAvg round with one rank's ``w_down`` slice 1%
-             off before it; (1, 1, 2) in bf16 at 4 layers: seconds a
-             round and peak a rank; every run's bytes a rank by axis
-             held to `tp.round_bytes`, K1 once a DS-FL round, K3/K4 once
-             a client step.
+    tp       tensor parallelism over "model" and FSDP over "data"
+             (`launch.tp`) at full width, K = 2, batch 8, seq 128, the
+             embedding scaled, world 2 over gloo with both ranks on this
+             card, the runs of TP_SPAWNS: phi3-medium-14b on (1, 1, 2)
+             (`make_smoke_mesh(multi_pod=True)`) in f32 at 1 of the 40
+             layers (2 ERA rounds, a top-k 8 round, a FedAvg round, each
+             from the init) and (1, 2, 1) in f32 at 1 layer (a FedAvg
+             round); mamba2-2.7b on (1, 1, 2) in f32 at 4 of the 64
+             layers (the same cases; 40 heads a rank, K5 at (8, 128, 40,
+             64, 1, 128) in each prediction) and Jamba's smoke config (an
+             ERA round; 4 groups a rank); each rank's slices and losses
+             held against the one-process run (atol 1e-4 after two
+             rounds, 1e-5 after one, losses also rtol 1e-6), each
+             one-process leaf shown to move past that bound (lr TP_LR),
+             and the check shown to fail on a FedAvg round with one
+             rank's slice of `pod_check.fault_leaf` 1% off before it
+             (phi3's ``w_down``, mamba2's ``w_out``); phi3 on (1, 1, 2)
+             in bf16 at 1 layer, mamba2 at 4 and llama4-scout in bf16 at 1
+             of its 48 layers (8 experts a rank): seconds a round and
+             peak a rank; every run's bytes a rank by axis held to
+             `tp.round_bytes`, K1 once a DS-FL round, K3/K4 once a
+             client step, K5 once a Mamba layer a prediction; one scout
+             MoE FFN at full width in f32 (1,024 tokens in groups of 256,
+             forward and backward) on (1, 1, 2), each rank held to one
+             process within 1e-5 of each tensor's largest magnitude, the
+             dropped choices equal, a 1% fault in rank 1's expert
+             ``w_down`` slice caught; each spawn's seconds.
     dryrun   the dry run's counters held to the card: qwen1.5-4b at
              `launch.train`'s defaults (K = 2, batch 8, seq 128, its 40
              layers, bf16, the embedding scaled) through its ``local``
@@ -400,17 +414,19 @@ order; any failure exits non-zero and prints no result:
              decode_32k x 16 x 16 record from ``python -m
              repro_torch.launch.dryrun`` in a child process (a fake world
              of 256), which must be ``ok``.
-    tp decode the dense family's decode step under tensor parallelism
-             (`launch.decode_check`): phi3-medium-14b at full width, 4 of
-             its 40 layers in f32, the embedding scaled, a start token and
-             16 greedy tokens from an empty cache, world 2 over gloo on
-             this card: (1, 1, 2) at batch 8 (heads split 40 / 2 and
-             10 / 2) and (1, 2, 1) without FSDP at batch 1 (the ring's
-             window split over "data"), every rank's tokens equal and
-             logits within 1e-5 of the largest one-process logit, bytes a
-             step by axis equal to `tp.decode_bytes`, ms a step and the
-             peak a rank printed; a 1% fault in rank 1's ``wo`` slice, and
-             in its value ring, must fail the check.
+    tp decode the decode step under tensor parallelism
+             (`launch.decode_check`): phi3-medium-14b and mamba2-2.7b at
+             full width, 4 layers in f32, the embedding scaled, a start
+             token and 16 greedy tokens from an empty cache, world 2 over
+             gloo on this card: phi3 on (1, 1, 2) at batch 8 (heads split
+             40 / 2 and 10 / 2) and on (1, 2, 1) without FSDP at batch 1
+             (the ring's window split over "data"), mamba2 on (1, 1, 2)
+             at batch 8 (the mixer's heads, its state and conv windows
+             split), every rank's tokens equal and logits within 1e-5 of
+             the largest one-process logit, bytes a step by axis equal to
+             `tp.decode_bytes`, ms a step and the peak a rank printed; a
+             1% fault in rank 1's ``wo`` slice, in its value ring and in
+             its SSM state must fail the check.
     examples the examples' torch twins on the card, each its own process:
              ``examples/torch_quickstart.py --fast`` (must end ``OK``),
              ``examples/torch_serve_batched.py``,
@@ -425,7 +441,7 @@ order; any failure exits non-zero and prints no result:
              ``moe_train_launches`` by window, ``moe_smoke_launches`` by
              model, ``moe_train`` timing rows for K1, K3 and K4,
              ``pod_launches``: phase "pod" (a)'s run over the mesh,
-             ``tp_launches``: phase "tp"'s bf16 run, rank 0;
+             ``tp_launches``: phase "tp"'s bf16 runs by arch, rank 0;
              ``dryrun_launches`` by window and ``op_host_us``: phase
              "dryrun"; ``tp_decode_launches``: phase "tp decode", rank 0's by
              mesh),
@@ -497,7 +513,14 @@ K5_SHAPES = (("main path (4, 2048) prefill", K5_MAIN),
              ("G>1, two P tiles, three Q tiles", (2, 130, 8, 96, 2, 64)),
              ("head slices of 16 and 4, N=20, P=40, Q=130",
               (24, 130, 20, 40, 1, 20)),
-             ("rows not 16-byte aligned, P=37, N=13", (3, 70, 6, 37, 2, 13)))
+             ("rows not 16-byte aligned, P=37, N=13", (3, 70, 6, 37, 2, 13)),
+             ("a rank's heads: mamba2-2.7b's prediction at 'model' 2",
+              (8, 128, 40, 64, 1, 128)),
+             ("a rank's groups: Jamba's prediction at 'model' 2",
+              (8, 128, 128, 64, 4, 128)))
+# K5 at a rank's heads of mamba2-2.7b's prediction (batch 8 x seq 128) over
+# "model" = 2, phase "tp"'s shape: timed beside LLM_K5
+TP_K5 = K5_SHAPES[-2][1]
 # Kernel route vs plain route at full width and depth, in float32.  The two
 # routes differ only in the order of the SSD core's f32 sums, about 1e-6 of
 # its values.  In bf16 every layer rounds that onto a bf16 step (2^-8) where
@@ -1329,6 +1352,8 @@ def phase_k5():
                **timed(K5_MAIN, 20))
     # the LLM round's prediction: one client's open batch, Q = seq = 128
     rec["llm_shape_timing"] = timed(LLM_K5, 22)
+    # the same on a rank's 40 of the 80 heads (phase "tp")
+    rec["tp_rank_shape_timing"] = timed(TP_K5, 23)
     return rec
 
 
@@ -1546,8 +1571,12 @@ def _trace_summary(prof):
     for e in kernels:
         if e.name.startswith("(anonymous namespace)::"):
             name = e.name.split("::")[1].split("(")[0]
-            c, t = own.get(name, (0, 0.0))
-            own[name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
+        elif ops:
+            continue
+        else:                           # no host ops recorded: by kernel
+            name = e.name
+        c, t = own.get(name, (0, 0.0))
+        own[name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
     ops += [(k, c, t) for k, (c, t) in own.items()]
     return dev_ms, len(kernels), full, sorted(ops, key=lambda r: -r[2])[:8]
 
@@ -1556,8 +1585,10 @@ def phase_trace(smi, cfg, params, prompts, label="trace"):
     """Where the serving time goes (after a serving window): a
     ``torch.profiler`` trace of one (4, 2048) prefill shot, 4 decode steps
     at 8 slots with decode_chunk=1, and one chunk of 4; for each, the host
-    time, the device time the profiler saw, the idle share and the top ops
-    by device time."""
+    time, the device time the profiler saw, the idle share and the top
+    kernels by device time.  Only the card's activities are recorded: with
+    the host's ops too, turning the three traces into events took most of
+    the phase's 40 s."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Request, ServeEngine
@@ -1573,8 +1604,7 @@ def phase_trace(smi, cfg, params, prompts, label="trace"):
     out = {}
     for name, fn in parts:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2211,7 +2241,10 @@ def phase_card_vs_cpu(smi):
 
 
 # ------------------------------------------------------------- phase "sim" --
-SIM_K, SIM_ROUNDS, SIM_CHUNK = 100, 8, 4
+# 4 rounds in chunks of 2 (8 in chunks of 4 until the script ran past its
+# 1200 s on a slow host): (a)'s three runs and its resumed one, and (b)'s
+# two chunks, the second under the profiler, all take half the time
+SIM_K, SIM_ROUNDS, SIM_CHUNK = 100, 4, 2
 # (c) holds the cohort plane's leaves to the dense rounds' with the plain
 # aggregation: K2's launch plan (its client slices) depends on the lane
 # count, so a slab of 80 lanes and the dense stack of 100 sum in other
@@ -2424,12 +2457,14 @@ def check_k2_slab(what, slab, dense, temperature):
 
 def _profiled(label, fn, smi, out, phase="sim (e)"):
     """``fn()`` under ``torch.profiler`` (phase "sim" (e), phase "llm"):
-    host time, the card's summed and busy time, idle share and top ops into
-    ``out[label]``.  Returns ``fn()`` and the host seconds."""
+    host time, the card's summed and busy time, idle share and top kernels
+    into ``out[label]``.  Returns ``fn()`` and the host seconds.  Only the
+    card's activities are recorded (the top list names kernels, not the
+    ops that launched them): turning a host trace of a cohort chunk into
+    events took over a minute of the script."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -2451,15 +2486,15 @@ def _profiled(label, fn, smi, out, phase="sim (e)"):
 
 def phase_sim(smi, tmp):
     """The simulator and the cohort plane at full width (phase "sim"):
-    (a) `SimRunner` at K=100 on the paper's data, 8 rounds in chunks of 4,
+    (a) `SimRunner` at K=100 on the paper's data, 4 rounds in chunks of 2,
     against the loop, the pipelined schedule and a save/resume; (c) the
     cohort plane against the dense rounds at K=100, and K2 on its slab
     stacks against K2 on the dense ones; (b) `CohortRunner` at K=1,000,000
     and 0.01% participation, with a save and a load after its first chunk,
     and K2 on its slab stack against the participants' stack; (d) keyed
     draws and a K=4 cohort round card vs CPU; (e) the profiler over the
-    second chunk of (b).  Returns the kernels' launches in the 8-round
-    runs."""
+    second chunk of (b).  Returns the kernels' launches in the
+    SIM_ROUNDS-round runs."""
     from repro_torch.core import prng
     from repro_torch.core.algorithms import DSFLAlgorithm
     from repro_torch.core.cohort import ClientStore
@@ -2685,7 +2720,7 @@ def phase_sim(smi, tmp):
             fail("sim (b): the loaded runner's clock, rounds, bytes or "
                  "store differ from the saved one's")
         st_b2, t_chunk2 = _profiled(
-            f"(b) chunk 2, 4 rounds, K={COHORT_K:,}",
+            f"(b) chunk 2, {SIM_ROUNDS - SIM_CHUNK} rounds, K={COHORT_K:,}",
             lambda: b_runner2.run(st_b2, rounds=SIM_ROUNDS - SIM_CHUNK,
                                   chunk_rounds=SIM_CHUNK,
                                   log_every=SIM_CHUNK), smi, profiles)
@@ -2805,7 +2840,9 @@ PAPER_MODELS = (("fmnist_cnn", 100, 10, 2_759_080, 2_759_976, 0.01),
                 ("reuters_dnn", 10, 46, 5_193_390, 5_194_670, 0.1),
                 ("imdb_lstm", 10, 2, 648_386, 648_386, 0.1))
 PAPER_LR = {name: lr for name, *_, lr in PAPER_MODELS}
-PAPER_ROUNDS = 2
+# one round each (two until the script ran past its 1200 s on a slow
+# host; the second round took as long as the first)
+PAPER_ROUNDS = 1
 IMDB_SEQ = 80          # the maxlen of Keras' imdb_lstm.py example
 
 
@@ -3247,7 +3284,7 @@ def llm_step_trace(smi, fed, label="llm", teacher_note=""):
     """Where a round's time goes, outside the windows: the round's
     uploads and teacher, then client 0's hybrid step timed alone and once
     more under the profiler (host time, the card's busy time, idle share,
-    top ops).  A round is two predictions and two such steps; profiling a
+    top kernels).  A round is two predictions and two such steps; profiling a
     whole round (about 132,000 device activities) costs the profiler's own
     processing over 100 s."""
     from repro_torch.core import llm_dsfl
@@ -4604,10 +4641,20 @@ def phase_pod(smi):
     finally:
         platform.restore(prev)
     torch.cuda.empty_cache()
-    ranks = dist.spawn(pod_check.rank_main, LLM_K,
-                       dataclasses.replace(spec_b, preset=POD_PRESET),
-                       backend="gloo")
-    t_b = time.perf_counter() - t0
+    # its two ranks run in phase "tp"'s first spawn, before its runs
+    pending = dict(one=one, n_params=n_params_b, n_layers=cfg.n_layers,
+                   t_one=time.perf_counter() - t0,
+                   program=(pod_check.rank_main, (dataclasses.replace(
+                       spec_b, preset=POD_PRESET),)))
+    say(f"pod: phase took {time.perf_counter() - t_phase:.1f} s, (b)'s "
+        f"ranks not included")
+    return launches, pending
+
+
+def pod_b_report(smi, pending, ranks, t_ranks):
+    """Phase "pod" (b): each rank's lane (``ranks``, rank 0's first, from
+    phase "tp"'s first spawn) against the one-process run."""
+    one, n_params_b = pending["one"], pending["n_params"]
     for r, rank in enumerate(ranks):
         for case in POD_CASES:
             if rank[case]["history"] != one[case]["history"]:
@@ -4624,21 +4671,27 @@ def phase_pod(smi):
     _pod_compare("pod (b)", one,
                  lambda case, leaf, k: ranks[k][case]["params"][leaf][0])
     say(f"pod (b): world 2 over gloo on one card, {POD_LAYERS_B} of "
-        f"{cfg.n_layers} layers: rank r's lane bitwise the one-process "
-        f"client r after each case; (b) took {t_b:.1f} s")
-    say(f"pod: phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+        f"{pending['n_layers']} layers: rank r's lane bitwise the "
+        f"one-process client r after each case; the one-process run took "
+        f"{pending['t_one']:.1f} s, the ranks ran first in phase \"tp\"'s "
+        f"first spawn ({t_ranks:.1f} s, spawn included)")
 
 
 # ------------------------------------------------------------- phase "tp" --
-# The dense family's tensor parallelism over "model" and FSDP over "data"
-# (`launch.tp`) at phi3-medium-14b's full width (d 5120, 40/10 heads, d_ff
-# 17920, vocabulary 100,352), `launch.train`'s defaults (K = 2, batch 8,
-# seq 128, ERA T = 0.1; lr TP_LR), the embedding scaled, over a world of 2
-# ranks over gloo, both on this card (as phase "pod" (b)), on the meshes
-# (1, 1, 2) (`make_smoke_mesh(multi_pod=True)`: each client's leaves split
-# over "model") and (1, 2, 1) (FSDP: each leaf's d_model dimension over
-# "data", each data rank on 4 of the 8 sequences).  TP_SPAWNS lists the
+# Tensor parallelism over "model" and FSDP over "data" (`launch.tp`) at
+# full width, `launch.train`'s defaults (K = 2, batch 8, seq 128, ERA T =
+# 0.1; lr TP_LR), the embedding scaled, over a world of 2 ranks over gloo,
+# both on this card (as phase "pod" (b)), on the meshes (1, 1, 2)
+# (`make_smoke_mesh(multi_pod=True)`: each client's leaves split over
+# "model") and (1, 2, 1) (FSDP: each leaf's d_model dimension over
+# "data", each data rank on 4 of the 8 sequences).  The dense family:
+# phi3-medium-14b (d 5120, 40/10 heads, d_ff 17920, vocabulary 100,352);
+# the Mamba2 mixer: mamba2-2.7b (d_inner 5120, 80 heads of 64, one group
+# of B and C, vocabulary 50,280: 40 heads a rank, K5 at (8, 128, 40, 64,
+# 1, 128) in each prediction); the MoE FFN: llama4-scout (16 experts of
+# d_ff 8192, vocabulary 202,048: 8 experts a rank); Jamba's `.smoke()`
+# (8 groups of one head, 4 a rank; K5 with 4 groups; batch 2, seq 32).
+# TP_SPAWNS lists the
 # spawns: each runs the one-process cases its held runs compare against
 # (f32, ``fp32-deterministic``, each case from the init, at each depth
 # its runs take; their leaves stay on the card, where the ranks read
@@ -4646,61 +4699,103 @@ def phase_pod(smi):
 # "held" (every rank's slices and losses against the one-process run at
 # tests/test_torch_dense_train.py's bounds: atol 1e-4 after the 2 ERA
 # rounds, 1e-5 after 1 round, losses also at rtol 1e-6), "fault" (the
-# same round with rank FAULT_RANK's ``w_down`` slice 1% off before it:
-# the check must fail) or "timed" (bf16: seconds a round and peak a rank;
-# two ranks time-slice one card and gloo stages every collective through
-# host memory, so the seconds say nothing of scaling).  Every leaf of a
-# one-process case must move by more than the tolerance, so the held
-# check can see a round that went wrong.  Held in every run: bytes a rank
-# by axis equal to `tp.round_bytes`; K1 once a DS-FL round, K3/K4 once a
-# client step.  A case's leaves at 4 layers in f32 are 15 GB and two
-# ranks' ERA rounds peak at 30.4 GB each (on an H100 80GB HBM3 at 700 W),
-# so no spawn holds two such cases.  FSDP moves
+# same round with rank FAULT_RANK's slice of `pod_check.fault_leaf` 1%
+# off before it: the check must fail) or "timed" (bf16: seconds a round
+# and peak a rank; two ranks time-slice one card and gloo stages every
+# collective through host memory, so the seconds say nothing of
+# scaling).  Every leaf of a one-process case must move by more than the
+# tolerance, so the held check can see a round that went wrong.  Held in
+# every run: bytes a rank by axis equal to `tp.round_bytes`; K1 once a
+# DS-FL round, K3/K4 once a client step, K5 once a Mamba layer a
+# prediction.  A phi3 case's leaves at 4 layers in f32 are 15 GB and two
+# ranks' ERA rounds peaked at 30.4 GB each (on an H100 80GB HBM3 at 700 W),
+# so no spawn could hold two such cases.  phi3 runs at 1 layer, where a
+# case's leaves are 6.8 GB and a rank's peak 15.2 GB (FSDP's FedAvg), so
+# its three cases' leaves and two ranks fit one spawn (phase "pod" (b)'s
+# ranks run first in it): a spawn costs 17-25 s, most of it processes
+# starting, and the script ran past its 1200 s on a slow host with phi3
+# at 4 layers in three spawns (at 2 layers in two, phase "tp" took 166.3
+# s with "pod" (b) and "tp decode" folded in; H100 80GB HBM3, 700 W).
+# FSDP moves
 # each pass's gathered leaves through gloo (at one layer a DS-FL round
 # took 33.2 s in bf16, a FedAvg round 19.9-27.5 s in f32, on an H100 80GB
 # HBM3 at 700 W): its one run here is a held FedAvg round at one layer;
 # tools/pod_cards.py (e) holds FSDP's DS-FL rounds at 4 layers over NCCL.
+# A scout client at one layer is 4.15e9 values (16.6 GB in f32): its
+# rounds here are bf16 and timed (the dry run puts a rank's DS-FL round at
+# 21.4 GB), and its held check is one MoE FFN at full width (TP_MOE_FFN).
 TP_ARCH = "phi3-medium-14b"
+TP_MAMBA = "mamba2-2.7b"
+TP_SCOUT = "llama4-scout-17b-a16e"
+TP_JAMBA = "jamba-1.5-large-398b"
 # 10 times `launch.train`'s 3e-3: every leaf must move past the bound, and
-# at 3e-3 2 ERA rounds move ``wq`` by less than 1e-4 and a FedAvg round the
-# norm scales by less than 1e-5 (tools/tp_movement.py)
-TP_LR = 3e-2
-# the runs of each spawn: (mesh, dtype, layers, cases, role)
+# at 3e-3 2 ERA rounds move phi3's ``wq`` by less than 1e-4 and a FedAvg
+# round the norm scales by less than 1e-5 (tools/tp_movement.py).  The
+# Mamba2 mixer's ``dt_bias`` and ``a_log`` move least (softplus' slope at
+# dt of 1e-3..1e-1): mamba2-2.7b's 2 f32 ERA rounds at 4 layers move them
+# 1.6e-5 at 3e-2, 5.2e-5 at 1e-1, 9.1e-5 at 2e-1, past 1e-4 at 3e-1 (the
+# loss 22.64 -> 14.60; H100 80GB HBM3, 700 W).  Jamba's smoke config runs
+# at batch 2, seq 32 (TP_BATCH): at 8 x 128 tokens (and at 4 x 64) the
+# ranks and one process differ by rounding in the router's input, which
+# flips near-tied top-k choices (the losses differ by 1e-4, ``cw_x`` by
+# 2.2e-5 after a round at lr 1e-1); at 2 x 32 the worst leaf is 7.3e-6 at
+# 1e-1 and its least moved 1.1e-4, so at 5e-2 3.6e-6 against 5.4e-5
+TP_LR = {TP_ARCH: 3e-2, TP_MAMBA: 3e-1, TP_SCOUT: 3e-2, TP_JAMBA: 5e-2}
+TP_BATCH = {TP_JAMBA: (2, 32)}           # (batch, seq); else LLM_B, LLM_S
+# the runs of each spawn: (arch, mesh, dtype, layers (None: the smoke
+# config), cases, role)
 TP_SPAWNS = (
-    (((1, 1, 2), "float32", 4, ("era",), "held"),),
-    (((1, 1, 2), "float32", 4, ("topk",), "held"),
-     ((1, 2, 1), "float32", 1, ("fedavg",), "held")),
-    (((1, 1, 2), "float32", 4, ("fedavg",), "held"),
-     ((1, 1, 2), "float32", 4, ("fedavg",), "fault"),
-     ((1, 1, 2), "bfloat16", 4, ("era", "topk", "fedavg"), "timed")))
+    ((TP_ARCH, (1, 1, 2), "float32", 1, ("era", "topk", "fedavg"), "held"),
+     (TP_ARCH, (1, 2, 1), "float32", 1, ("fedavg",), "held"),
+     (TP_ARCH, (1, 1, 2), "float32", 1, ("fedavg",), "fault"),
+     (TP_ARCH, (1, 1, 2), "bfloat16", 1, ("era", "topk", "fedavg"),
+      "timed")),
+    ((TP_MAMBA, (1, 1, 2), "float32", 4, ("era", "topk", "fedavg"), "held"),
+     (TP_MAMBA, (1, 1, 2), "float32", 4, ("fedavg",), "fault"),
+     (TP_MAMBA, (1, 1, 2), "bfloat16", 4, ("era", "fedavg"), "timed"),
+     (TP_JAMBA, (1, 1, 2), "float32", None, ("dsfl",), "held"),
+     (TP_SCOUT, (1, 1, 2), "bfloat16", 1, ("era", "fedavg"), "timed")),
+)
 TP_TOL = {1: 1e-5, 2: 1e-4}
 TP_PRESET = "fp32-deterministic"
 # K1 / K3 / K4 a rank a round of each kind: K = 2 lanes a rank
 TP_LAUNCHES = {"dsfl": (1, 2, 2), "fedavg": (0, 0, 0)}
+# one MoE FFN of scout at full width, f32, 1,024 tokens in groups of 256,
+# forward and backward, on (1, 1, 2) (runs in TP_SPAWNS' scout spawn, each
+# rank first making the one-process FFN itself from the seed): each rank's
+# output, aux, gradients of its slices and of the tokens within
+# TP_MOE_RTOL of each tensor's largest one-process magnitude, the dropped
+# choices equal, and a 1% fault in rank 1's expert ``w_down`` slice caught
+TP_MOE_FFN = dict(arch=TP_SCOUT, tokens=1024, group=256, device="cuda")
+TP_MOE_RTOL = 1e-5
 
 
-def _tp_spec(mesh, dtype, layers, cases, role):
+def _tp_spec(arch, mesh, dtype, layers, cases, role):
     from repro_torch.launch.pod_check import DrillSpec
+    batch, seq = TP_BATCH.get(arch, (LLM_B, LLM_S))
     return DrillSpec(
-        arch=TP_ARCH, smoke=False, clients=LLM_K, batch=LLM_B, seq=LLM_S,
-        lr=TP_LR, device="cuda", use_kernel=True, scale_embedding=True,
-        fingerprint=True, mesh_shape=mesh, n_layers=layers, cases=cases,
+        arch=arch, smoke=layers is None, clients=LLM_K, batch=batch,
+        seq=seq, lr=TP_LR[arch], device="cuda", use_kernel=True,
+        scale_embedding=layers is not None, fingerprint=True,
+        mesh_shape=mesh, n_layers=layers, cases=cases,
         preset=None if role == "timed" else TP_PRESET,
         overrides=(("dtype", dtype),) if dtype != "bfloat16" else (),
         fault=role == "fault")
 
 
 def _tp_one(runs, smi) -> dict:
-    """The one-process runs of the held and fault runs' cases, one a
-    depth: {layers: {case: its record, the leaves under "values"}}; fails
-    unless each leaf moved by more than the case's tolerance."""
+    """The one-process runs of the held and fault runs' cases, one an
+    (arch, depth): {(arch, layers): {case: its record, the leaves under
+    "values"}}; fails unless each leaf moved by more than the case's
+    tolerance."""
     from repro_torch.launch import pod_check
     by_depth = {}
     for run in runs:
-        if run[4] != "timed":
-            by_depth.setdefault(run[2], []).append(_tp_spec(*run))
+        if run[5] != "timed":
+            by_depth.setdefault(run[:1] + run[3:4], []).append(
+                _tp_spec(*run))
     out = {}
-    for layers, held in by_depth.items():
+    for key, held in by_depth.items():
         cases = tuple(dict.fromkeys(c for s in held for c in s.cases))
         ref = dataclasses.replace(held[0], mesh_shape=None, fault=False,
                                   cases=cases, keep_values=cases)
@@ -4709,23 +4804,28 @@ def _tp_one(runs, smi) -> dict:
         prev = platform.snapshot()
         platform.apply(TP_PRESET)
         try:
-            one = out[layers] = pod_check.run_cases(ref)
+            one = out[key] = pod_check.run_cases(ref)
         finally:
             platform.restore(prev)
         torch.cuda.empty_cache()
         for case, rec in one.items():
             tol = TP_TOL[pod_check.CASES[case][1]]
             least = min(rec["moved"], key=rec["moved"].get)
-            say(f"tp one process f32 {layers} layers {case} [{smi}]: "
-                + json.dumps(dict(
+            say(f"tp one process {key[0]} f32 {key[1] or 'smoke'} layers "
+                f"{case} [{smi}]: " + json.dumps(dict(
                     seconds=rec["seconds"], tol=tol,
                     losses=[h["loss"] for h in rec["history"]],
+                    launches={k: v for k, v in rec["launches"].items() if v},
                     least_moved_leaf=least, moved=rec["moved"])))
             if not rec["moved"][least] > tol:
-                fail(f"tp one process {case}: {least} moved "
+                fail(f"tp one process {key[0]} {case}: {least} moved "
                      f"{rec['moved'][least]}, within the tolerance {tol}: "
                      f"the held check could not see it go wrong")
     return out
+
+
+def _mamba_layers(cfg) -> int:
+    return cfg.n_blocks * sum(m == "mamba" for m, _ in cfg.pattern)
 
 
 def _tp_check(label, spec, role, rank_recs, one, smi) -> dict:
@@ -4736,11 +4836,13 @@ def _tp_check(label, spec, role, rank_recs, one, smi) -> dict:
     from repro_torch.launch import pod_check, tp
     from repro_torch.launch.roofline import axis_bytes
     cfg = spec.config()
+    fault_leaf = pod_check.fault_leaf(cfg)
     for case in spec.cases:
         kind, rounds, _, hp_kw, _, _ = pod_check.CASES[case]
         want = tp.merge((tp.round_bytes(
-            cfg, spec.mesh_shape, clients=LLM_K, batch=LLM_B, seq=LLM_S,
-            mode=kind, lanes_run=LLM_K, topk=hp_kw.get("topk")), rounds))
+            cfg, spec.mesh_shape, clients=LLM_K, batch=spec.batch,
+            seq=spec.seq, mode=kind, lanes_run=LLM_K,
+            topk=hp_kw.get("topk")), rounds))
         tol = TP_TOL[rounds]
         worst = []
         for r, recs in enumerate(rank_recs):
@@ -4749,15 +4851,14 @@ def _tp_check(label, spec, role, rank_recs, one, smi) -> dict:
                         peak_bytes=rec["peak_bytes"],
                         bytes_by_axis=axis_bytes(rec["log"]),
                         losses=[h["loss"] for h in rec["history"]],
-                        launches={k: v for k, v in rec["launches"].items()
-                                  if k != "ssd_chunk"})
+                        launches=rec["launches"])
             if "max_abs" in rec:
                 leaf = max(rec["max_abs"], key=rec["max_abs"].get)
                 worst.append(rec["max_abs"][leaf])
                 line.update(tol=tol, worst_leaf=leaf,
                             max_abs=rec["max_abs"][leaf],
-                            fault_leaf_max_abs=rec["max_abs"][
-                                pod_check.FAULT_LEAF],
+                            fault_leaf=fault_leaf,
+                            fault_leaf_max_abs=rec["max_abs"][fault_leaf],
                             one_process_losses=[
                                 h["loss"] for h in one[case]["history"]])
             say(f"{label} rank {r} {case} [{smi}]: " + json.dumps(line))
@@ -4765,10 +4866,13 @@ def _tp_check(label, spec, role, rank_recs, one, smi) -> dict:
                 fail(f"{label} rank {r} {case}: bytes {line['bytes_by_axis']}"
                      f" != closed form {want}")
             got = tuple(rec["launches"][k] for k in (
-                "era_sharpen", "distill_loss_fwd", "distill_loss_bwd"))
-            if got != tuple(n * rounds for n in TP_LAUNCHES[kind]):
-                fail(f"{label} rank {r} {case}: K1/K3/K4 launched {got} in "
-                     f"{rounds} rounds, {TP_LAUNCHES[kind]} a round expected")
+                "era_sharpen", "distill_loss_fwd", "distill_loss_bwd",
+                "ssd_chunk"))
+            k5 = LLM_K * _mamba_layers(cfg) if kind == "dsfl" else 0
+            if got != tuple(n * rounds for n in TP_LAUNCHES[kind] + (k5,)):
+                fail(f"{label} rank {r} {case}: K1/K3/K4/K5 launched {got} "
+                     f"in {rounds} rounds, {TP_LAUNCHES[kind] + (k5,)} a "
+                     f"round expected")
             if role != "held":
                 continue
             if line["max_abs"] > tol:
@@ -4784,57 +4888,139 @@ def _tp_check(label, spec, role, rank_recs, one, smi) -> dict:
                      f"rtol 1e-6)")
         if role == "fault" and not max(worst) > tol:
             fail(f"{label} {case}: rank {pod_check.FAULT_RANK}'s "
-                 f"{pod_check.FAULT_LEAF} slice 1% off before the round "
-                 f"leaves every rank within {tol} of the one-process run")
+                 f"{fault_leaf} slice 1% off before the round leaves every "
+                 f"rank within {tol} of the one-process run")
     return {k: sum(rank_recs[0][c]["launches"][k] for c in spec.cases)
             for k in rank_recs[0][spec.cases[0]]["launches"]}
 
 
-def phase_tp(smi):
+def _tp_moe_ffn_check(spec, recs, smi) -> None:
+    """Each rank's MoE FFN against the one process it ran first (held)
+    and the fault run (caught), one line a rank and run."""
+    from repro_torch.launch.roofline import axis_bytes
+    cfg = spec.config()
+    rows = spec.tokens
+    e = torch.empty((), dtype=cfg.cdtype).element_size()
+    want = {"model": {"all-reduce": 2 * rows * cfg.d_model * e
+                      + rows * cfg.top_k * 4}}
+    for role, i in (("held", 0), ("fault", 1)):
+        rel = []
+        for r, rec in enumerate(recs):
+            got = rec[i]
+            worst = max(got["max_abs"], key=lambda k: got["max_abs"][k]
+                        / max(got["max_ref"][k], 1e-30))
+            rel.append(got["max_abs"][worst] / got["max_ref"][worst])
+            say(f"tp moe ffn {role} {TP_SCOUT} f32 rank {r} [{smi}]: "
+                + json.dumps(dict(
+                    tokens=spec.tokens, group=spec.group,
+                    experts_a_rank=got["experts"], seconds=got["seconds"],
+                    one_process_seconds=got["one_process_seconds"],
+                    dropped=got["dropped"],
+                    one_process_dropped=got["one_process_dropped"],
+                    of_choices=rows * cfg.top_k,
+                    bytes_by_axis=axis_bytes(got["log"]), worst=worst,
+                    rel_err=rel[-1], rtol=TP_MOE_RTOL,
+                    max_abs=got["max_abs"])))
+            if got["dropped"] != got["one_process_dropped"]:
+                fail(f"tp moe ffn rank {r}: {got['dropped']} choices "
+                     f"dropped, one process {got['one_process_dropped']}")
+            if axis_bytes(got["log"]) != want:
+                fail(f"tp moe ffn rank {r}: bytes {axis_bytes(got['log'])}"
+                     f" != {want}")
+            if not got["ep"]:
+                fail("tp moe ffn: the plan does not split the experts")
+            if role == "held" and rel[-1] > TP_MOE_RTOL:
+                fail(f"tp moe ffn rank {r}: {worst} {rel[-1]} of its "
+                     f"largest magnitude from one process, past "
+                     f"{TP_MOE_RTOL}")
+        if role == "fault" and not max(rel) > TP_MOE_RTOL:
+            fail("tp moe ffn: rank 1's expert w_down slice 1% off passed "
+                 "the check")
+
+
+def phase_tp(smi, first=None, last=None):
+    """Phase "tp": the spawns of TP_SPAWNS.  ``first`` and ``last``, each
+    a rank program (function, arguments), run on the same two ranks,
+    ``first`` before the first spawn's runs and ``last`` after the last
+    spawn's, which saves each its own spawn (a process's start takes most
+    of a spawn's overhead).  Returns the bf16 runs' launches by arch, and
+    for ``first`` and ``last`` each rank's result (rank 0's first) and the
+    seconds of the spawn it ran in."""
     from repro_torch.launch import dist, pod_check
     from repro_torch.launch.mesh import smoke_mesh_shape
     t_phase = time.perf_counter()
     if smoke_mesh_shape(2, multi_pod=True) != (1, 1, 2):
         fail(f"tp: make_smoke_mesh(multi_pod=True) at world 2 is "
              f"{smoke_mesh_shape(2, multi_pod=True)}")
-    launches = None
-    for runs in TP_SPAWNS:
+    launches, extra = {}, {}
+    for n_spawn, runs in enumerate(TP_SPAWNS):
+        t_spawn = time.perf_counter()
         t0 = time.perf_counter()
         ones = _tp_one(runs, smi)
+        moe = (pod_check.MoEFFNSpec(**TP_MOE_FFN)
+               if any(run[0] == TP_SCOUT for run in runs) else None)
         t_one = time.perf_counter() - t0
         specs = tuple(_tp_spec(*run) for run in runs)
+        compares = tuple(None if run[5] == "timed" else
+                         {c: ones[run[:1] + run[3:4]][c]["values"]
+                          for c in run[4]} for run in runs)
+        # the MoE FFN first: each rank makes its one-process reference
+        # (16 GB of leaves and gradients) before its rounds start
+        before = (first,) if n_spawn == 0 and first is not None else ()
+        after = ((last,) if n_spawn == len(TP_SPAWNS) - 1
+                 and last is not None else ())
+        programs = before + (() if moe is None else tuple(
+            (pod_check.moe_ffn_rank, (dataclasses.replace(moe, fault=f),))
+            for f in (False, True)))
+        i_main = len(programs)
+        programs += ((pod_check.rank_main_many, (specs, compares)),) + after
         t0 = time.perf_counter()
-        ranks = dist.spawn(pod_check.rank_main_many, 2, specs, tuple(
-            None if run[4] == "timed" else
-            {c: ones[run[2]][c]["values"] for c in run[3]} for run in runs),
-            backend="gloo")
+        out = dist.spawn(dist.rank_programs, 2, programs, backend="gloo")
         t_ranks = time.perf_counter() - t0
+        ranks = [rk[i_main] for rk in out]
+        if before:
+            extra["first"] = ([rk[0] for rk in out], t_ranks)
+        if after:
+            extra["last"] = ([rk[-1] for rk in out], t_ranks)
+        # the leaves shared with the ranks go with every reference to them
+        del programs, compares
         for one in ones.values():
             for rec in one.values():
                 rec.pop("values")
         # the spawn's shared leaves are freed once the ranks let them go
         torch.cuda.ipc_collect()
         torch.cuda.empty_cache()
-        say(f"tp [{smi}]: {TP_ARCH} at full width, K = {LLM_K}, batch "
-            f"{LLM_B}, seq {LLM_S}, lr {TP_LR}; one process {t_one:.1f} s; "
+        archs = sorted({run[0] for run in runs})
+        say(f"tp [{smi}]: {', '.join(archs)} at full width (Jamba smoke), "
+            f"K = {LLM_K}, (batch, seq) "
+            f"{[TP_BATCH.get(a, (LLM_B, LLM_S)) for a in archs]}, lr "
+            f"{[TP_LR[a] for a in archs]}; one process {t_one:.1f} s; "
             f"world 2 over gloo on this card, {len(runs)} runs: "
             f"{t_ranks:.1f} s (spawn included); this process then holds "
             f"{torch.cuda.memory_allocated()} B, reserves "
             f"{torch.cuda.memory_reserved()} B")
         for i, (spec, run) in enumerate(zip(specs, runs)):
-            mesh, dtype, layers, _, role = run
-            label = (f"tp {role} {mesh} {dtype} {layers} layers" +
+            arch, mesh, dtype, layers, _, role = run
+            label = (f"tp {role} {arch} {mesh} {dtype} {layers or 'smoke'} "
+                     f"layers" +
                      (" (two ranks time-slice one card: the seconds measure"
                       " nothing about scaling)" if role == "timed" else ""))
             got = _tp_check(label, spec, role, [rk[i] for rk in ranks],
-                            ones.get(layers, {}), smi)
+                            ones.get(run[:1] + run[3:4], {}), smi)
             if role == "timed":
-                launches = got
+                launches[arch] = got
+        if moe is not None:
+            _tp_moe_ffn_check(moe, [rk[len(before):i_main] for rk in out],
+                              smi)
+        say(f"tp spawn {n_spawn} ({', '.join(archs)}) took "
+            f"{time.perf_counter() - t_spawn:.1f} s; phase so far "
+            f"{time.perf_counter() - t_phase:.1f} s")
     say(f"tp: every leaf moved past the tolerance, every held rank's "
-        f"slices and losses within the bounds of the one-process run, a 1% "
-        f"w_down fault caught, bytes a rank by axis equal to the closed "
-        f"forms; phase took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+        f"slices and losses within the bounds of the one-process run, the "
+        f"1% faults caught (phi3 w_down, mamba2 w_out, scout's expert "
+        f"w_down), bytes a rank by axis equal to the closed forms; phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    return launches, extra.get("first"), extra.get("last")
 
 
 # ------------------------------------------------------- phase "dryrun" --
@@ -5106,50 +5292,61 @@ def phase_dryrun(smi):
 
 
 # --------------------------------------------------- phase "tp decode" --
-# phi3-medium-14b at full width, 4 of its 40 layers in f32, the embedding
-# scaled: a start token and 16 greedy tokens from an empty cache, world 2
-# over gloo on this card, held to one process (`launch.decode_check`):
-# (1, 1, 2) at batch 8 splits the heads (40 / 2 and 10 / 2), (1, 2, 1)
-# without FSDP at batch 1 splits the ring's window over "data"; a 1% fault
-# in rank 1's ``wo`` slice, and in its value ring, must be caught.
-TP_DECODE = (((1, 1, 2), True, 8, "wo"), ((1, 2, 1), False, 1, "ring"))
+# phi3-medium-14b and mamba2-2.7b at full width, 4 layers in f32, the
+# embedding scaled: a start token and 16 greedy tokens from an empty
+# cache, world 2 over gloo on this card, held to one process
+# (`launch.decode_check`): phi3 on (1, 1, 2) at batch 8 splits the heads
+# (40 / 2 and 10 / 2), on (1, 2, 1) without FSDP at batch 1 the ring's
+# window over "data"; mamba2 on (1, 1, 2) at batch 8 the mixer's heads (its
+# state's 80 / 2, its conv windows' channels and B/C columns); a 1% fault
+# in rank 1's ``wo`` slice, in its value ring and in its SSM state must
+# be caught.  (arch, mesh, fsdp, batch, fault)
+TP_DECODE = ((TP_ARCH, (1, 1, 2), True, 8, "wo"),
+             (TP_ARCH, (1, 2, 1), False, 1, "ring"),
+             (TP_MAMBA, (1, 1, 2), True, 8, "state"))
 TP_DECODE_RTOL = 1e-5
 
 
-def phase_tp_decode(smi):
+def tp_decode_prepare():
+    """Phase "tp decode"'s one-process greedy runs, and its rank program,
+    which runs in phase "tp"'s last spawn: (cases, their one-process
+    records, the program)."""
     import dataclasses as dc_
     from repro_torch.launch import decode_check as dc
-    from repro_torch.launch import dist, tp
-    t_phase = time.perf_counter()
     base = dc.DecodeSpec(arch=TP_ARCH, smoke=False, n_layers=4,
                          overrides=(("dtype", "float32"),), steps=16,
                          scale_embedding=True)
-    cases = [dc_.replace(base, mesh_shape=m, fsdp=f, batch=b)
-             for m, f, b, _ in TP_DECODE]
+    cases = [dc_.replace(base, arch=a, mesh_shape=m, fsdp=f, batch=b)
+             for a, m, f, b, _ in TP_DECODE]
     ones = []
     for spec in cases:
         params = dc.init_params(spec, "cuda")
         ones.append(dc.greedy(spec, params, "cuda"))
         del params
         torch.cuda.empty_cache()
-    runs = tuple(cases) + tuple(dc_.replace(c, fault=f)
-                                for c, (*_, f) in zip(cases, TP_DECODE))
-    t0 = time.perf_counter()
-    ranks = dist.spawn(dc.rank_main, 2, runs, "cuda", backend="gloo")
-    t_ranks = time.perf_counter() - t0
-    torch.cuda.ipc_collect()
-    torch.cuda.empty_cache()
+    # each case beside its fault run: the ranks make each model once
+    runs = tuple(r for c, (*_, f) in zip(cases, TP_DECODE)
+                 for r in (c, dc_.replace(c, fault=f)))
+    return cases, ones, (dc.rank_main, (runs, "cuda"))
+
+
+def tp_decode_report(smi, cases, ones, ranks, t_ranks):
+    """Phase "tp decode": each rank's records of `tp_decode_prepare`'s
+    program (``ranks``, rank 0's first) against the one-process runs."""
+    from repro_torch.launch import decode_check as dc
+    from repro_torch.launch import tp
+    t_phase = time.perf_counter()
     for i, spec in enumerate(cases):
         want = tp.decode_bytes(spec.config(), spec.mesh_shape,
                                batch=spec.batch, window=spec.seq_len,
                                fsdp=spec.fsdp)
         one = ones[i]
         for r in range(2):
-            rec, bad = ranks[r][i], ranks[r][i + len(cases)]
+            rec, bad = ranks[r][2 * i], ranks[r][2 * i + 1]
             held = dc.compare(rec, one, TP_DECODE_RTOL)
             faulted = dc.compare(bad, one, TP_DECODE_RTOL)
             median = lambda ms: sorted(ms)[len(ms) // 2]
-            line = dict(mesh=spec.mesh_shape, fsdp=spec.fsdp,
+            line = dict(arch=spec.arch, mesh=spec.mesh_shape, fsdp=spec.fsdp,
                         batch=spec.batch, held=held, fault=faulted,
                         step_bytes=rec["step_bytes"], closed_form=want,
                         ms_a_step_median=median(rec["ms_a_step"]),
@@ -5166,19 +5363,20 @@ def phase_tp_decode(smi):
             if rec["step_bytes"] != want:
                 fail(f"tp decode {spec.mesh_shape} rank {r}: bytes "
                      f"{rec['step_bytes']} != closed form {want}")
-        if all(dc.compare(ranks[r][i + len(cases)], one,
+        if all(dc.compare(ranks[r][2 * i + 1], one,
                           TP_DECODE_RTOL)["ok"] for r in range(2)):
-            fail(f"tp decode {spec.mesh_shape}: rank 1's 1% "
-                 f"{TP_DECODE[i][3]} fault passed the check")
-    say(f"tp decode: {TP_ARCH} at full width, 4 layers f32, 16 greedy "
-        f"tokens; world 2 over gloo on this card {t_ranks:.1f} s (spawn "
-        f"included); tokens and logits of every rank within "
-        f"{TP_DECODE_RTOL} of the largest logit of one process, bytes equal "
-        f"to tp.decode_bytes, both faults caught; phase took "
+            fail(f"tp decode {spec.arch} {spec.mesh_shape}: rank 1's 1% "
+                 f"{TP_DECODE[i][4]} fault passed the check")
+    say(f"tp decode: {TP_ARCH} and {TP_MAMBA} at full width, 4 layers "
+        f"f32, 16 greedy "
+        f"tokens; world 2 over gloo on this card, after phase \"tp\"'s "
+        f"runs in its last spawn ({t_ranks:.1f} s, spawn included); tokens "
+        f"and logits of every rank within {TP_DECODE_RTOL} of the largest logit of one process, bytes equal "
+        f"to tp.decode_bytes, the faults caught; checks took "
         f"{time.perf_counter() - t_phase:.1f} s")
     # rank 0's launches of each held case, counted from zero just before
     # its decode (`decode_check.run_rank`)
-    return {str(spec.mesh_shape): ranks[0][i]["launches"]
+    return {f"{spec.arch} {spec.mesh_shape}": ranks[0][2 * i]["launches"]
             for i, spec in enumerate(cases)}
 
 
@@ -5202,36 +5400,68 @@ EXAMPLES = (("torch_quickstart.py", ("--fast",), "\nOK\n"),
              "round   1  loss"))
 
 
-def phase_examples(smi):
-    """Each of EXAMPLES on the card; fails on a non-zero exit code or a
-    missing expected line (the quickstart's final ``OK``)."""
+def start_examples():
+    """Each of EXAMPLES on the card, each its own process, started at once
+    and left to run beside phase "tp" (their models are small; most of
+    their time is the interpreter's and torch's start).  Returns the
+    processes and the clock they started at; `finish_examples` reads them,
+    and they are killed if the script ends first."""
+    import atexit
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                if p]))
-    t_phase = time.perf_counter()
-    # all three at once: each is a small model, most of its time the
-    # interpreter's and torch's start
-    procs = [(script, args, want, subprocess.Popen(
-        [sys.executable, str(ROOT / "examples" / script), *args], cwd=ROOT,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for script, args, want in EXAMPLES]
-    for script, args, want, proc in procs:
+    t0 = time.perf_counter()
+    procs = []
+    for script, args, want in EXAMPLES:
+        # files, not pipes: nothing reads them until phase "examples"
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs.append((script, args, want, (out, err), subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / script), *args],
+            cwd=ROOT, env=env, stdout=out, stderr=err, text=True)))
+    atexit.register(lambda: [p.kill() for *_, p in procs
+                             if p.poll() is None])
+    return procs, t0
+
+
+def finish_examples(smi, started):
+    """Phase "examples": fails on a non-zero exit code or a missing
+    expected line (the quickstart's final ``OK``)."""
+    procs, t_phase = started
+    for script, args, want, files, proc in procs:
         try:
-            out, err = proc.communicate(timeout=300)
+            proc.wait(timeout=300)
         except subprocess.TimeoutExpired:
             for *_, p in procs:
                 p.kill()
             fail(f"examples {script}: no exit within 300 s")
+        for f in files:
+            f.seek(0)
+        out, err = (f.read() for f in files)
         tail = out.strip().splitlines()[-4:]
         say(f"examples {script} {' '.join(args)} [{smi}]: rc "
-            f"{proc.returncode} by {time.perf_counter() - t_phase:.1f} s; "
-            + " | ".join(tail))
+            f"{proc.returncode} by {time.perf_counter() - t_phase:.1f} s "
+            f"from its start; " + " | ".join(tail))
         if proc.returncode != 0 or want not in out + "\n":
             for *_, p in procs:
                 p.kill()
             fail(f"examples {script}: rc {proc.returncode}, expected "
                  f"{want!r}; stderr: {err[-2000:]}")
-    say(f"examples: phase took {time.perf_counter() - t_phase:.1f} s")
+    say(f"examples: all three exited by "
+        f"{time.perf_counter() - t_phase:.1f} s from their start")
+
+
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def clocked(name):
+    """Adds the seconds of the block to ``PHASE_SECONDS[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
 
 
 def main():
@@ -5239,56 +5469,91 @@ def main():
         fail("torch sees no CUDA device; this script needs one NVIDIA GPU")
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
-    recs, _ = phase_kernels_and_timing()
-    recs["ssd_chunk"] = phase_k5()
-    eng, state, task, launches, side = phase_slice(smi)
-    phase_legs(eng, state, task)
-    del eng, state, task
-    phase_card_vs_cpu(smi)
-    torch.cuda.empty_cache()
-    paper_launches = phase_paper_models(smi)
-    torch.cuda.empty_cache()
-    t_sim = time.perf_counter()
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        sim_launches = phase_sim(smi, Path(tmp))
-    say(f"sim: phase took {time.perf_counter() - t_sim:.1f} s")
-    torch.cuda.empty_cache()
-    cfg, params = _serving_model("mamba2-2.7b", 2_702_579_200)
-    serve_launches, prompts, _ = phase_serve(smi, cfg, params,
-                                             recs["ssd_chunk"]["ms"])
-    phase_trace(smi, cfg, params, prompts)
-    wide = {k: v.float() for k, v in params.items()}
-    del params
-    torch.cuda.empty_cache()
-    phase_routes(smi, cfg, wide, prompts)
-    del wide
-    torch.cuda.empty_cache()
-    phase_lm_card_vs_cpu(smi)
-    torch.cuda.empty_cache()
-    qwen_launches = phase_serve_qwen(smi)
-    llm_launches, llm_runs, llm_errs = phase_llm(smi)
-    torch.cuda.empty_cache()
-    _, qwen_runs, qwen_errs = phase_llm_qwen(smi)
-    torch.cuda.empty_cache()
-    moe_launches = phase_moe(smi)
-    swap_launches, qcfg, qparams = phase_hot_swap(smi)
-    loadgen_launches = phase_loadgen(smi, qcfg, qparams)
-    del qparams, qcfg
-    torch.cuda.empty_cache()
-    modality_launches, modality_rows, modality_errs = phase_modality(smi)
-    torch.cuda.empty_cache()
-    moe_windows, moe_smoke, moe_rows, moe_errs = phase_moe_train(smi)
-    torch.cuda.empty_cache()
-    pod_launches = phase_pod(smi)
-    torch.cuda.empty_cache()
-    tp_launches = phase_tp(smi)
-    torch.cuda.empty_cache()
-    dryrun_launches, op_host = phase_dryrun(smi)
-    torch.cuda.empty_cache()
-    tp_decode_launches = phase_tp_decode(smi)
-    phase_examples(smi)
+    with clocked("build"):
+        phase_build()
+    with clocked("kernels and timing"):
+        recs, _ = phase_kernels_and_timing()
+    with clocked("k5"):
+        recs["ssd_chunk"] = phase_k5()
+    with clocked("slice, legs"):
+        eng, state, task, launches, side = phase_slice(smi)
+        phase_legs(eng, state, task)
+        del eng, state, task
+    with clocked("card vs cpu"):
+        phase_card_vs_cpu(smi)
+        torch.cuda.empty_cache()
+    with clocked("paper models"):
+        paper_launches = phase_paper_models(smi)
+        torch.cuda.empty_cache()
+    with clocked("sim"):
+        t_sim = time.perf_counter()
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            sim_launches = phase_sim(smi, Path(tmp))
+        say(f"sim: phase took {time.perf_counter() - t_sim:.1f} s")
+        torch.cuda.empty_cache()
+    with clocked("serve"):
+        cfg, params = _serving_model("mamba2-2.7b", 2_702_579_200)
+        serve_launches, prompts, _ = phase_serve(smi, cfg, params,
+                                                 recs["ssd_chunk"]["ms"])
+    with clocked("trace"):
+        phase_trace(smi, cfg, params, prompts)
+    with clocked("routes"):
+        wide = {k: v.float() for k, v in params.items()}
+        del params
+        torch.cuda.empty_cache()
+        phase_routes(smi, cfg, wide, prompts)
+        del wide
+        torch.cuda.empty_cache()
+    with clocked("lm card vs cpu"):
+        phase_lm_card_vs_cpu(smi)
+        torch.cuda.empty_cache()
+    with clocked("serve qwen1.5-4b"):
+        qwen_launches = phase_serve_qwen(smi)
+    with clocked("llm"):
+        llm_launches, llm_runs, llm_errs = phase_llm(smi)
+        torch.cuda.empty_cache()
+    with clocked("llm qwen1.5-4b"):
+        _, qwen_runs, qwen_errs = phase_llm_qwen(smi)
+        torch.cuda.empty_cache()
+    with clocked("moe"):
+        moe_launches = phase_moe(smi)
+    with clocked("hot swap"):
+        swap_launches, qcfg, qparams = phase_hot_swap(smi)
+    with clocked("loadgen"):
+        loadgen_launches = phase_loadgen(smi, qcfg, qparams)
+        del qparams, qcfg
+        torch.cuda.empty_cache()
+    with clocked("modality"):
+        modality_launches, modality_rows, modality_errs = phase_modality(smi)
+        torch.cuda.empty_cache()
+    with clocked("moe train"):
+        moe_windows, moe_smoke, moe_rows, moe_errs = phase_moe_train(smi)
+        torch.cuda.empty_cache()
+    with clocked("pod"):
+        pod_launches, pod_b = phase_pod(smi)
+        torch.cuda.empty_cache()
+    with clocked("tp decode"):
+        decode_cases, decode_ones, decode_program = tp_decode_prepare()
+    # the examples run beside phase "tp" (their own processes; small
+    # models): phase "examples" reads them after phase "dryrun"
+    examples = start_examples()
+    with clocked("tp"):
+        tp_launches, pod_ranks, decode_ranks = phase_tp(
+            smi, first=pod_b["program"], last=decode_program)
+        del pod_b["program"], decode_program
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    with clocked("pod"):
+        pod_b_report(smi, pod_b, *pod_ranks)
+    with clocked("tp decode"):
+        tp_decode_launches = tp_decode_report(smi, decode_cases, decode_ones,
+                                              *decode_ranks)
+    with clocked("dryrun"):
+        dryrun_launches, op_host = phase_dryrun(smi)
+        torch.cuda.empty_cache()
+    with clocked("examples"):
+        finish_examples(smi, examples)
     kernels = []
     for name, r in recs.items():
         serving, llm = name in SERVE_KERNELS, name in LLM_KERNELS
@@ -5322,7 +5587,7 @@ def main():
             moe_train=[moe_rows[name]] if name in moe_rows else [],
             moe_train_max_abs_err=moe_errs.get(name),
             pod_launches=pod_launches[name],
-            tp_launches=tp_launches[name],
+            tp_launches={a: v[name] for a, v in tp_launches.items()},
             dryrun_launches={w: v.get(name, 0)
                              for w, v in dryrun_launches.items()},
             tp_decode_launches={m: v[name]
@@ -5330,6 +5595,8 @@ def main():
             op_host_us=op_host[name],
             llm_max_abs_err=llm_errs[name],
             llm_qwen_max_abs_err=qwen_errs[name], check="pass", **r))
+    say("phase seconds " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {smi}")
     say(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""The dense family's decode step under a tensor-parallel plan, held
-against the same decode in one process (the CPU tests over gloo,
+"""The decode step under a tensor-parallel plan, held against the same
+decode in one process (the CPU tests over gloo,
 chip_smoke.py's phase "tp decode" on the card, tools/pod_cards.py (f)
 across cards).
 
@@ -16,7 +16,8 @@ records carry the logits, the tokens, the collectives of one step by axis
 ms a step, the peak memory and the kernels' launches of the decode
 (`kernels._build.LAUNCHES`, zeroed just before it).  ``fault`` plants what a comparison must
 catch, 3 steps before the end: rank `FAULT_RANK`'s slice of the first
-block's ``wo`` (``"wo"``) or of its value ring (``"ring"``) 1% off.
+block's ``wo`` (``"wo"``), of its value ring (``"ring"``), of its Mamba2
+``w_out`` (``"w_out"``) or of its SSM state (``"state"``) 1% off.
 `compare` holds a rank's record against the one-process run.
 """
 from __future__ import annotations
@@ -36,7 +37,9 @@ from .roofline import axis_bytes
 
 FAULT = 1e-2
 FAULT_RANK = 1
-FAULT_LEAVES = {"wo": "blocks/s0_mix/wo", "ring": "s0/v"}
+FAULT_LEAVES = {"wo": "blocks/s0_mix/wo", "ring": "s0/v",
+                "w_out": "blocks/s0_mix/w_out", "state": "s0/state"}
+_IN_PARAMS = ("wo", "w_out")
 
 
 @dataclass(frozen=True)
@@ -52,13 +55,18 @@ class DecodeSpec:
     steps: int = 8                         # greedy tokens after them
     seed: int = 0
     scale_embedding: bool = False          # the embedding times d^-1/2
-    fault: Optional[str] = None            # "wo" | "ring"
+    fault: Optional[str] = None            # a key of FAULT_LEAVES
 
     def config(self):
+        """The config decoded: an MoE routes each token as a group of its
+        own, as `serve.engine.ServeEngine` decodes (ROADMAP, deviation
+        15), so a rank's rows of the batch make whole groups."""
         cfg = get_config(self.arch)
         cfg = cfg.smoke() if self.smoke else cfg
         if self.n_layers is not None:
             cfg = cfg.replace(n_layers=self.n_layers)
+        if cfg.n_experts:
+            cfg = cfg.replace(moe_group_size=1)
         return cfg.replace(**dict(self.overrides)) if self.overrides else cfg
 
     @property
@@ -145,9 +153,7 @@ def greedy(spec: DecodeSpec, params: dict, device, plan=None,
 def _rows(plan, cfg, spec) -> slice:
     """This rank's rows of the batch (all of them unless the cache
     splits the batch over "data")."""
-    from ..models.transformer import _window
-    ring = plan.ring(cfg, spec.batch, _window(cfg, spec.seq_len))
-    if not ring.batch_split:
+    if not plan.batch_split(spec.batch):
         return slice(0, spec.batch)
     n = spec.batch // plan.data.size
     return slice(plan.data.rank * n, (plan.data.rank + 1) * n)
@@ -160,7 +166,7 @@ def _fault(spec: DecodeSpec, rank: int):
 
     def plant(step, params, cache):
         if step == spec.at_step:
-            tree = params if spec.fault == "wo" else cache
+            tree = params if spec.fault in _IN_PARAMS else cache
             tree[leaf][0].mul_(1 + FAULT)
     return plant
 

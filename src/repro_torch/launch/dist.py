@@ -85,6 +85,13 @@ def _entry(rank: int, fn, world: int, backend: str, store_path: str,
     close()
 
 
+def rank_programs(rank: int, world: int, programs: tuple) -> list:
+    """Several rank programs in turn on one spawned rank (one spawn, one
+    group): each a (function, arguments) pair, called as
+    ``function(rank, world, *arguments)``; returns their results."""
+    return [fn(rank, world, *args) for fn, args in programs]
+
+
 def spawn(fn, world: int, *args, backend: str = "gloo") -> list:
     """Run ``fn(rank, world, *args)`` on ``world`` spawned ranks joined
     over ``backend``; returns their results, rank 0's first."""

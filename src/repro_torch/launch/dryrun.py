@@ -22,9 +22,11 @@ record traces, as the reference lowers it:
   * decode  -- ``serve_step``: `models.api.model_decode_step` against the
     rank's part of the cache under `sharding.cache_specs`.
 
-Each runs under the dense family's `launch.tp` plan (FSDP over "data",
-Megatron over "model") with the kernels on (``use_kernel``: K1-K5 are
-`kernels.library` ops, traced through their fake implementations).  Two
+Each runs under the config's `launch.tp` plan (FSDP over "data", Megatron
+over "model": the Mamba2 mixer on a rank's heads, the MoE FFN on its
+experts) with the kernels on (``use_kernel``: K1-K5 are `kernels.library`
+ops, traced through their fake implementations); an MoE decodes each token
+as a routing group of its own, as `serve.engine.ServeEngine` does.  Two
 passes, counted by `launch.costs`:
 
   * PROVE: the full config (train at ``microbatches=8``): argument bytes
@@ -134,6 +136,10 @@ def build_step(cfg, shape, mesh, *, multi_pod: bool, topk=None,
     a function of nothing, its arguments rank 0's fake slices."""
     n_clients = 2 if (multi_pod and shape.kind == "train") else 1
     ecfg = specs.effective_config(cfg, shape)
+    if shape.kind == "decode" and ecfg.n_experts:
+        # an MoE decodes each token as a routing group of its own, as
+        # `serve.engine.ServeEngine` does (ROADMAP, deviation 15)
+        ecfg = ecfg.replace(moe_group_size=1)
     plan = tp.plan_for(ecfg, mesh, fsdp=fsdp)   # refuses a family first
     sp = specs.input_specs(cfg, shape, n_clients=n_clients, topk=topk,
                            device=device, local=True, mesh=mesh, rank=0,

@@ -25,9 +25,17 @@ slices of those cases against the leaves' `local_slice` where they lie and
 returns, per leaf, the largest difference and the largest reference
 magnitude instead of the parameters.  ``spec.fault`` plants a fault the
 comparison must catch: rank `FAULT_RANK` starts each case with its slice
-of `FAULT_LEAF` ``1 + FAULT`` times what it should be.  `rank_main_many`
-is the program of one spawned rank (`launch.dist.spawn`) running several
-specs, each over its own mesh; `rank_main` runs one.
+of the config's `fault_leaf` ``1 + FAULT`` times what it should be.
+`rank_main_many` is the program of one spawned rank (`launch.dist.spawn`)
+running several specs, each over its own mesh; `rank_main` runs one.
+
+`MoEFFNSpec`, `moe_ffn_pass` and `moe_ffn_rank` hold one MoE FFN under
+expert parallelism against the same FFN in one process: a seeded layer
+and tokens, the forward and the backward of ``sum(out * g) + aux``, each
+rank on its experts' slices (``fault``: rank `FAULT_RANK`'s ``w_down``
+slice 1% off), compared where the slices lie, and the dropped (token,
+choice) pairs counted on both sides.  Each rank makes the one-process
+reference itself, so nothing of it is shared through the spawn.
 """
 from __future__ import annotations
 
@@ -45,7 +53,9 @@ from ..core.llm_algorithms import (LLMDSFLAlgorithm, LLMFedAvgAlgorithm,
 from ..core.llm_dsfl import LLMDsflHP
 from ..data.pipeline import build_lm_task
 from ..kernels import _build
+from ..models import moe
 from ..models.api import model_init
+from ..models.shardctx import active_plan
 from . import collectives
 from .mesh import make_client_mesh, make_mesh
 
@@ -68,11 +78,23 @@ CASES = {
     "fedavg_sparse": ("fedavg", 1, {}, {}, "half", True),
     "ckpt": ("dsfl", 1, {}, {}, None, False),
 }
-# the fault a comparison must catch: one rank's slice of this leaf, 1% off
+# the fault a comparison must catch: one rank's slice of a leaf
+# (`fault_leaf`: this one where the first sub-layer has an FFN), 1% off
 # before the round
 FAULT_LEAF = "blocks/s0_ffn/w_down"
 FAULT = 1e-2
 FAULT_RANK = 1
+
+
+def fault_leaf(cfg) -> str:
+    """The leaf a fault is planted in: the first FFN's ``w_down`` (the
+    MoE family's first expert stack), or, without an FFN (Mamba2), the
+    first mixer's ``w_out``."""
+    if cfg.arch_type == "moe":
+        i = next(i for i, (_, f) in enumerate(cfg.pattern) if f == "moe")
+        return f"blocks/s{i}_ffn/w_down"
+    return FAULT_LEAF if cfg.pattern[0][1] != "none" \
+        else "blocks/s0_mix/w_out"
 
 
 @dataclass(frozen=True)
@@ -196,14 +218,15 @@ def _moved(before: dict, after: dict) -> dict:
             for k, v in after.items()}
 
 
-def _with_fault(state):
-    """``state`` with `FAULT_LEAF` times 1 + FAULT on rank `FAULT_RANK`
-    (every rank of one process)."""
+def _with_fault(state, cfg):
+    """``state`` with ``cfg``'s `fault_leaf` times 1 + FAULT on rank
+    `FAULT_RANK` (every rank of one process)."""
     import torch.distributed as dist
     if dist.is_initialized() and dist.get_rank() != FAULT_RANK:
         return state
     params = dict(state.clients.params)
-    params[FAULT_LEAF] = params[FAULT_LEAF] * (1 + FAULT)
+    leaf = fault_leaf(cfg)
+    params[leaf] = params[leaf] * (1 + FAULT)
     return replace(state, clients=replace(state.clients, params=params))
 
 
@@ -217,7 +240,7 @@ def run_cases(spec: DrillSpec, mesh=None, device=None,
     K, out = spec.clients, {}
     state = _start(spec, cfg, task, mesh, device)
     if spec.fault:
-        state = _with_fault(state)
+        state = _with_fault(state, cfg)
     state0 = None if spec.chain else state
     for name in spec.cases:
         kind, rounds, run_kw, hp_kw, plan, sparse = CASES[name]
@@ -307,3 +330,113 @@ def rank_main(rank: int, world: int, spec: DrillSpec,
               compare: Optional[dict] = None) -> dict:
     """One spawned rank running one spec (`rank_main_many`)."""
     return rank_main_many(rank, world, (spec,), (compare,))[0]
+
+
+# ------------------------------------------------- one MoE FFN, held ----
+@dataclass(frozen=True)
+class MoEFFNSpec:
+    """One MoE FFN of ``arch`` (its smoke config with ``smoke``) on
+    ``tokens`` tokens in routing groups of ``group``, over the mesh
+    ``mesh_shape`` (None: one process)."""
+    arch: str = "llama4-scout-17b-a16e"
+    smoke: bool = False
+    tokens: int = 1024
+    group: int = 256
+    dtype: str = "float32"
+    seed: int = 0
+    device: str = "cpu"
+    mesh_shape: Optional[tuple] = (1, 1, 2)
+    fault: bool = False
+
+    def config(self):
+        """One pattern-repeat of the config, whose first MoE FFN runs."""
+        cfg = get_config(self.arch)
+        cfg = cfg.smoke() if self.smoke else cfg
+        return cfg.replace(n_layers=len(cfg.pattern), dtype=self.dtype,
+                           moe_group_size=self.group)
+
+    @property
+    def leaf(self) -> str:
+        """The FFN's stacked-leaf prefix (the specs' names)."""
+        i = next(i for i, (_, f) in enumerate(self.config().pattern)
+                 if f == "moe")
+        return f"blocks/s{i}_ffn/"
+
+
+def moe_ffn_inputs(spec: MoEFFNSpec, device) -> tuple:
+    """(the seeded layer's leaves, tokens (1, T, d), the output's
+    upstream gradient), made on ``device``."""
+    cfg = spec.config()
+    gen = torch.Generator(device=device).manual_seed(spec.seed)
+    params = moe.init_moe(gen, cfg, device)
+    x = torch.randn((1, spec.tokens, cfg.d_model), generator=gen,
+                    device=device).to(cfg.cdtype)
+    g = torch.randn((1, spec.tokens, cfg.d_model), generator=gen,
+                    device=device).to(cfg.cdtype)
+    return params, x, g
+
+
+def moe_ffn_pass(spec: MoEFFNSpec, params: dict, x, g, plan=None) -> dict:
+    """The FFN's output, aux loss and the gradients of ``sum(out * g) +
+    aux`` for its leaves (under ``plan``: the rank's slices) and ``x``,
+    the dropped (token, choice) pairs, and the seconds of the pass."""
+    cfg = spec.config()
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xx = x.detach().requires_grad_()
+    _sync(x.device)
+    t0 = time.perf_counter()
+    with active_plan(plan):
+        out, aux = moe.moe_ffn(leaves, cfg, xx)
+        loss = (out.float() * g.float()).sum() + aux
+        grads = torch.autograd.grad(loss, [*leaves.values(), xx])
+    _sync(x.device)
+    seconds = time.perf_counter() - t0
+    keep = moe.route(params, cfg, x.reshape(-1, spec.group, cfg.d_model))[3]
+    return dict(out=out.detach(), aux=aux.detach(), seconds=seconds,
+                grads=dict(zip([*leaves, "x"], grads)),
+                dropped=int((~keep).sum()))
+
+
+def moe_ffn_rank(rank: int, world: int, spec: MoEFFNSpec) -> dict:
+    """One spawned rank: the seeded FFN whole in one process on this
+    rank's device (the reference: the same draws on every device), then
+    its experts' slices under the plan of ``spec.mesh_shape``; per tensor
+    the largest difference from the one-process one where the rank's part
+    lies, beside that part's largest magnitude."""
+    import torch.distributed as dist
+
+    from . import tp
+    from .dist import rank_device
+    from .sharding import local_slice
+    device = rank_device(spec.device, rank, world)
+    cfg = spec.config()
+    mesh = make_mesh(spec.mesh_shape, device=device)
+    plan = tp.plan_for(cfg, mesh)
+    me = dist.get_rank()
+    params, x, g = moe_ffn_inputs(spec, device)
+    ref = moe_ffn_pass(spec, params, x, g)
+    specs = {k: plan.specs[spec.leaf + k][1:] for k in params}
+    cut = lambda t, k: local_slice(t, specs[k], mesh, me).clone()
+    want = {"out": ref["out"], "aux": ref["aux"], "x": ref["grads"]["x"],
+            **{k: cut(ref["grads"][k], k) for k in params}}
+    mine = {k: cut(v, k) for k, v in params.items()}
+    del params, ref["grads"]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if spec.fault and me == FAULT_RANK:
+        mine["w_down"].mul_(1 + FAULT)
+    collectives.reset_log()
+    got = moe_ffn_pass(spec, mine, x, g, plan)
+    have = {"out": got["out"], "aux": got["aux"], **got["grads"]}
+    out = dict(max_abs={k: float((have[k].float() - w.float()).abs().max())
+                        for k, w in want.items()},
+               max_ref={k: float(w.float().abs().max())
+                        for k, w in want.items()},
+               dropped=got["dropped"], seconds=got["seconds"],
+               one_process_dropped=ref["dropped"],
+               one_process_seconds=ref["seconds"], log=collectives.log(),
+               ep=plan.ep, experts=mine["w_up"].shape[0])
+    del mine, got, want, have
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out

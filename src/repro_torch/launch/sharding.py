@@ -17,7 +17,8 @@ key paths).  A leaf is anything with a ``.shape``; a mesh is a
 `to_placements` turns a spec into DTensor placements (the counterpart of
 ``to_named``), and `local_slice` gives one rank's part of a leaf.  The
 LLM rounds execute these layouts with explicit collectives: the "pod" axis
-in `core.llm_dsfl`, "model" and "data" in `launch.tp` (the dense family).
+in `core.llm_dsfl`, "model" and "data" in `launch.tp` (the dense, ssm, moe
+and hybrid families).
 `model_shapes` gives one model's full leaf shapes, which the rules read
 wherever a rank holds only its slices.
 """

@@ -1,12 +1,13 @@
-"""Tensor parallelism over "model" and FSDP over "data" for the dense LLM
-family: the layouts `launch.sharding` gives the reference's partitioner,
-executed with explicit Megatron-style collectives over the mesh's groups
-(`launch.collectives`, so each one is logged with its axis and bytes).
+"""Tensor parallelism over "model" and FSDP over "data" for the decoder
+families (dense, ssm, moe, hybrid): the layouts `launch.sharding` gives
+the reference's partitioner, executed with explicit Megatron-style
+collectives over the mesh's groups (`launch.collectives`, so each one is
+logged with its axis and bytes).
 
 This module holds the layout (`TPPlan`, `plan_for`, `gather_leaf`) and the
-closed forms of the bytes (`pass_bytes`, `round_bytes`).  A rank holds
-`sharding.local_slice` of every parameter under `sharding.param_specs`;
-the round makes its plan the one the models read
+closed forms of the bytes (`pass_bytes`, `round_bytes`, `decode_bytes`).
+A rank holds `sharding.local_slice` of every parameter under
+`sharding.param_specs`; the round makes its plan the one the models read
 (`models.shardctx.active_plan`), and they stay plain functions over flat
 dicts, running `models.shardctx`'s collectives:
 
@@ -21,6 +22,20 @@ dicts, running `models.shardctx`'s collectives:
     (`Ruler.attn_tp`: query and key/value heads both divide, so GQA groups
     stay on one rank), ``wo`` row-parallel and all-reduced; else it is
     replicated on "model", as the rules lay it out;
+  * the Mamba2 mixer runs the rank's heads when "model" divides them
+    (`TPPlan.ssm_tp`): ``w_z``/``w_x``/``w_dt`` and the per-head and
+    per-channel leaves are the rank's, ``w_b``/``w_c`` and their conv
+    leaves the rank's columns of G*N, gathered whole after the conv
+    (`gather_model_sum`: its backward reduce-scatters) so the rank reads
+    the groups its heads use; the gated norm's sum of squares over the
+    whole d_inner is all-reduced (`all_reduce_both`), ``w_out`` is
+    row-parallel and all-reduced; else the mixer is replicated;
+  * the MoE FFN is expert-parallel when "model" divides the experts
+    (`TPPlan.ep`): every rank routes every token with the replicated
+    router (the same choices, ranks and drops as one process, and the
+    same load-balance loss), passes the top-k gates and the tokens through
+    `copy_to_model`, runs its E/M experts' slices of the dispatch and
+    combine, and all-reduces its partial output; else it is replicated;
   * the unembedding is column-parallel (its padded-vocabulary mask on the
     global columns) and returns the rank's columns; the round gathers
     them over "model" (`gather_vocab`, whose backward keeps the rank's
@@ -33,13 +48,16 @@ dicts, running `models.shardctx`'s collectives:
     (`data_rows`, the rule of `sharding.batch_specs`) and scales its loss
     by 1/D, so the summed gradients are the mean's.  A block is a
     checkpoint: the backward's recompute repeats the block's forward
-    collectives (`pass_bytes` counts them).
+    collectives (`pass_bytes` counts them), and where the pattern has more
+    than one sub-layer each sub-layer's own checkpoint repeats them once
+    more.
 
 Every rank of a "model" group computes the same logits, losses and
 uploads.  Sums split over ranks (row-parallel products, the gradients over
 "data") add in another order than one process: a round agrees with the
-one-process round to rounding, not bitwise.  Other families raise on a
-mesh that splits "data" or "model" (ROADMAP, Queue 1 item 2.1's follow-ups).
+one-process round to rounding, not bitwise.  The audio and VLM families
+raise on a mesh that splits "data" or "model" (ROADMAP, Queue 1 item
+2.1's follow-ups), and so does a mixer the rules would cut inside a head.
 """
 from __future__ import annotations
 
@@ -58,11 +76,6 @@ from .sharding import (Ruler, _axes, _ok, local_cache_shapes, local_slice,
 
 # what each later slice adds (ROADMAP, Queue 1, item 2.1's follow-ups)
 _NOT_YET = {
-    "ssm": "tensor parallelism of the Mamba2 mixer (w_x, w_z, the conv "
-           "leaves)",
-    "hybrid": "tensor parallelism of the Mamba2 mixer and expert "
-              "parallelism (Jamba)",
-    "moe": "expert parallelism over 'model' for the MoE family",
     "audio": "tensor parallelism of the encoder-decoder (whisper)",
     "vlm": "tensor parallelism of the VLM's patch projector (phi-3-vision)",
 }
@@ -84,6 +97,8 @@ class TPPlan:
     data_dims: dict      # flat leaf name -> its "data" dim (block leaves:
                          # within one block) or None
     fsdp: bool = True    # the leaves split over "data" (False: replicated)
+    ssm_tp: bool = False  # "model" divides the Mamba2 mixer's heads
+    ep: bool = False     # "model" divides the MoE FFN's experts
 
     # ------------------------------------------------------------ layout --
     def slices(self, params: dict) -> dict:
@@ -106,6 +121,10 @@ class TPPlan:
     def head_start(self, local_heads: int) -> int:
         return self.model.rank * local_heads if self.attn_tp else 0
 
+    def expert_start(self, local_experts: int) -> int:
+        """The first global expert of this rank's slice."""
+        return self.model.rank * local_experts if self.ep else 0
+
     # ------------------------------------------------------- "data" axis --
     def data_rows(self, tree: dict) -> dict:
         """This data rank's share of a batch's leading dimension (the
@@ -116,6 +135,11 @@ class TPPlan:
             b = v.shape[0]
             out[k] = v.narrow(0, r * (b // D), b // D) if _ok(b, D) else v
         return out
+
+    def batch_split(self, batch: int) -> bool:
+        """Whether "data" splits a batch of ``batch`` rows (`data_rows`,
+        and `sharding.cache_specs`' rule for a decode cache)."""
+        return _ok(batch, self.data.size)
 
     def loss_share(self, loss: torch.Tensor) -> torch.Tensor:
         """This rank's part of the mean loss over the data ranks."""
@@ -146,8 +170,8 @@ class TPPlan:
         for a in _axes(spec[2]):
             g = groups[a]
             shards, index = shards * g.size, index * g.size + g.rank
-        return Ring(batch_split=spec[1] == "data", axes=_axes(spec[2]),
-                    shards=shards, index=index, window=window)
+        return Ring(axes=_axes(spec[2]), shards=shards, index=index,
+                    window=window)
 
     def sum_losses(self, losses: torch.Tensor) -> torch.Tensor:
         """The ranks' `loss_share`s summed over "data"."""
@@ -181,22 +205,32 @@ def plan_for(cfg, mesh, fsdp: bool = True) -> Optional[TPPlan]:
     check_family(cfg, mesh)
     r = Ruler(cfg, mesh)
     specs = param_specs(cfg, model_shapes(cfg), mesh, fsdp=fsdp)
+    ssm_tp, ep = _splits(cfg, r)
     return TPPlan(mesh=mesh, data=axis_group(mesh, "data"),
                   model=axis_group(mesh, "model"), attn_tp=r.attn_tp,
                   mlp_tp=r.M(cfg.d_ff) is not None,
                   vocab_tp=r.M(cfg.eff_vocab) is not None, specs=specs,
-                  data_dims=_data_dims(specs), fsdp=fsdp)
+                  data_dims=_data_dims(specs), fsdp=fsdp, ssm_tp=ssm_tp,
+                  ep=ep)
+
+
+def _splits(cfg, r: Ruler) -> tuple:
+    """(the Mamba2 mixer's heads split over "model", the MoE FFN's
+    experts split over it) under the rules ``r``."""
+    mixers = {m for m, _ in cfg.pattern}
+    ffns = {f for _, f in cfg.pattern}
+    return ("mamba" in mixers and r.M(cfg.ssm_heads) is not None,
+            "moe" in ffns and r.M(cfg.n_experts) is not None)
 
 
 @dataclass(frozen=True)
 class Ring:
     """A decode ring's layout under `sharding.cache_specs` seen from one
-    rank: the batch over "data" (``batch_split``) and the window's slots
-    over ``axes`` (major first), cut into ``shards`` of which this rank
-    holds number ``index``: slots [index * W / shards, (index + 1) * W /
-    shards).  The key/value heads are split over "model" exactly where
-    the plan splits attention."""
-    batch_split: bool
+    rank: the window's slots over ``axes`` (major first), cut into
+    ``shards`` of which this rank holds number ``index``: slots [index * W
+    / shards, (index + 1) * W / shards).  The key/value heads are split
+    over "model" exactly where the plan splits attention, the batch over
+    "data" where `TPPlan.batch_split` says."""
     axes: tuple
     shards: int
     index: int
@@ -219,16 +253,46 @@ def _ring_spec(cfg, mesh, batch: int, window: int) -> tuple:
 
 
 def check_family(cfg, mesh) -> None:
-    """Raise NotImplementedError for a family this slice does not split
-    over a mesh whose "data" or "model" axis has more than one rank."""
+    """Raise NotImplementedError for a family the plan does not split
+    over a mesh whose "data" or "model" axis has more than one rank (the
+    audio and VLM families), and for a Mamba2 mixer whose leaves the rules
+    would split other than on head boundaries."""
     sizes = {a: axis_size(mesh, a) for a in ("data", "model")}
-    if cfg.arch_type == "dense" or max(sizes.values()) == 1:
+    if max(sizes.values()) == 1:
         return
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.arch_type}) over mesh axes {sizes}: tensor "
-        f"parallelism and FSDP run the dense family only; "
-        f"{_NOT_YET.get(cfg.arch_type, 'this family')} is queued "
-        f"(ROADMAP, Queue 1, item 2.1)")
+    if cfg.arch_type in _NOT_YET:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.arch_type}) over mesh axes {sizes}: tensor "
+            f"parallelism and FSDP run the dense, ssm, moe and hybrid "
+            f"families; {_NOT_YET[cfg.arch_type]} is queued (ROADMAP, "
+            f"Queue 1, item 2.1)")
+    if any(m == "mamba" for m, _ in cfg.pattern):
+        _check_mixer(cfg, sizes["model"])
+
+
+def _check_mixer(cfg, m: int) -> None:
+    """The rules split d_inner, the heads and B/C's G*N columns over
+    "model" each on its own; the plan runs the mixer on whole heads, with
+    B and C's columns split exactly where the heads are and a rank's heads
+    in whole groups or inside one."""
+    heads, inner = _ok(cfg.ssm_heads, m), _ok(cfg.d_inner, m)
+    gn = cfg.ssm_groups * cfg.ssm_state
+    if inner and not heads:
+        raise NotImplementedError(
+            f"{cfg.name}: the rules split d_inner {cfg.d_inner} over "
+            f"'model' of {m} but not its {cfg.ssm_heads} heads: a head "
+            f"would be cut in two")
+    hpg, local = cfg.ssm_heads // cfg.ssm_groups, cfg.ssm_heads // m
+    if heads and local % hpg and hpg % local:
+        raise NotImplementedError(
+            f"{cfg.name}: over 'model' of {m} a rank's {local} heads would "
+            f"straddle groups of {hpg} heads")
+    if heads != _ok(gn, m):
+        raise NotImplementedError(
+            f"{cfg.name}: over 'model' of {m} the rules split the "
+            f"{cfg.ssm_heads} heads {'' if heads else 'not '}but B and C's "
+            f"{gn} columns {'not ' if heads else ''}(the plan splits both "
+            f"or neither)")
 
 
 def gather_leaf(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -269,11 +333,46 @@ def _leaves(cfg, shape: tuple, fsdp: bool = True):
         yield k, sp, times, n // split, elt
 
 
+def _model_bytes(cfg, r: Ruler, rows: int, decode: bool = False) -> tuple:
+    """({kind: bytes} of one block's forward collectives over "model",
+    {kind: bytes} of those only its backward runs) at ``rows`` tokens
+    (``decode``: the decode step's, whose B and C leave the conv in f32).
+    Each sub-layer the rules split: attention, the MLP and the MoE FFN
+    all-reduce their (rows, d) output, the Mamba2 mixer gathers B and C
+    whole (rows, G*N each), all-reduces its sum of squares (rows,) f32 and
+    its output; in the backward each copied input all-reduces its gradient
+    (the MoE's top-k gates too, (rows, k) f32), B and C's gathers
+    reduce-scatter theirs and the sum of squares all-reduces its own."""
+    e = torch.empty((), dtype=cfg.cdtype).element_size()
+    act = rows * cfg.d_model * e
+    ssm_tp, ep = _splits(cfg, r)
+    split = {"attn": r.attn_tp, "mamba": ssm_tp, "mlp":
+             r.M(cfg.d_ff) is not None, "moe": ep, "none": False}
+    fwd = {"all-reduce": 0, "all-gather": 0}
+    bwd = {"all-reduce": 0, "reduce-scatter": 0}
+    for mixer, ffn in cfg.pattern:
+        for part in (mixer, ffn):
+            if not split[part]:
+                continue
+            fwd["all-reduce"] += act
+            bwd["all-reduce"] += act
+            if part == "moe":
+                bwd["all-reduce"] += rows * cfg.top_k * 4
+            if part == "mamba":
+                gn = cfg.ssm_groups * cfg.ssm_state
+                fwd["all-gather"] += 2 * rows * gn * (4 if decode else e)
+                fwd["all-reduce"] += rows * 4
+                bwd["reduce-scatter"] += 2 * rows * gn // r.m * e
+                bwd["all-reduce"] += rows * 4
+    return fwd, bwd
+
+
 def pass_bytes(cfg, shape: tuple, rows: int, grad: bool) -> dict:
     """{axis: {kind: bytes}} one rank's collectives move in one model pass
     over ``rows`` tokens on a ("pod", "data", "model") mesh of ``shape``:
-    the forward, and with ``grad`` the blocks' recompute and the backward.
-    Derived from the rules and the shapes alone."""
+    the forward, and with ``grad`` the recompute (the block's checkpoint,
+    and each sub-layer's own where the pattern has more than one) and the
+    backward.  Derived from the rules and the shapes alone."""
     _, D, M = shape
     out: dict = {}
 
@@ -293,19 +392,23 @@ def pass_bytes(cfg, shape: tuple, rows: int, grad: bool) -> dict:
             elif grad:
                 add("data", "all-reduce", local * times)
     if M > 1:
-        r = Ruler(cfg, SimpleNamespace(axis_names=("pod", "data", "model"),
-                                       devices=np.empty(shape)))
+        r = Ruler(cfg, _mesh(shape))
         e = torch.empty((), dtype=cfg.cdtype).element_size()
         act = rows * cfg.d_model * e
-        per_block = (r.attn_tp + (r.M(cfg.d_ff) is not None)) * act
         vocab = r.M(cfg.eff_vocab) is not None
-        # forward: the embedding's and each block's row-parallel reduces
-        add("model", "all-reduce", vocab * act + cfg.n_blocks * per_block)
+        fwd, bwd = _model_bytes(cfg, r, rows)
+        # the forward, and in a grad pass each recompute of a sub-layer
+        runs = 1 + grad * (1 + (len(cfg.pattern) > 1))
+        for kind, n in fwd.items():
+            add("model", kind, runs * cfg.n_blocks * n)
+        # the embedding's reduce and the logits' gather
+        add("model", "all-reduce", vocab * act)
         add("model", "all-gather", vocab * rows * cfg.eff_vocab * e)
         if grad:
-            # the recompute, then the copies' gradient reduces
-            add("model", "all-reduce",
-                2 * cfg.n_blocks * per_block + vocab * act)
+            # the copies' gradient reduces, the gathers' reduce-scatters
+            for kind, n in bwd.items():
+                add("model", kind, cfg.n_blocks * n)
+            add("model", "all-reduce", vocab * act)
     return merge(out)
 
 
@@ -361,7 +464,8 @@ def decode_bytes(cfg, shape: tuple, *, batch: int, window: int,
     step of a global ``batch`` against rings of ``window`` slots on a
     ("pod", "data", "model") mesh of ``shape``: FSDP's all-gathers of the
     leaves "data" splits (``fsdp``), the "model" all-reduces of the
-    embedding and each block's row-parallel products and the logits'
+    embedding and each block's row-parallel products, the Mamba2 mixers'
+    B and C gathers (f32) and sums of squares, and the logits'
     all-gather, and, where `sharding.cache_specs` splits the window, each
     attention layer's merge over each of the window's axes: the all-reduce
     of the row maxima (B, H) f32, then of the sums of exp and the weighted
@@ -377,18 +481,20 @@ def decode_bytes(cfg, shape: tuple, *, batch: int, window: int,
         for k, sp, times, n, elt in _leaves(cfg, shape):
             if any("data" in _axes(e) for e in sp):
                 add("data", "all-gather", n * elt * D * times)
-    spec = _ring_spec(cfg, _mesh(shape), batch, window)
-    rows = batch // D if spec[1] == "data" else batch
+    rows = batch // D if _ok(batch, D) else batch
     e = torch.empty((), dtype=cfg.cdtype).element_size()
     if M > 1:
         r = Ruler(cfg, _mesh(shape))
         act = rows * cfg.d_model * e
         vocab = r.M(cfg.eff_vocab) is not None
-        per_block = (r.attn_tp + (r.M(cfg.d_ff) is not None)) * act
-        add("model", "all-reduce", vocab * act + cfg.n_blocks * per_block)
+        for kind, n in _model_bytes(cfg, r, rows, decode=True)[0].items():
+            add("model", kind, cfg.n_blocks * n)
+        add("model", "all-reduce", vocab * act)
         add("model", "all-gather", vocab * rows * cfg.eff_vocab * e)
-    heads = cfg.eff_heads // (M if spec[3] == "model" else 1)
     n_attn = cfg.n_blocks * sum(m == "attn" for m, _ in cfg.pattern)
-    for a in _axes(spec[2]):
-        add(a, "all-reduce", n_attn * rows * heads * 4 * (cfg.hd + 2))
+    if n_attn:
+        spec = _ring_spec(cfg, _mesh(shape), batch, window)
+        heads = cfg.eff_heads // (M if spec[3] == "model" else 1)
+        for a in _axes(spec[2]):
+            add(a, "all-reduce", n_attn * rows * heads * 4 * (cfg.hd + 2))
     return merge(out)

@@ -18,9 +18,9 @@ from .shardctx import current_plan
 
 
 def _check_plan(cfg: ModelConfig, prefill: bool = False) -> None:
-    """Under a tensor-parallel plan only the dense family decodes (other
-    families raise the plan's `check_family` error), and nothing prefills
-    yet."""
+    """Under a tensor-parallel plan the families it splits decode (the
+    audio and VLM families raise the plan's `check_family` error), and
+    nothing prefills yet."""
     plan = current_plan()
     if plan is None:
         return
@@ -69,7 +69,7 @@ def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
     """An empty decode cache for ``seq_len`` positions (it sizes the
     attention ring buffers) on the parameters' device; an audio model's
     also holds the cross keys and values of ``batch["frames"]``.  Under a
-    tensor-parallel plan (the dense family) it is this rank's part under
+    tensor-parallel plan it is this rank's part under
     `launch.sharding.cache_specs`."""
     _check_plan(cfg)
     if cfg.arch_type == "audio":
@@ -85,8 +85,8 @@ def model_decode_step(cfg: ModelConfig, params: dict, cache: dict,
                       token: torch.Tensor, pos, seq_len: int | None = None):
     """One decode step at each row's position ``pos`` ((B,) or a scalar);
     writes ``cache`` in place (see `transformer.decode_step`, also for the
-    dense family's step under a tensor-parallel plan, which needs the
-    ``seq_len`` given to `model_init_cache`)."""
+    step under a tensor-parallel plan, which needs the ``seq_len`` given to
+    `model_init_cache` where the model has attention)."""
     _check_plan(cfg)
     if cfg.arch_type == "audio":
         return ED.encdec_decode_step(cfg, params, cache, token, pos)

@@ -9,6 +9,17 @@ dropped: the token's residual passes it by.
 
 The reference computes the MoE outside any Pallas kernel; here it is plain
 PyTorch (``einsum``) as well.
+
+Under a tensor-parallel plan that splits the experts over "model"
+(`launch.tp.TPPlan.ep`: expert parallelism) every rank routes every token
+with the replicated router, so the same choices are ranked and dropped as
+in one process and every rank computes the same load-balance loss; the
+tokens and the top-k gates then pass `copy_to_model` (the router reads
+the tokens before it, so its gradient is whole on every rank and not
+summed again), the rank runs its E/M experts' slices of the dispatch and
+combine, and its partial output is all-reduced (`reduce_model`).  Under
+"data" a rank's share of the tokens must hold whole routing groups, or
+capacity would drop other choices than one process.
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ import torch.nn.functional as F
 
 from .base import ModelConfig
 from .layers import _init
+from .shardctx import copy_to_model, current_plan, reduce_model
 
 F32 = torch.float32
 
@@ -99,14 +111,27 @@ def moe_ffn(p: dict, cfg: ModelConfig,
     capacity; overflow tokens are dropped (pass through the residual)."""
     B, S, D = x.shape
     N = B * S
+    plan = current_plan()
+    if plan is not None and plan.data.size > 1 and N % cfg.moe_group_size:
+        raise ValueError(
+            f"{cfg.name}: a data rank's {N} tokens do not hold whole MoE "
+            f"routing groups of {cfg.moe_group_size}: capacity would drop "
+            f"other choices than one process")
     gs = min(cfg.moe_group_size, N)
     if N % gs:
         raise ValueError(f"{cfg.name}: {N} tokens do not split into MoE "
                          f"groups of {gs}")
     xg = x.reshape(N // gs, gs, D)
     top_g, top_i, rank, keep, aux = route(p, cfg, xg)
+    split = plan is not None and plan.ep
+    if split:
+        top_g, xg = copy_to_model(plan, top_g), copy_to_model(plan, xg)
     disp, comb = dispatch(top_g, top_i, rank, keep, cfg.n_experts,
                           capacity(cfg, gs), x.dtype)
+    if split:       # this rank's experts (the leaves hold their slices)
+        n = p["w_up"].shape[0]
+        e0 = plan.expert_start(n)
+        disp, comb = disp.narrow(2, e0, n), comb.narrow(2, e0, n)
 
     xin = torch.einsum("gsec,gsd->egcd", disp, xg)            # (E, G, C, D)
     if cfg.act == "swiglu":
@@ -117,4 +142,6 @@ def moe_ffn(p: dict, cfg: ModelConfig,
                    approximate="tanh")
     eout = torch.einsum("egcf,efd->egcd", h, p["w_down"])     # (E, G, C, D)
     out = torch.einsum("gsec,egcd->gsd", comb, eout)
+    if split:
+        out = reduce_model(plan, out)
     return out.reshape(B, S, D), aux

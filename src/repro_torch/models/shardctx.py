@@ -18,7 +18,11 @@ and this module holds Megatron's collectives as autograd functions over
 those groups: the identity whose backward all-reduces (`_CopyToModel`),
 the all-reduce whose backward is the identity (`_ReduceFromModel`), the
 vocabulary all-gather whose backward keeps the rank's columns
-(`gather_vocab`), FSDP's gather whose backward reduce-scatters
+(`gather_vocab`), the "model" all-gather whose backward reduce-scatters
+(`gather_model_sum`: a column split the Mamba2 mixer reads whole on every
+rank, B and C), the all-reduce whose backward all-reduces too
+(`all_reduce_both`: a partial sum whose uses differ by rank, the gated
+norm's sum of squares), FSDP's gather whose backward reduce-scatters
 (`_GatherData`: `gather_block`, `gather_top`), and the identity whose
 backward sums over "data" (`_SumOverData`), and the decode step's merge
 of a ring split over ranks (`ring_merge`).  The plan is process-wide, not
@@ -151,6 +155,35 @@ class _GatherVocab(torch.autograd.Function):
         return grad.narrow(-1, g.rank * n, n).contiguous(), None
 
 
+class _GatherModelSum(torch.autograd.Function):
+    """The ranks' columns (last dimension) gathered whole over "model";
+    every rank uses all of them, so the backward reduce-scatters: each
+    rank's columns get the sum of every rank's gradient of them."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return g.all_gather(x, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.g.reduce_scatter(grad, grad.dim() - 1), None
+
+
+class _AllReduceBoth(torch.autograd.Function):
+    """The all-reduce over "model" of partial sums whose result each rank
+    uses in its own way: the backward all-reduces the gradient as well."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return g.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.g.all_reduce(grad.contiguous().clone()), None
+
+
 class _GatherData(torch.autograd.Function):
     """An FSDP leaf gathered whole over "data" along ``dim``; the backward
     reduce-scatters its gradient back onto the shards."""
@@ -185,6 +218,14 @@ def copy_to_model(plan, x: torch.Tensor) -> torch.Tensor:
 
 def reduce_model(plan, x: torch.Tensor) -> torch.Tensor:
     return _ReduceFromModel.apply(x, plan.model)
+
+
+def gather_model_sum(plan, x: torch.Tensor) -> torch.Tensor:
+    return _GatherModelSum.apply(x, plan.model)
+
+
+def all_reduce_both(plan, x: torch.Tensor) -> torch.Tensor:
+    return _AllReduceBoth.apply(x, plan.model)
 
 
 def _data_leaf(plan, name: str, v: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,20 @@ O(1) recurrent step carrying (ssm_state, conv_state).
 
 The x/B/C projections and their causal convs are separate parameter leaves
 (w_x / w_b / w_c), as in the reference.
+
+Under a tensor-parallel plan that splits the heads over "model"
+(`launch.tp.TPPlan.ssm_tp`) the mixer runs the rank's heads: its input
+passes `copy_to_model`; ``w_z``/``w_x``/``w_dt``, ``dt_bias``/``a_log``/
+``d_skip``, the x conv and ``norm_scale`` are the rank's heads or
+channels; ``w_b``/``w_c`` and their conv leaves give the rank's columns of
+G*N, which `gather_model_sum` makes whole before the rank takes the
+groups its heads read (whole groups, or one group a few ranks share);
+SSD (K5 or `_chunk_local`) runs on the rank's heads; the gated norm's sum
+of squares over the whole d_inner is all-reduced (`all_reduce_both`), and
+``w_out`` is row-parallel (`reduce_model`).  The
+decode step does the same against the rank's part of the cache (the
+state's heads, the conv windows' channels and columns).  Without such a
+plan the mixer runs whole (replicated on "model").
 """
 from __future__ import annotations
 
@@ -23,6 +37,8 @@ import torch.nn.functional as F
 from ..kernels import ops as kops
 from .base import ModelConfig
 from .layers import _init
+from .shardctx import (all_reduce_both, copy_to_model, current_plan,
+                       gather_model_sum, reduce_model)
 
 F32 = torch.float32
 
@@ -178,28 +194,67 @@ def _project(p, cfg, x):
     return z, xs, b, c, dt
 
 
-def _gate_norm_out(p, cfg, y, z):
+def _mixer_plan():
+    """The plan in force where it splits the mixer's heads, else None."""
+    plan = current_plan()
+    return plan if plan is not None and plan.ssm_tp else None
+
+
+def _rank_groups(plan, cfg: ModelConfig, heads: int) -> slice:
+    """The groups (along G) this rank's ``heads`` heads read: a run of
+    whole groups, or the one group they lie in (`launch.tp.check_family`
+    refuses heads that straddle groups)."""
+    hpg = cfg.ssm_heads // cfg.ssm_groups
+    g0 = plan.model.rank * heads // hpg
+    return slice(g0, g0 + max(heads // hpg, 1))
+
+
+def _groups(plan, cfg: ModelConfig, t: torch.Tensor,
+            heads: int) -> torch.Tensor:
+    """B or C after its conv, (..., G*N) or the rank's columns of it
+    under ``plan``, as (..., groups, N): all G groups, or under ``plan``
+    the groups the rank's ``heads`` heads read."""
+    if plan is None:
+        return t.reshape(t.shape[:-1] + (cfg.ssm_groups, cfg.ssm_state))
+    t = gather_model_sum(plan, t)
+    t = t.reshape(t.shape[:-1] + (cfg.ssm_groups, cfg.ssm_state))
+    return t[..., _rank_groups(plan, cfg, heads), :]
+
+
+def _gate_norm_out(p, cfg, y, z, plan=None):
+    """The gated RMSNorm over the whole d_inner and ``w_out``; under
+    ``plan`` ``y`` and ``z`` are the rank's channels, the sum of squares
+    all-reduced and the product's partial sums too."""
     y = y * F.silu(z.to(F32))
-    var = torch.mean(y * y, dim=-1, keepdim=True)
+    if plan is None:
+        var = torch.mean(y * y, dim=-1, keepdim=True)
+    else:
+        var = all_reduce_both(plan, torch.sum(y * y, dim=-1, keepdim=True)
+                              ) / cfg.d_inner
     y = y * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]
-    return y.to(cfg.cdtype) @ p["w_out"]
+    out = y.to(cfg.cdtype) @ p["w_out"]
+    return out if plan is None else reduce_model(plan, out)
 
 
 def mamba_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   return_cache: bool = False, use_ssd_kernel: bool = True):
     """Full-sequence Mamba2 block. x: (B, S, D).  ``use_ssd_kernel=False``
-    takes the differentiable within-chunk route (`_chunk_local`)."""
+    takes the differentiable within-chunk route (`_chunk_local`).  Under
+    a plan that splits the heads, ``p`` holds the rank's slices."""
     B, S, _ = x.shape
-    H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    plan = _mixer_plan()
+    if plan is not None:
+        x = copy_to_model(plan, x)
+    H, P = p["w_dt"].shape[-1], cfg.ssm_head_dim       # the rank's heads
     z, xs_pre, b_pre, c_pre, dt = _project(p, cfg, x)
     xs = _causal_conv(xs_pre, p["cw_x"], p["cb_x"]).reshape(B, S, H, P)
-    Bm = _causal_conv(b_pre, p["cw_b"], p["cb_b"]).reshape(B, S, G, N)
-    Cm = _causal_conv(c_pre, p["cw_c"], p["cb_c"]).reshape(B, S, G, N)
+    Bm = _groups(plan, cfg, _causal_conv(b_pre, p["cw_b"], p["cb_b"]), H)
+    Cm = _groups(plan, cfg, _causal_conv(c_pre, p["cw_c"], p["cb_c"]), H)
     res = ssd_chunked(xs, dt, p["a_log"], Bm, Cm, cfg.ssm_chunk,
                       return_state=return_cache, use_kernel=use_ssd_kernel)
     y, final = res if return_cache else (res, None)
     y = y + p["d_skip"][:, None] * xs.to(F32)
-    out = _gate_norm_out(p, cfg, y.reshape(B, S, cfg.d_inner), z)
+    out = _gate_norm_out(p, cfg, y.reshape(B, S, H * P), z, plan)
     if return_cache:
         w1 = cfg.ssm_conv - 1
         cache = {"state": final,
@@ -247,9 +302,11 @@ def _conv_step(window_prev, new, w, b):
 
 def mamba_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       cache: dict) -> tuple[torch.Tensor, dict]:
-    """One-token recurrent step. x: (B, 1, D)."""
+    """One-token recurrent step. x: (B, 1, D).  Under a plan that splits
+    the heads, ``p`` and ``cache`` are the rank's."""
     B = x.shape[0]
-    H, P, G, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    plan = _mixer_plan()
+    H, P = p["w_dt"].shape[-1], cfg.ssm_head_dim       # the rank's heads
     x1 = x[:, 0]
     z = x1 @ p["w_z"]
     dt = F.softplus((x1 @ p["w_dt"]).to(F32) + p["dt_bias"])  # (B,H)
@@ -257,16 +314,15 @@ def mamba_decode_step(p: dict, cfg: ModelConfig, x: torch.Tensor,
     Bm, ncb = _conv_step(cache["conv_b"], x1 @ p["w_b"], p["cw_b"], p["cb_b"])
     Cm, ncc = _conv_step(cache["conv_c"], x1 @ p["w_c"], p["cw_c"], p["cb_c"])
     xs = xs.reshape(B, H, P)
-    Bm = Bm.reshape(B, G, N)
-    Cm = Cm.reshape(B, G, N)
+    Bm, Cm = _groups(plan, cfg, Bm, H), _groups(plan, cfg, Cm, H)
     A = -torch.exp(p["a_log"])
     dA = torch.exp(dt * A)
-    Bh = torch.repeat_interleave(Bm, H // G, dim=1)
-    Ch = torch.repeat_interleave(Cm, H // G, dim=1)
+    Bh = torch.repeat_interleave(Bm, H // Bm.shape[1], dim=1)
+    Ch = torch.repeat_interleave(Cm, H // Cm.shape[1], dim=1)
     st = cache["state"] * dA[..., None, None] \
         + (dt[..., None] * xs)[..., None] * Bh[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", st, Ch) + p["d_skip"][:, None] * xs
-    out = _gate_norm_out(p, cfg, y.reshape(B, cfg.d_inner), z)[:, None]
+    out = _gate_norm_out(p, cfg, y.reshape(B, H * P), z, plan)[:, None]
     return out, {"state": st, "conv_x": ncx.to(cfg.cdtype),
                  "conv_b": ncb.to(cfg.cdtype),
                  "conv_c": ncc.to(cfg.cdtype)}

@@ -34,7 +34,8 @@ The MoE FFN's load-balance loss is summed over the blocks in full-sequence
 mode and dropped in prefill and decode, as in the reference.
 
 Over a mesh that splits "data" or "model" (a plan in force:
-`shardctx.active_plan`),
+`shardctx.active_plan`; each sub-layer runs its own part of the plan:
+`attention`, `layers.mlp`, `ssm`, `moe`),
 ``lm_logits`` gathers the leaves outside the stack over "data" once and
 each block's inside its checkpoint (the recompute gathers again, whole:
 no early stop), and returns the rank's vocabulary columns; ``decode_step``
@@ -274,18 +275,20 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     every Mamba leaf (``state``, ``conv_*``) whole.  A caller that needs
     the cache as it was clones it first.
 
-    Under a tensor-parallel plan (the dense family) ``params`` are the
-    rank's slices, ``cache`` the rank's part (`init_cache`), and ``token``
-    and ``pos`` the whole batch's: the rank takes its rows where the
-    cache splits the batch over "data" and returns their whole-vocabulary
-    logits (B_local, V); ``seq_len`` is the one `init_cache` was given.
+    Under a tensor-parallel plan ``params`` are the rank's slices,
+    ``cache`` the rank's part (`init_cache`), and ``token`` and ``pos`` the
+    whole batch's: the rank takes its rows where the cache splits the
+    batch over "data" and returns their whole-vocabulary logits
+    (B_local, V); where the pattern has attention, ``seq_len`` is the one
+    `init_cache` was given.
     The leaves outside the stack are gathered over "data" once a step and
     each block's once a block (FSDP), as `lm_logits` does."""
     plan = current_plan()
     ring = None
     if plan is not None:
-        ring = _ring(cfg, plan, cache, token.shape[0], seq_len)
-        if ring.batch_split:
+        if any(m == "attn" for m, _ in cfg.pattern):
+            ring = _ring(cfg, plan, cache, token.shape[0], seq_len)
+        if plan.batch_split(token.shape[0]):
             token = plan.data_rows({"t": token})["t"]
             if torch.as_tensor(pos).ndim:
                 pos = plan.data_rows({"p": pos})["p"]

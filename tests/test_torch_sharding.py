@@ -231,13 +231,13 @@ def test_constrain_is_identity_on_plain_tensors(with_ctx):
 
 @pytest.mark.parametrize("sizes", [(2, 1), (1, 2)])
 def test_data_or_model_axes_above_one_raise(sizes):
-    """Tensor parallelism and FSDP run the dense family only: a mesh that
-    splits "data" or "model" is refused for any other family by name,
-    before any group is asked for (the dense family's execution is
-    tests/test_torch_tp.py's)."""
+    """Tensor parallelism and FSDP run neither the audio nor the VLM
+    family: a mesh that splits "data" or "model" is refused for them by
+    name, before any group is asked for (the other families' execution is
+    tests/test_torch_tp.py's and tests/test_torch_tp_families.py's)."""
     mesh = stand_in((1,) + sizes, ("pod", "data", "model"))
     with pytest.raises(NotImplementedError, match="Queue 1, item 2.1"):
-        LLMDSFLAlgorithm(get_config("mamba2-2.7b").smoke(), LLMDsflHP(),
+        LLMDSFLAlgorithm(get_config("whisper-small").smoke(), LLMDsflHP(),
                          device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="no 'pod' axis"):
         pod_group(stand_in(sizes, ("data", "model")))

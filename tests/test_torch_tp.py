@@ -27,8 +27,9 @@ rtol 1e-6) against the one-process port and the reference, each leaf
 of the one-process round moved past that bound; a fault planted in one
 rank's slice before a round shown to fail the check; the collectives log, per axis, equal to `tp.round_bytes`' closed form; the
 sharded checkpoint gathered whole, read by the reference's reader; the
-trainer's ``--world 4`` at K = 2 on (2, 1, 2); every family but the dense
-one refused on a mesh that splits "data" or "model"."""
+trainer's ``--world 4`` at K = 2 on (2, 1, 2); the audio and VLM families
+refused on a mesh that splits "data" or "model", the ssm, moe and hybrid
+families planned on one (their rounds: tests/test_torch_tp_families.py)."""
 import dataclasses
 import functools
 from types import SimpleNamespace
@@ -391,21 +392,49 @@ def test_sharded_checkpoint_is_whole_and_read_by_the_reference(worlds,
 
 
 # ------------------------------------------------------------ refusals ----
+SPLIT_FAMILIES = ("ssm", "moe", "hybrid")
+
+
 @pytest.mark.parametrize("arch", [a for a in list_archs()
-                                  if get_config(a).arch_type != "dense"])
+                                  if get_config(a).arch_type
+                                  not in ("dense",) + SPLIT_FAMILIES])
 @pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 1)])
 def test_other_families_refuse_a_data_or_model_axis(arch, shape):
-    """Nothing runs replicated in silence: the refusal names the queue."""
+    """Nothing runs replicated in silence: the audio and VLM families'
+    refusal names the queue."""
     cfg = get_config(arch).smoke()
     with pytest.raises(NotImplementedError, match="Queue 1, item 2.1"):
         tp.check_family(cfg, stand_in(shape))
     tp.check_family(cfg, stand_in((2, 1, 1)))      # the client axis runs
 
 
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if get_config(a).arch_type
+                                  in SPLIT_FAMILIES])
+@pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 1)])
+def test_the_mixer_and_moe_families_take_a_data_or_model_axis(arch, shape):
+    """`tp.plan_for` builds on a fake world of the mesh's size, and its
+    flags say what the rules split: the Mamba2 heads and the experts over
+    "model", nothing of them over "data" alone."""
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch).smoke()
+    mixers = {m for m, _ in cfg.pattern}
+    ffns = {f for _, f in cfg.pattern}
+    try:
+        plan = tp.plan_for(cfg, dryrun.fake_world(device="cpu", shape=shape))
+    finally:
+        dryrun.close_world()
+    split = shape[2] > 1
+    assert plan.ssm_tp == (split and "mamba" in mixers)
+    assert plan.ep == (split and "moe" in ffns)
+    assert plan.attn_tp == (split and "attn" in mixers)
+    assert (plan.data.size, plan.model.size) == shape[1:]
+
+
 def test_a_non_dense_model_on_a_model_mesh_stops_the_spawn():
     from torch.multiprocessing import ProcessRaisedException
     with pytest.raises(ProcessRaisedException, match="NotImplementedError"):
-        dist.spawn(rank_main, 2, DrillSpec(arch="mamba2-2.7b",
+        dist.spawn(rank_main, 2, DrillSpec(arch="whisper-small",
                                            mesh_shape=(1, 1, 2),
                                            cases=("dsfl",)))
 

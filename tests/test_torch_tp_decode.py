@@ -1,4 +1,5 @@
-"""The dense family's decode step under a tensor-parallel plan
+"""The dense family's decode step under a tensor-parallel plan (the other
+families': tests/test_torch_tp_families.py)
 (`models.transformer.decode_step` over `launch.tp`, run by
 `launch.decode_check`) over gloo worlds on the CPU, against the same greedy
 decode in one process and against the reference's `model_decode_step`.
@@ -171,13 +172,14 @@ def _plan(mesh_shape) -> tp.TPPlan:
 
 
 def test_other_families_and_prefill_refused_under_a_plan():
-    """Under a plan only the dense family decodes; nothing prefills."""
-    mamba = get_config("mamba2-2.7b").smoke()
+    """Under a plan the VLM (and audio) family does not decode; nothing
+    prefills."""
+    vlm = get_config("phi-3-vision-4.2b").smoke()
     dense = get_config(QWEN).smoke()
     tok = torch.zeros((2,), dtype=torch.int64)
     with active_plan(_plan((1, 1, 2))):
         with pytest.raises(NotImplementedError, match="queued"):
-            tapi.model_decode_step(mamba, {}, {}, tok, 0)
+            tapi.model_decode_step(vlm, {}, {}, tok, 0)
         with pytest.raises(NotImplementedError, match="prefill"):
             tapi.model_prefill(dense, {}, {"tokens": tok[:, None]})
 

@@ -3,7 +3,7 @@
 client a card, and the dense family's tensor parallelism inside each
 client, each against the same cases in one process.
 
-    python3 tools/pod_cards.py [--world 2] [--smoke-world 4] [--parts abcdef]
+    python3 tools/pod_cards.py [--world 2] [--smoke-world 4] [--parts abcdefgh]
     python3 tools/pod_cards.py --device cpu --backend gloo --smoke  # rehearsal
 
 (a) qwen1.5-4b at full width and 40 layers (``--smoke`` cuts it), K =
@@ -44,9 +44,24 @@ attention is replicated and the ring's window split over "model"; batch
 step, peak a rank, bytes a step by axis held to `launch.tp.decode_bytes`;
 then the same at 4 layers in float32 held against one process on card 0
 (tokens equal, logits within 1e-5 of the largest), and with rank 1's
-value ring 1% off before a late step, which the check must fail.  Per
-case and rank one JSON line; every card's ``nvidia-smi`` name and power
-limit first.  A mismatch exits 1.
+value ring 1% off before a late step, which the check must fail.
+
+(g) the Mamba2 mixer's tensor parallelism: mamba2-2.7b (80 heads of 64,
+one group of B and C) on (2, 1, 2), one client a "pod", 40 heads a rank:
+at full width and its 64 layers in bf16, 2 ERA rounds then a FedAvg
+round, chained (timed; K5 on each rank's 40 heads, 64 a prediction); then
+at 4 layers in float32 at lr 3e-1 (MAMBA_HELD_LR), held as (d), the
+fault in the mixer's ``w_out``.
+(h) expert parallelism: llama4-scout (16 experts of d_ff 8192, vocabulary
+202,048) on (1, 1, 4), 4 experts a rank, at SCOUT_LAYERS of its 48 layers
+in bf16, an ERA round then a FedAvg round, chained (timed); then one MoE
+FFN at full width in float32 on 1,024 tokens in groups of 256, forward and
+backward, each rank held to the same FFN whole in one process on its own
+card (`launch.pod_check` `moe_ffn_rank`: within 1e-5 of each tensor's
+largest magnitude, the dropped choices equal) and shown to fail with rank
+1's expert ``w_down`` slice 1% off.  The kernels are built before any
+case.  Per case and rank one JSON line; every card's ``nvidia-smi`` name
+and power limit first.  A mismatch exits 1.
 """
 from __future__ import annotations
 
@@ -70,6 +85,15 @@ ROUND_TOL = {1: 1e-5, 2: 1e-4}
 # the held runs' lr: every leaf must move past ROUND_TOL, which 3e-3 does
 # not do at phi3-medium-14b's full width (tools/tp_movement.py)
 HELD_LR = 3e-2
+# the Mamba2 mixer's ``dt_bias`` and ``a_log`` move least: at 4 layers 2
+# f32 ERA rounds move them past 1e-4 at 3e-1 (chip_smoke.py TP_LR)
+MAMBA, MAMBA_SHAPE, MAMBA_HELD_LR = "mamba2-2.7b", (2, 1, 2), 3e-1
+# scout on (1, 1, 4): the most layers at which a rank's DS-FL and FedAvg
+# rounds, by `launch.dryrun`'s fake traces (13.2 / 31.4 GB at 1 / 4
+# layers, +5.2 / +7.2 GB a layer), plus the drill's held input stack (3.1
+# GB + 2.1 a layer) stay under 70 GB: 59.3 GB at 6
+SCOUT, SCOUT_SHAPE, SCOUT_LAYERS = "llama4-scout-17b-a16e", (1, 1, 4), 6
+MOE_RTOL = 1e-5
 
 
 def _cards() -> str:
@@ -104,8 +128,7 @@ def _line(rec, rounds) -> dict:
                 peak_bytes=rec["peak_bytes"],
                 bytes_by_axis=axis_bytes(rec["log"]),
                 losses=[h["loss"] for h in rec["history"]],
-                launches={k: v for k, v in rec["launches"].items()
-                          if k != "ssd_chunk"})
+                launches=rec["launches"])
 
 
 def check(label, spec, backend) -> bool:
@@ -187,6 +210,7 @@ def _tp_lines(label, cfg, spec, rank_recs, one) -> bool:
     """One JSON line per case and rank of one run (see `tp_check`)."""
     from repro_torch.launch import pod_check, tp
     ok = True
+    fault_leaf = pod_check.fault_leaf(cfg)
     for case in spec.cases:
         kind, rounds, _, hp_kw, _, _ = pod_check.CASES[case]
         want = tp.merge((tp.round_bytes(
@@ -208,7 +232,8 @@ def _tp_lines(label, cfg, spec, rank_recs, one) -> bool:
                 ref_losses = [h["loss"] for h in ref["history"]]
                 res.update(
                     tol=tol, worst_leaf=leaf, max_abs=rec["max_abs"][leaf],
-                    fault_leaf_max_abs=rec["max_abs"][pod_check.FAULT_LEAF],
+                    fault_leaf=fault_leaf,
+                    fault_leaf_max_abs=rec["max_abs"][fault_leaf],
                     least_moved_leaf=least, least_moved=moved[least],
                     every_leaf_moved_past_tol=moved[least] > tol,
                     one_process_losses=ref_losses,
@@ -227,7 +252,7 @@ def _tp_lines(label, cfg, spec, rank_recs, one) -> bool:
         if spec.fault:
             caught = bool(worst) and max(worst) > tol
             print(f"{label} fault {case}: rank {pod_check.FAULT_RANK}'s "
-                  f"{pod_check.FAULT_LEAF} slice 1% off before the round "
+                  f"{fault_leaf} slice 1% off before the round "
                   f"{'fails' if caught else 'PASSES'} the check", flush=True)
             ok &= caught
     return ok
@@ -290,6 +315,49 @@ def decode_check(label, smoke: bool, device: str, backend: str) -> bool:
     return ok
 
 
+def moe_check(label, smoke: bool, device: str, backend: str) -> bool:
+    """Case (h)'s MoE FFN: see the module's docstring."""
+    from repro_torch.launch import dist, pod_check
+    from repro_torch.launch.roofline import axis_bytes
+    spec = pod_check.MoEFFNSpec(arch=SCOUT, smoke=smoke, device=device,
+                                mesh_shape=SCOUT_SHAPE,
+                                **({"tokens": 64, "group": 16} if smoke
+                                   else {}))
+    world = 1
+    for n in SCOUT_SHAPE:
+        world *= n
+    recs = dist.spawn(dist.rank_programs, world, tuple(
+        (pod_check.moe_ffn_rank, (dataclasses.replace(spec, fault=f),))
+        for f in (False, True)), backend=backend)
+    ok = True
+    for i, role in enumerate(("held", "fault")):
+        rel = []
+        for r, rk in enumerate(recs):
+            got = rk[i]
+            worst = max(got["max_abs"], key=lambda k: got["max_abs"][k]
+                        / max(got["max_ref"][k], 1e-30))
+            rel.append(got["max_abs"][worst] / got["max_ref"][worst])
+            line = dict(experts_a_rank=got["experts"], seconds=got["seconds"],
+                        one_process_seconds=got["one_process_seconds"],
+                        dropped=got["dropped"],
+                        dropped_equal=got["dropped"]
+                        == got["one_process_dropped"],
+                        bytes_by_axis=axis_bytes(got["log"]), worst=worst,
+                        rel_err=rel[-1], rtol=MOE_RTOL)
+            ok &= line["dropped_equal"]
+            if role == "held":
+                line["within_rtol"] = rel[-1] <= MOE_RTOL
+                ok &= line["within_rtol"]
+            print(f"{label} {role} rank {r}: " + json.dumps(line),
+                  flush=True)
+        if role == "fault":
+            caught = max(rel) > MOE_RTOL
+            print(f"{label}: rank 1's expert w_down slice 1% off "
+                  f"{'fails' if caught else 'PASSES'} the check", flush=True)
+            ok &= caught
+    return ok
+
+
 def main(argv=None) -> int:
     from repro_torch.launch.pod_check import DrillSpec
     ap = argparse.ArgumentParser()
@@ -297,11 +365,20 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke-world", type=int, default=4)
     ap.add_argument("--smoke", action="store_true",
                     help="(a), (c), (d) and (e) at the smoke configs too")
-    ap.add_argument("--parts", default="abcdef")
+    ap.add_argument("--parts", default="abcdefgh")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl")
     args = ap.parse_args(argv)
     print(f"cards: {_cards()}", flush=True)
+    if args.device == "cuda":
+        # built before any case, so no case's first round holds nvcc
+        import time
+
+        from repro_torch.kernels import _build
+        t0 = time.perf_counter()
+        _build.build()
+        print(f"kernels built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     base = dict(batch=8, seq=128, lr=3e-3, device=args.device,
                 use_kernel=args.device == "cuda", scale_embedding=True,
                 fingerprint=True)
@@ -333,6 +410,23 @@ def main(argv=None) -> int:
     if "f" in args.parts:
         ok &= decode_check(f"tp cards (f) {TP_ARCH} {DECODE_SHAPE} decode",
                            args.smoke, args.device, args.backend)
+    if "g" in args.parts:
+        mamba = dict(tp_base, arch=MAMBA, mesh_shape=MAMBA_SHAPE)
+        ok &= tp_check(f"tp cards (g) {MAMBA} {MAMBA_SHAPE}",
+                       DrillSpec(chain=True, **mamba), args.backend, False)
+        ok &= tp_check(f"tp cards (g) {MAMBA} {MAMBA_SHAPE} f32",
+                       DrillSpec(**dict(f32, arch=MAMBA,
+                                        mesh_shape=MAMBA_SHAPE,
+                                        lr=MAMBA_HELD_LR)),
+                       args.backend, True)
+    if "h" in args.parts:
+        scout = dict(tp_base, arch=SCOUT, mesh_shape=SCOUT_SHAPE,
+                     n_layers=None if args.smoke else SCOUT_LAYERS)
+        ok &= tp_check(f"tp cards (h) {SCOUT} {SCOUT_SHAPE} "
+                       f"{scout['n_layers'] or 'smoke'} layers",
+                       DrillSpec(chain=True, **scout), args.backend, False)
+        ok &= moe_check(f"tp cards (h) {SCOUT} {SCOUT_SHAPE} moe ffn f32",
+                        args.smoke, args.device, args.backend)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 
