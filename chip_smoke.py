@@ -376,16 +376,26 @@ order; any failure exits non-zero and prints no result:
              from the init) and (1, 2, 1) in f32 at 1 layer (a FedAvg
              round); mamba2-2.7b on (1, 1, 2) in f32 at 4 of the 64
              layers (the same cases; 40 heads a rank, K5 at (8, 128, 40,
-             64, 1, 128) in each prediction) and Jamba's smoke config (an
-             ERA round; 4 groups a rank); each rank's slices and losses
-             held against the one-process run (atol 1e-4 after two
-             rounds, 1e-5 after one, losses also rtol 1e-6), each
+             64, 1, 128) in each prediction), Jamba's smoke config (an
+             ERA round; 4 groups a rank), phi-3-vision-4.2b on (1, 1, 2)
+             in f32 at 1 of its 32 layers (the same cases; 16 heads a
+             rank, the projector's columns split and gathered) and
+             whisper-small in f32 at 2 + 2 of its 12 + 12 layers on (1,
+             1, 2) (the same cases; 6 heads a rank in the encoder, the
+             decoder's self- and cross-attention) and on (1, 2, 1) (an ERA
+             round, a FedAvg round; FSDP of `enc/` and `dec/`, 4
+             sequences and their frames a data rank); each rank's
+             slices and losses held against the one-process run (atol
+             1e-4 after two rounds, 1e-5 after one, losses also rtol
+             1e-6), each
              one-process leaf shown to move past that bound (lr TP_LR),
              and the check shown to fail on a FedAvg round with one
              rank's slice of `pod_check.fault_leaf` 1% off before it
-             (phi3's ``w_down``, mamba2's ``w_out``); phi3 on (1, 1, 2)
-             in bf16 at 1 layer, mamba2 at 4 and llama4-scout in bf16 at 1
-             of its 48 layers (8 experts a rank): seconds a round and
+             (phi3's ``w_down``, mamba2's ``w_out``, phi-3-vision's
+             ``patch_proj/w``, whisper's ``dec/mlp/w_down``); phi3 on (1,
+             1, 2) in bf16 at 1 layer, mamba2 at 4, llama4-scout in bf16
+             at 1 of its 48 layers (8 experts a rank), phi-3-vision at 1
+             and whisper at 4 + 4: seconds a round and
              peak a rank; every run's bytes a rank by axis held to
              `tp.round_bytes`, K1 once a DS-FL round, K3/K4 once a
              client step, K5 once a Mamba layer a prediction; one scout
@@ -415,18 +425,23 @@ order; any failure exits non-zero and prints no result:
              repro_torch.launch.dryrun`` in a child process (a fake world
              of 256), which must be ``ok``.
     tp decode the decode step under tensor parallelism
-             (`launch.decode_check`): phi3-medium-14b and mamba2-2.7b at
-             full width, 4 layers in f32, the embedding scaled, a start
-             token and 16 greedy tokens from an empty cache, world 2 over
-             gloo on this card: phi3 on (1, 1, 2) at batch 8 (heads split
-             40 / 2 and 10 / 2) and on (1, 2, 1) without FSDP at batch 1
-             (the ring's window split over "data"), mamba2 on (1, 1, 2)
-             at batch 8 (the mixer's heads, its state and conv windows
-             split), every rank's tokens equal and logits within 1e-5 of
-             the largest one-process logit, bytes a step by axis equal to
+             (`launch.decode_check`): phi3-medium-14b, mamba2-2.7b and
+             whisper-small at full width, 4 layers in f32 (whisper 4 +
+             4), the embedding scaled, a start token and 16 greedy tokens
+             from an empty cache (whisper's holding the cross keys and
+             values of 1,500 seeded frames), world 2 over gloo on this
+             card: phi3 and whisper on (1, 1, 2) at batch 8 (heads split
+             40 / 2 and 10 / 2; 12 / 2, the cross cache's too) and on (1,
+             2, 1) without FSDP at batch 1 (the ring's window split over
+             "data"; whisper's 1,500 cross positions too), mamba2 on (1,
+             1, 2) at batch 8 (the mixer's heads, its state and conv
+             windows split), every rank's tokens equal and logits
+             within 1e-5 of the largest one-process logit, bytes a step
+             by axis equal to
              `tp.decode_bytes`, ms a step and the peak a rank printed; a
-             1% fault in rank 1's ``wo`` slice, in its value ring and in
-             its SSM state must fail the check.
+             1% fault in rank 1's ``wo`` slice, in its value ring, in
+             its SSM state and in whisper's cross values must fail the
+             check.
     examples the examples' torch twins on the card, each its own process:
              ``examples/torch_quickstart.py --fast`` (must end ``OK``),
              ``examples/torch_serve_batched.py``,
@@ -4724,10 +4739,26 @@ def pod_b_report(smi, pending, ranks, t_ranks):
 # A scout client at one layer is 4.15e9 values (16.6 GB in f32): its
 # rounds here are bf16 and timed (the dry run puts a rank's DS-FL round at
 # 21.4 GB), and its held check is one MoE FFN at full width (TP_MOE_FFN).
+# The VLM: phi-3-vision-4.2b (d 3072, 32 heads of 96: 16 a rank, 576
+# patches through the projector, whose columns are split and gathered,
+# vocabulary 32,064 split) at 1 of its 32 layers, held and timed.  The
+# encoder-decoder: whisper-small (d 768, 12 heads of 64: 6 a rank in the
+# encoder, the decoder's self- and cross-attention, d_ff 3072, 1,500
+# frames, vocabulary 51,865 whole on "model") at 2 + 2 layers held on (1,
+# 1, 2) and with FSDP on (1, 2, 1) (one ERA round), and at 4 + 4 timed.
+# Their depths are cut for the phase's time: gloo moved their all-reduces
+# at about 0.55 GB/s, so phi-3-vision's (8 x (576 + 128)) rows took 7.7 s
+# an f32 ERA round at 2 layers, whisper's (8 x 1,500) frames 6.8 s at 4 +
+# 4 and 12.4 s in bf16 at 12 + 12 (H100 80GB HBM3, 700 W): at those
+# depths their runs alone took 75.3 and 115.7 s.  tools/pod_cards.py (i)
+# and (j) run phi-3-vision at 32 layers and whisper at 12 + 12 across
+# cards.
 TP_ARCH = "phi3-medium-14b"
 TP_MAMBA = "mamba2-2.7b"
 TP_SCOUT = "llama4-scout-17b-a16e"
 TP_JAMBA = "jamba-1.5-large-398b"
+TP_VLM = "phi-3-vision-4.2b"
+TP_WHISPER = "whisper-small"
 # 10 times `launch.train`'s 3e-3: every leaf must move past the bound, and
 # at 3e-3 2 ERA rounds move phi3's ``wq`` by less than 1e-4 and a FedAvg
 # round the norm scales by less than 1e-5 (tools/tp_movement.py).  The
@@ -4740,7 +4771,13 @@ TP_JAMBA = "jamba-1.5-large-398b"
 # flips near-tied top-k choices (the losses differ by 1e-4, ``cw_x`` by
 # 2.2e-5 after a round at lr 1e-1); at 2 x 32 the worst leaf is 7.3e-6 at
 # 1e-1 and its least moved 1.1e-4, so at 5e-2 3.6e-6 against 5.4e-5
-TP_LR = {TP_ARCH: 3e-2, TP_MAMBA: 3e-1, TP_SCOUT: 3e-2, TP_JAMBA: 5e-2}
+# phi-3-vision at 3e-2: at 1e-2 2 f32 ERA rounds at 1 layer move its
+# ``final_norm/scale`` 8.2e-5 (at 3e-2 past 1e-4); whisper at 3e-2: 2 ERA
+# rounds at 2 + 2 move ``dec/n2/scale`` 1.29e-4 (at 4 + 4 8.2e-5, at 12 +
+# 12 1.7e-5: deeper stacks need more, tools/pod_cards.py (j) 5e-1)
+# (tools/tp_movement.py; H100 80GB HBM3, 700 W)
+TP_LR = {TP_ARCH: 3e-2, TP_MAMBA: 3e-1, TP_SCOUT: 3e-2, TP_JAMBA: 5e-2,
+         TP_VLM: 3e-2, TP_WHISPER: 3e-2}
 TP_BATCH = {TP_JAMBA: (2, 32)}           # (batch, seq); else LLM_B, LLM_S
 # the runs of each spawn: (arch, mesh, dtype, layers (None: the smoke
 # config), cases, role)
@@ -4749,12 +4786,20 @@ TP_SPAWNS = (
      (TP_ARCH, (1, 2, 1), "float32", 1, ("fedavg",), "held"),
      (TP_ARCH, (1, 1, 2), "float32", 1, ("fedavg",), "fault"),
      (TP_ARCH, (1, 1, 2), "bfloat16", 1, ("era", "topk", "fedavg"),
-      "timed")),
+      "timed"),
+     (TP_VLM, (1, 1, 2), "float32", 1, ("era", "topk", "fedavg"), "held"),
+     (TP_VLM, (1, 1, 2), "float32", 1, ("fedavg",), "fault"),
+     (TP_VLM, (1, 1, 2), "bfloat16", 1, ("era", "fedavg"), "timed")),
     ((TP_MAMBA, (1, 1, 2), "float32", 4, ("era", "topk", "fedavg"), "held"),
      (TP_MAMBA, (1, 1, 2), "float32", 4, ("fedavg",), "fault"),
      (TP_MAMBA, (1, 1, 2), "bfloat16", 4, ("era", "fedavg"), "timed"),
      (TP_JAMBA, (1, 1, 2), "float32", None, ("dsfl",), "held"),
-     (TP_SCOUT, (1, 1, 2), "bfloat16", 1, ("era", "fedavg"), "timed")),
+     (TP_SCOUT, (1, 1, 2), "bfloat16", 1, ("era", "fedavg"), "timed"),
+     (TP_WHISPER, (1, 1, 2), "float32", 2, ("era", "topk", "fedavg"),
+      "held"),
+     (TP_WHISPER, (1, 1, 2), "float32", 2, ("fedavg",), "fault"),
+     (TP_WHISPER, (1, 2, 1), "float32", 2, ("dsfl", "fedavg"), "held"),
+     (TP_WHISPER, (1, 1, 2), "bfloat16", 4, ("era", "fedavg"), "timed")),
 )
 TP_TOL = {1: 1e-5, 2: 1e-4}
 TP_PRESET = "fp32-deterministic"
@@ -5018,7 +5063,8 @@ def phase_tp(smi, first=None, last=None):
     say(f"tp: every leaf moved past the tolerance, every held rank's "
         f"slices and losses within the bounds of the one-process run, the "
         f"1% faults caught (phi3 w_down, mamba2 w_out, scout's expert "
-        f"w_down), bytes a rank by axis equal to the closed forms; phase "
+        f"w_down, phi-3-vision's patch_proj/w, whisper's dec/mlp/w_down), "
+        f"bytes a rank by axis equal to the closed forms; phase "
         f"took {time.perf_counter() - t_phase:.1f} s")
     return launches, extra.get("first"), extra.get("last")
 
@@ -5292,18 +5338,25 @@ def phase_dryrun(smi):
 
 
 # --------------------------------------------------- phase "tp decode" --
-# phi3-medium-14b and mamba2-2.7b at full width, 4 layers in f32, the
-# embedding scaled: a start token and 16 greedy tokens from an empty
-# cache, world 2 over gloo on this card, held to one process
-# (`launch.decode_check`): phi3 on (1, 1, 2) at batch 8 splits the heads
-# (40 / 2 and 10 / 2), on (1, 2, 1) without FSDP at batch 1 the ring's
-# window over "data"; mamba2 on (1, 1, 2) at batch 8 the mixer's heads (its
-# state's 80 / 2, its conv windows' channels and B/C columns); a 1% fault
-# in rank 1's ``wo`` slice, in its value ring and in its SSM state must
-# be caught.  (arch, mesh, fsdp, batch, fault)
+# phi3-medium-14b, mamba2-2.7b and whisper-small at full width, 4 layers
+# in f32 (whisper: 4 + 4), the embedding scaled: a start token and 16
+# greedy tokens from an empty cache (whisper's holding the cross keys and
+# values of 1,500 seeded frames), world 2 over gloo on this card, held to
+# one process (`launch.decode_check`): phi3 on (1, 1, 2) at batch 8
+# splits the heads (40 / 2 and 10 / 2), on (1, 2, 1) without FSDP at
+# batch 1 the ring's window over "data"; mamba2 on (1, 1, 2) at batch 8
+# the mixer's heads (its state's 80 / 2, its conv windows' channels and
+# B/C columns); whisper on (1, 1, 2) at batch 8 the heads of its rings
+# and its cross cache (12 / 2), on (1, 2, 1) without FSDP at batch 1 its
+# rings' window and the cross cache's 1,500 encoder positions over
+# "data" (each step merging the ranks' partial softmaxes); a 1% fault in
+# rank 1's ``wo`` slice, in its value ring, in its SSM state and in its
+# cross values must be caught.  (arch, mesh, fsdp, batch, fault)
 TP_DECODE = ((TP_ARCH, (1, 1, 2), True, 8, "wo"),
              (TP_ARCH, (1, 2, 1), False, 1, "ring"),
-             (TP_MAMBA, (1, 1, 2), True, 8, "state"))
+             (TP_MAMBA, (1, 1, 2), True, 8, "state"),
+             (TP_WHISPER, (1, 1, 2), True, 8, "cross_v"),
+             (TP_WHISPER, (1, 2, 1), False, 1, "cross_v"))
 TP_DECODE_RTOL = 1e-5
 
 
@@ -5367,8 +5420,8 @@ def tp_decode_report(smi, cases, ones, ranks, t_ranks):
                           TP_DECODE_RTOL)["ok"] for r in range(2)):
             fail(f"tp decode {spec.arch} {spec.mesh_shape}: rank 1's 1% "
                  f"{TP_DECODE[i][4]} fault passed the check")
-    say(f"tp decode: {TP_ARCH} and {TP_MAMBA} at full width, 4 layers "
-        f"f32, 16 greedy "
+    say(f"tp decode: {TP_ARCH}, {TP_MAMBA} and {TP_WHISPER} at full "
+        f"width, 4 layers f32 (whisper 4 + 4), 16 greedy "
         f"tokens; world 2 over gloo on this card, after phase \"tp\"'s "
         f"runs in its last spawn ({t_ranks:.1f} s, spawn included); tokens "
         f"and logits of every rank within {TP_DECODE_RTOL} of the largest logit of one process, bytes equal "

@@ -51,7 +51,7 @@ import torch
 from ..checkpoint import (assert_tree_compatible, load_pytree,
                           named_leaves, nodes_at_leaves, save_pytree,
                           with_leaves)
-from ..launch.sharding import RankSlice, local_slice
+from ..launch.sharding import RankSlice, _axes, _entry, local_slice
 from ..launch.tp import gather_leaf
 from ..obs import trace as obs
 from . import prng
@@ -66,6 +66,11 @@ def open_batch(seed: int, rnd: int, n_open: int, n_r: int, device
     """Round ``rnd``'s o_r: the first ``n_r`` entries of the keyed
     permutation of ``range(n_open)``."""
     return prng.permutation(seed, rnd, "open", 0, n_open, device)[:n_r]
+
+
+def _off_model(spec: tuple) -> tuple:
+    """``spec`` with the "model" axis taken out of every entry."""
+    return tuple(_entry([a for a in _axes(e) if a != "model"]) for e in spec)
 
 
 @dataclass
@@ -131,11 +136,16 @@ class FedEngine:
         clients predict on the whole open batch (the reference's
         data-sharded open set is a layout its partitioner gathers back),
         and the rounds read the (K,) participation fields whole.  The
-        identity without a mesh."""
+        identity without a mesh.  The data is cut over "pod" and "data"
+        only: the rounds read each input whole on "model" (`batch_specs`
+        lays a trailing dimension past 1024, a VLM's patch features too,
+        over "model", a layout the reference's partitioner gathers back:
+        ROADMAP, deviation 20)."""
         if self.mesh is None:
             return ctx
         _, specs = self.algo.shardings(self.mesh, state, ctx)
-        cut = lambda t, sp: local_slice(t, sp, self.mesh, self.rank)
+        cut = lambda t, sp: local_slice(t, _off_model(sp), self.mesh,
+                                        self.rank)
         return dataclasses.replace(ctx, **{
             f: (None if getattr(ctx, f) is None
                 else {k: cut(t, getattr(specs, f)[k])

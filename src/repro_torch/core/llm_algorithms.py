@@ -16,7 +16,7 @@ Each algorithm takes an optional ``mesh`` (a ``("pod", "data", "model")``
 ranks, each holding its clients' lanes (`core.llm_dsfl`), and ``init``
 makes only those (client k's model is keyed on ("init", k) wherever it
 is made, so rank r's lanes are the one-process stack's).  Where the mesh
-splits "data" or "model" (the dense family; `launch.tp`), each lane holds
+splits "data" or "model" (every family; `launch.tp`), each lane holds
 `sharding.local_slice` of its client's leaves, the rounds run under the
 plan, and each data rank takes its share of the open batch.
 ``shardings(mesh, state, ctx)`` gives the reference's spec trees

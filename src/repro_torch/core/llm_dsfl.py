@@ -53,14 +53,16 @@ buffers; the finish leg waits on them only once the first client's
 private-data CE has run (its forward never reads the teacher).  Once its
 uploads are in flight a rank reads no other rank's parameters.
 
-**"model" and "data" (the dense family).**  Under a `launch.tp` plan each
+**"model" and "data" (every family).**  Under a `launch.tp` plan each
 lane holds the rank's slices of its client's leaves and the models run
 Megatron's collectives.  The round gathers a pass's logits over "model"
 (`shardctx.gather_vocab`) before the CE, the KD term (K3/K4 on whole rows) and
 the prediction's softmax, so every rank of a "model" group uploads the
 same distributions and K1/K2 run on whole rows after the "pod" gather.
 Each data rank's loss is its share of the mean (`launch.tp.TPPlan.loss_share`,
-the losses summed over "data" at the round's end).  FedAvg all-reduces
+the losses summed over "data" at the round's end); its batches are its
+rows of every input, a VLM's patches and an encoder's frames with the
+tokens.  FedAvg all-reduces
 each rank's shards over "pod" only: shards are never gathered.
 """
 from __future__ import annotations

@@ -14,10 +14,14 @@ its part of the cache, and returns its rows' whole-vocabulary logits.
 records carry the logits, the tokens, the collectives of one step by axis
 (`roofline.axis_bytes`; `launch.tp.decode_bytes` is their closed form),
 ms a step, the peak memory and the kernels' launches of the decode
-(`kernels._build.LAUNCHES`, zeroed just before it).  ``fault`` plants what a comparison must
-catch, 3 steps before the end: rank `FAULT_RANK`'s slice of the first
-block's ``wo`` (``"wo"``), of its value ring (``"ring"``), of its Mamba2
-``w_out`` (``"w_out"``) or of its SSM state (``"state"``) 1% off.
+(`kernels._build.LAUNCHES`, zeroed just before it).  An encoder-decoder's
+cache holds the cross keys and values of seeded ``frames``
+(`prompt_extras`), which every rank and the one-process run encode alike.
+``fault`` plants what a comparison must catch, 3 steps before the end:
+rank `FAULT_RANK`'s slice of the first block's ``wo`` (``"wo"``), of its
+value ring (``"ring"``), of its Mamba2 ``w_out`` (``"w_out"``), of its SSM
+state (``"state"``) or of the first decoder layer's cross values
+(``"cross_v"``) 1% off.
 `compare` holds a rank's record against the one-process run.
 """
 from __future__ import annotations
@@ -34,11 +38,13 @@ from ..models.api import model_decode_step, model_init, model_init_cache
 from ..models.shardctx import active_plan
 from . import collectives
 from .roofline import axis_bytes
+from .train import extra_inputs
 
 FAULT = 1e-2
 FAULT_RANK = 1
 FAULT_LEAVES = {"wo": "blocks/s0_mix/wo", "ring": "s0/v",
-                "w_out": "blocks/s0_mix/w_out", "state": "s0/state"}
+                "w_out": "blocks/s0_mix/w_out", "state": "s0/state",
+                "cross_v": "cross_v"}
 _IN_PARAMS = ("wo", "w_out")
 
 
@@ -58,13 +64,15 @@ class DecodeSpec:
     fault: Optional[str] = None            # a key of FAULT_LEAVES
 
     def config(self):
-        """The config decoded: an MoE routes each token as a group of its
-        own, as `serve.engine.ServeEngine` decodes (ROADMAP, deviation
-        15), so a rank's rows of the batch make whole groups."""
+        """The config decoded: ``n_layers`` cuts an encoder-decoder's
+        encoder too; an MoE routes each token as a group of its own, as
+        `serve.engine.ServeEngine` decodes (ROADMAP, deviation 15), so a
+        rank's rows of the batch make whole groups."""
         cfg = get_config(self.arch)
         cfg = cfg.smoke() if self.smoke else cfg
         if self.n_layers is not None:
-            cfg = cfg.replace(n_layers=self.n_layers)
+            cfg = cfg.replace(n_layers=self.n_layers, **(
+                {"enc_layers": self.n_layers} if cfg.enc_layers else {}))
         if cfg.n_experts:
             cfg = cfg.replace(moe_group_size=1)
         return cfg.replace(**dict(self.overrides)) if self.overrides else cfg
@@ -101,6 +109,17 @@ def prompt_tokens(spec: DecodeSpec, device) -> torch.Tensor:
                          generator=gen).to(device)
 
 
+def prompt_extras(spec: DecodeSpec, device) -> dict:
+    """The modality inputs the cache is made from: an encoder-decoder's
+    seeded ``frames`` (`launch.train.extra_inputs`); none for the other
+    families (a VLM's decode reads no patches)."""
+    cfg = spec.config()
+    if cfg.arch_type != "audio":
+        return {}
+    gen = torch.Generator(device=device).manual_seed(spec.seed + 2)
+    return extra_inputs(cfg, spec.batch, gen)
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -120,7 +139,8 @@ def greedy(spec: DecodeSpec, params: dict, device, plan=None,
     out_tokens = [toks[:, i] for i in range(spec.prompt)]
     logits, times = [], []
     with torch.no_grad(), active_plan(plan):
-        cache = model_init_cache(cfg, params, B, spec.seq_len)
+        cache = model_init_cache(cfg, params, B, spec.seq_len,
+                                 prompt_extras(spec, device))
         token = toks[:, 0]
         for step in range(spec.prompt + spec.steps - 1):
             if fault is not None:

@@ -24,7 +24,8 @@ record traces, as the reference lowers it:
 
 Each runs under the config's `launch.tp` plan (FSDP over "data", Megatron
 over "model": the Mamba2 mixer on a rank's heads, the MoE FFN on its
-experts) with the kernels on (``use_kernel``: K1-K5 are `kernels.library`
+experts, the encoder-decoder's cross-attention on its heads, the VLM's
+projector on its columns) with the kernels on (``use_kernel``: K1-K5 are `kernels.library`
 ops, traced through their fake implementations); an MoE decodes each token
 as a routing group of its own, as `serve.engine.ServeEngine` does.  Two
 passes, counted by `launch.costs`:
@@ -47,9 +48,10 @@ full depth of ``--all`` would take hours.  The tests hold the extrapolation
 exact (FLOPs, bytes, peak, arguments, collectives, op calls) against a
 deeper trace.
 
-A record is ``ok``; ``skipped`` (`SKIPS`); ``unsupported`` for a family
-the plan does not split yet, with `launch.tp.check_family`'s message
-naming the queued item; or ``fail`` with its trace.  Records land in
+A record is ``ok``; ``skipped`` (`SKIPS`); ``unsupported`` for a config
+the plan refuses (`launch.tp.check_family`'s message: a Mamba2 mixer the
+rules would cut inside a head; no config of the repo's); or ``fail`` with
+its trace.  Records land in
 ``experiments/dryrun_torch/`` (the reference's are ``experiments/dryrun/``)
 and a finished one is not traced again.
 """

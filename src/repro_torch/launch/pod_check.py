@@ -58,6 +58,7 @@ from ..models.api import model_init
 from ..models.shardctx import active_plan
 from . import collectives
 from .mesh import make_client_mesh, make_mesh
+from .train import extra_inputs
 
 # name -> (algorithm, rounds, FedEngine.run keywords, LLMDsflHP fields,
 #          participation plan: None, "stale" (everyone in, every other
@@ -88,8 +89,13 @@ FAULT_RANK = 1
 
 def fault_leaf(cfg) -> str:
     """The leaf a fault is planted in: the first FFN's ``w_down`` (the
-    MoE family's first expert stack), or, without an FFN (Mamba2), the
-    first mixer's ``w_out``."""
+    MoE family's first expert stack, the encoder-decoder's decoder MLP),
+    the VLM's projector (its columns over "model"), or, without an FFN
+    (Mamba2), the first mixer's ``w_out``."""
+    if cfg.arch_type == "audio":
+        return "dec/mlp/w_down"
+    if cfg.arch_type == "vlm":
+        return "patch_proj/w"
     if cfg.arch_type == "moe":
         i = next(i for i, (_, f) in enumerate(cfg.pattern) if f == "moe")
         return f"blocks/s{i}_ffn/w_down"
@@ -101,7 +107,8 @@ def fault_leaf(cfg) -> str:
 class DrillSpec:
     arch: str = "qwen1.5-4b"
     smoke: bool = True
-    n_layers: Optional[int] = None      # a depth cut (None: the config's)
+    n_layers: Optional[int] = None      # a depth cut (None: the config's;
+                                        # an encoder's too)
     clients: int = 2
     batch: int = 2
     seq: int = 32
@@ -124,10 +131,14 @@ class DrillSpec:
     fault: bool = False                 # FAULT_RANK's FAULT_LEAF 1% off
 
     def config(self):
+        """The config, ``n_layers`` cutting the decoder and, of an
+        encoder-decoder, the encoder to that depth (as `dryrun.reduced`
+        does)."""
         cfg = get_config(self.arch)
         cfg = cfg.smoke() if self.smoke else cfg
         if self.n_layers is not None:
-            cfg = cfg.replace(n_layers=self.n_layers)
+            cfg = cfg.replace(n_layers=self.n_layers, **(
+                {"enc_layers": self.n_layers} if cfg.enc_layers else {}))
         return cfg.replace(**dict(self.overrides)) if self.overrides else cfg
 
     def mesh(self, device):
@@ -236,6 +247,7 @@ def run_cases(spec: DrillSpec, mesh=None, device=None,
     cfg = spec.config()
     device = torch.device(spec.device) if device is None else device
     task = build_lm_task(0, spec.clients, spec.batch, spec.seq, cfg.vocab,
+                         extras_fn=lambda b, g: extra_inputs(cfg, b, g),
                          device=device)
     K, out = spec.clients, {}
     state = _start(spec, cfg, task, mesh, device)

@@ -17,8 +17,7 @@ key paths).  A leaf is anything with a ``.shape``; a mesh is a
 `to_placements` turns a spec into DTensor placements (the counterpart of
 ``to_named``), and `local_slice` gives one rank's part of a leaf.  The
 LLM rounds execute these layouts with explicit collectives: the "pod" axis
-in `core.llm_dsfl`, "model" and "data" in `launch.tp` (the dense, ssm, moe
-and hybrid families).
+in `core.llm_dsfl`, "model" and "data" in `launch.tp` (every family).
 `model_shapes` gives one model's full leaf shapes, which the rules read
 wherever a rank holds only its slices.
 """
@@ -32,6 +31,21 @@ from ..models.base import ModelConfig
 from .mesh import axis_size, axis_sizes
 
 _STACK_KEYS = ("blocks", "enc", "dec")
+
+
+def stack_of(name: str) -> str | None:
+    """The stack of `_STACK_KEYS` a flat leaf name lies in (``blocks``,
+    ``enc`` or ``dec``), or None for a leaf outside them."""
+    head = name.split("/", 1)[0]
+    return head if head in _STACK_KEYS and "/" in name else None
+
+
+def stack_depth(cfg, stack: str) -> int:
+    """The blocks of a stack: ``cfg.n_blocks`` pattern-repeats, or the
+    encoder-decoder's ``enc_layers`` encoder and ``n_layers`` decoder
+    blocks."""
+    return {"blocks": cfg.n_blocks, "enc": cfg.enc_layers,
+            "dec": cfg.n_layers}[stack]
 
 
 def _entry(axes) -> object:
@@ -151,8 +165,6 @@ def leaf_structs(cfg: ModelConfig) -> tuple:
     from ..models.api import model_init
     one = cfg.replace(n_layers=len(cfg.pattern),
                       **({"enc_layers": 1} if cfg.enc_layers else {}))
-    depth = {"blocks": cfg.n_blocks, "dec": cfg.n_layers,
-             "enc": cfg.enc_layers}
     with FakeTensorMode():
         params = model_init(one, torch.Generator(), "cpu")
     out = []
@@ -161,7 +173,7 @@ def leaf_structs(cfg: ModelConfig) -> tuple:
         stack = k.split("/")[0]
         if stack in _STACK_KEYS:
             assert shape[0] == 1, (k, shape)
-            shape = (depth[stack],) + shape[1:]
+            shape = (stack_depth(cfg, stack),) + shape[1:]
         out.append((k, shape, v.dtype))
     return tuple(out)
 

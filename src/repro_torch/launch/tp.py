@@ -1,5 +1,6 @@
-"""Tensor parallelism over "model" and FSDP over "data" for the decoder
-families (dense, ssm, moe, hybrid): the layouts `launch.sharding` gives
+"""Tensor parallelism over "model" and FSDP over "data" for every family
+of the reference (dense, ssm, moe, hybrid, the VLM and the
+encoder-decoder): the layouts `launch.sharding` gives
 the reference's partitioner, executed with explicit Megatron-style
 collectives over the mesh's groups (`launch.collectives`, so each one is
 logged with its axis and bytes).
@@ -36,14 +37,25 @@ dicts, running `models.shardctx`'s collectives:
     same load-balance loss), passes the top-k gates and the tokens through
     `copy_to_model`, runs its E/M experts' slices of the dispatch and
     combine, and all-reduces its partial output; else it is replicated;
+  * the VLM's patch projector is column-parallel (``patch_proj/w``'s
+    columns over "model"): the rank projects its columns and they are
+    gathered whole (`shardctx.gather_columns`, whose backward keeps the
+    rank's columns) before the token embeddings join them;
+  * the encoder-decoder's encoder blocks are attention and an MLP as
+    above; the decoder's cross-attention runs the rank's heads against the
+    rank's key/value heads of the encoder states, ``wo`` row-parallel and
+    all-reduced; the encoder states enter the decoder through one
+    `copy_to_model`, so their gradient, which each rank holds in part
+    (through its own ``wk``/``wv`` columns), is summed over "model" once;
   * the unembedding is column-parallel (its padded-vocabulary mask on the
     global columns) and returns the rank's columns; the round gathers
     them over "model" (`gather_vocab`, whose backward keeps the rank's
     columns) before the losses and the softmax, so K1-K4 run on whole rows;
   * FSDP: before each block the block's "data"-sharded leaves are
-    all-gathered over "data" (`gather_block`, the model's other leaves
-    once a pass by `gather_top`); their gradients reduce-scatter in the
-    backward, and the gradients of the leaves "data" does not split are
+    all-gathered over "data" (`gather_block`, for each stack of
+    `sharding._STACK_KEYS`: ``blocks``, ``enc``, ``dec``; the model's other
+    leaves once a pass by `gather_top`); their gradients reduce-scatter in
+    the backward, and the gradients of the leaves "data" does not split are
     all-reduced over it.  Each data rank takes its share of a batch
     (`data_rows`, the rule of `sharding.batch_specs`) and scales its loss
     by 1/D, so the summed gradients are the mean's.  A block is a
@@ -72,13 +84,7 @@ import torch
 from .collectives import AxisGroup, all_gather, all_reduce_sum, axis_group
 from .mesh import axis_size
 from .sharding import (Ruler, _axes, _ok, local_cache_shapes, local_slice,
-                       model_shapes, param_specs)
-
-# what each later slice adds (ROADMAP, Queue 1, item 2.1's follow-ups)
-_NOT_YET = {
-    "audio": "tensor parallelism of the encoder-decoder (whisper)",
-    "vlm": "tensor parallelism of the VLM's patch projector (phi-3-vision)",
-}
+                       model_shapes, param_specs, stack_depth, stack_of)
 
 
 @dataclass(frozen=True)
@@ -99,6 +105,7 @@ class TPPlan:
     fsdp: bool = True    # the leaves split over "data" (False: replicated)
     ssm_tp: bool = False  # "model" divides the Mamba2 mixer's heads
     ep: bool = False     # "model" divides the MoE FFN's experts
+    proj_tp: bool = False  # the VLM's projector columns over "model"
 
     # ------------------------------------------------------------ layout --
     def slices(self, params: dict) -> dict:
@@ -187,15 +194,16 @@ def _data_dims(specs: dict) -> dict:
     out = {}
     for k, sp in specs.items():
         dims = [d for d, e in enumerate(sp) if "data" in _axes(e)]
-        off = 1 if k.startswith("blocks/") else 0
+        off = 1 if stack_of(k) else 0
         out[k] = dims[0] - off if dims else None
     return out
 
 
 def plan_for(cfg, mesh, fsdp: bool = True) -> Optional[TPPlan]:
     """The plan of ``cfg`` on ``mesh`` (a ``DeviceMesh``), or None when
-    neither "data" nor "model" has more than one rank.  A family other than
-    the dense one raises there: it must not run replicated in silence.
+    neither "data" nor "model" has more than one rank.  A mixer the rules
+    would cut inside a head raises (`check_family`): nothing runs
+    replicated in silence.
     ``fsdp=False`` keeps the leaves whole on "data" (`param_specs`'
     option, the reference's serving layout): "data" then splits only the
     batch and, where `sharding.cache_specs` puts it there, a decode
@@ -211,7 +219,12 @@ def plan_for(cfg, mesh, fsdp: bool = True) -> Optional[TPPlan]:
                   mlp_tp=r.M(cfg.d_ff) is not None,
                   vocab_tp=r.M(cfg.eff_vocab) is not None, specs=specs,
                   data_dims=_data_dims(specs), fsdp=fsdp, ssm_tp=ssm_tp,
-                  ep=ep)
+                  ep=ep, proj_tp=_proj_tp(cfg, r))
+
+
+def _proj_tp(cfg, r: Ruler) -> bool:
+    """Whether the rules split the VLM projector's columns over "model"."""
+    return bool(cfg.n_patches) and r.M(cfg.d_model) is not None
 
 
 def _splits(cfg, r: Ruler) -> tuple:
@@ -253,19 +266,12 @@ def _ring_spec(cfg, mesh, batch: int, window: int) -> tuple:
 
 
 def check_family(cfg, mesh) -> None:
-    """Raise NotImplementedError for a family the plan does not split
-    over a mesh whose "data" or "model" axis has more than one rank (the
-    audio and VLM families), and for a Mamba2 mixer whose leaves the rules
-    would split other than on head boundaries."""
+    """Raise NotImplementedError for a Mamba2 mixer whose leaves the rules
+    would split other than on head boundaries, over a mesh whose "data"
+    or "model" axis has more than one rank; every family runs there."""
     sizes = {a: axis_size(mesh, a) for a in ("data", "model")}
     if max(sizes.values()) == 1:
         return
-    if cfg.arch_type in _NOT_YET:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.arch_type}) over mesh axes {sizes}: tensor "
-            f"parallelism and FSDP run the dense, ssm, moe and hybrid "
-            f"families; {_NOT_YET[cfg.arch_type]} is queued (ROADMAP, "
-            f"Queue 1, item 2.1)")
     if any(m == "mamba" for m, _ in cfg.pattern):
         _check_mixer(cfg, sizes["model"])
 
@@ -319,39 +325,47 @@ def _leaves(cfg, shape: tuple, fsdp: bool = True):
     """(name, spec (within one block for a stacked leaf), the blocks it
     stands for, its local values (one block's), their element size) of
     each leaf of one model on a ("pod", "data", "model") mesh of
-    ``shape``."""
+    ``shape``; a leaf of a stack (`stack_of`) stands for the stack's
+    depth (`stack_depth`)."""
     mesh = _mesh(shape)
     sizes = dict(zip(("pod", "data", "model"), shape))
     specs = param_specs(cfg, model_shapes(cfg), mesh, fsdp=fsdp)
     for k, sh in model_shapes(cfg).items():
         sp, n, times = specs[k], math.prod(sh.shape), 1
-        if k.startswith("blocks/"):
-            sp, n, times = sp[1:], n // cfg.n_blocks, cfg.n_blocks
+        stack = stack_of(k)
+        if stack:
+            times = stack_depth(cfg, stack)
+            sp, n = sp[1:], n // times
         split = math.prod(sizes[a] for e in sp for a in _axes(e))
         elt = 4 if k.endswith("/scale") else torch.empty(
             (), dtype=cfg.cdtype).element_size()      # f32 norm scales
         yield k, sp, times, n // split, elt
 
 
-def _model_bytes(cfg, r: Ruler, rows: int, decode: bool = False) -> tuple:
+def _model_bytes(cfg, r: Ruler, rows: int, decode: bool = False,
+                 cross: bool = False) -> tuple:
     """({kind: bytes} of one block's forward collectives over "model",
     {kind: bytes} of those only its backward runs) at ``rows`` tokens
-    (``decode``: the decode step's, whose B and C leave the conv in f32).
-    Each sub-layer the rules split: attention, the MLP and the MoE FFN
-    all-reduce their (rows, d) output, the Mamba2 mixer gathers B and C
-    whole (rows, G*N each), all-reduces its sum of squares (rows,) f32 and
-    its output; in the backward each copied input all-reduces its gradient
-    (the MoE's top-k gates too, (rows, k) f32), B and C's gathers
-    reduce-scatter theirs and the sum of squares all-reduces its own."""
+    (``decode``: the decode step's, whose B and C leave the conv in f32;
+    ``cross``: an encoder-decoder's decoder block, a cross-attention after
+    each mixer).  Each sub-layer the rules split: attention, the
+    cross-attention, the MLP and the MoE FFN all-reduce their (rows, d)
+    output, the Mamba2 mixer gathers B and C whole (rows, G*N each),
+    all-reduces its sum of squares (rows,) f32 and its output; in the
+    backward each copied input all-reduces its gradient (the MoE's top-k
+    gates too, (rows, k) f32; the cross-attention's query input, its
+    encoder states' gradient being summed once a pass: `pass_bytes`), B
+    and C's gathers reduce-scatter theirs and the sum of squares
+    all-reduces its own."""
     e = torch.empty((), dtype=cfg.cdtype).element_size()
     act = rows * cfg.d_model * e
     ssm_tp, ep = _splits(cfg, r)
-    split = {"attn": r.attn_tp, "mamba": ssm_tp, "mlp":
-             r.M(cfg.d_ff) is not None, "moe": ep, "none": False}
+    split = {"attn": r.attn_tp, "cross": r.attn_tp, "mamba": ssm_tp,
+             "mlp": r.M(cfg.d_ff) is not None, "moe": ep, "none": False}
     fwd = {"all-reduce": 0, "all-gather": 0}
     bwd = {"all-reduce": 0, "reduce-scatter": 0}
     for mixer, ffn in cfg.pattern:
-        for part in (mixer, ffn):
+        for part in (mixer, "cross", ffn) if cross else (mixer, ffn):
             if not split[part]:
                 continue
             fwd["all-reduce"] += act
@@ -367,12 +381,31 @@ def _model_bytes(cfg, r: Ruler, rows: int, decode: bool = False) -> tuple:
     return fwd, bwd
 
 
-def pass_bytes(cfg, shape: tuple, rows: int, grad: bool) -> dict:
+def _stacks(cfg, rows: int, seqs: Optional[int]) -> tuple:
+    """((tokens a block of the stack runs on, its blocks, whether it is a
+    decoder block with cross-attention), ...) of one pass over ``rows``
+    text tokens of ``seqs`` sequences: a VLM's backbone also runs on each
+    sequence's patches, an encoder-decoder's encoder on its frames."""
+    if cfg.arch_type not in ("vlm", "audio"):
+        return ((rows, cfg.n_blocks, False),)
+    if seqs is None:
+        raise ValueError(f"{cfg.name}: the bytes of a pass need its "
+                         f"sequences (the patches or frames each brings)")
+    if cfg.arch_type == "vlm":
+        return ((rows + seqs * cfg.n_patches, cfg.n_blocks, False),)
+    return ((seqs * cfg.n_audio_frames, cfg.enc_layers, False),
+            (rows, cfg.n_layers, True))
+
+
+def pass_bytes(cfg, shape: tuple, rows: int, grad: bool,
+               seqs: Optional[int] = None) -> dict:
     """{axis: {kind: bytes}} one rank's collectives move in one model pass
-    over ``rows`` tokens on a ("pod", "data", "model") mesh of ``shape``:
-    the forward, and with ``grad`` the recompute (the block's checkpoint,
-    and each sub-layer's own where the pattern has more than one) and the
-    backward.  Derived from the rules and the shapes alone."""
+    over ``rows`` text tokens of ``seqs`` sequences (which a VLM's patches
+    and an encoder's frames come with; the other families do not read it)
+    on a ("pod", "data", "model") mesh of ``shape``: the forward, and with
+    ``grad`` the recompute (the block's checkpoint, and each sub-layer's
+    own where the pattern has more than one) and the backward.  Derived
+    from the rules and the shapes alone."""
     _, D, M = shape
     out: dict = {}
 
@@ -385,7 +418,7 @@ def pass_bytes(cfg, shape: tuple, rows: int, grad: bool) -> dict:
             local = n * elt
             if any("data" in _axes(e) for e in sp):
                 # the forward, and a block's recompute in a grad pass
-                again = 2 if grad and k.startswith("blocks/") else 1
+                again = 2 if grad and stack_of(k) else 1
                 add("data", "all-gather", local * D * times * again)
                 if grad:
                     add("data", "reduce-scatter", local * times)
@@ -396,19 +429,29 @@ def pass_bytes(cfg, shape: tuple, rows: int, grad: bool) -> dict:
         e = torch.empty((), dtype=cfg.cdtype).element_size()
         act = rows * cfg.d_model * e
         vocab = r.M(cfg.eff_vocab) is not None
-        fwd, bwd = _model_bytes(cfg, r, rows)
         # the forward, and in a grad pass each recompute of a sub-layer
         runs = 1 + grad * (1 + (len(cfg.pattern) > 1))
-        for kind, n in fwd.items():
-            add("model", kind, runs * cfg.n_blocks * n)
+        for tokens, blocks, cross in _stacks(cfg, rows, seqs):
+            fwd, bwd = _model_bytes(cfg, r, tokens, cross=cross)
+            for kind, n in fwd.items():
+                add("model", kind, runs * blocks * n)
+            if grad:
+                # the copies' gradient reduces, the gathers' reduce-scatters
+                for kind, n in bwd.items():
+                    add("model", kind, blocks * n)
         # the embedding's reduce and the logits' gather
         add("model", "all-reduce", vocab * act)
         add("model", "all-gather", vocab * rows * cfg.eff_vocab * e)
+        if _proj_tp(cfg, r):
+            # the projector's columns gathered (its backward keeps them)
+            add("model", "all-gather",
+                seqs * cfg.n_patches * cfg.d_model * e)
         if grad:
-            # the copies' gradient reduces, the gathers' reduce-scatters
-            for kind, n in bwd.items():
-                add("model", kind, cfg.n_blocks * n)
+            # the unembedding's copy; the encoder states' one copy
             add("model", "all-reduce", vocab * act)
+            if cfg.arch_type == "audio" and r.attn_tp:
+                add("model", "all-reduce",
+                    seqs * cfg.n_audio_frames * cfg.d_model * e)
     return merge(out)
 
 
@@ -442,15 +485,16 @@ def round_bytes(cfg, shape: tuple, *, clients: int, batch: int, seq: int,
     P, D, _ = shape
     pod = "pod" if P > 1 else ""
     rows = _rows(batch, D) * seq
+    seqs = _rows(batch, D)
     if mode == "dsfl":
-        parts = [(pass_bytes(cfg, shape, rows, False), lanes_run),
-                 (pass_bytes(cfg, shape, rows, True), 2 * lanes_run),
+        parts = [(pass_bytes(cfg, shape, rows, False, seqs), lanes_run),
+                 (pass_bytes(cfg, shape, rows, True, seqs), 2 * lanes_run),
                  {pod: {"all-gather": 2 * clients * rows * topk * 4
                         if topk else clients * rows * cfg.eff_vocab * 2}}]
     else:
         f32_shards = sum(4 * n * times
                          for _, _, times, n, _ in _leaves(cfg, shape))
-        parts = [(pass_bytes(cfg, shape, rows, True), lanes_run),
+        parts = [(pass_bytes(cfg, shape, rows, True, seqs), lanes_run),
                  {pod: {"all-reduce": f32_shards}}]
     if D > 1:
         parts.append({"data": {"all-reduce": 4 * (clients // P)}})
@@ -463,13 +507,15 @@ def decode_bytes(cfg, shape: tuple, *, batch: int, window: int,
     """{axis: {kind: bytes}} one rank's collectives move in one decode
     step of a global ``batch`` against rings of ``window`` slots on a
     ("pod", "data", "model") mesh of ``shape``: FSDP's all-gathers of the
-    leaves "data" splits (``fsdp``), the "model" all-reduces of the
-    embedding and each block's row-parallel products, the Mamba2 mixers'
-    B and C gathers (f32) and sums of squares, and the logits'
-    all-gather, and, where `sharding.cache_specs` splits the window, each
-    attention layer's merge over each of the window's axes: the all-reduce
-    of the row maxima (B, H) f32, then of the sums of exp and the weighted
-    values (B, H, hd + 1) f32."""
+    leaves "data" splits (``fsdp``; not the encoder's, which the step does
+    not run), the "model" all-reduces of the embedding and each block's
+    row-parallel products (an encoder-decoder's cross-attention too), the
+    Mamba2 mixers' B and C gathers (f32) and sums of squares, and the
+    logits' all-gather, and, where `sharding.cache_specs` splits the
+    window (or an encoder-decoder's cross cache, its ``n_audio_frames``
+    encoder positions), each attention layer's merge over each of its
+    axes: the all-reduce of the row maxima (B, H) f32, then of the sums
+    of exp and the weighted values (B, H, hd + 1) f32."""
     _, D, M = shape
     out: dict = {}
 
@@ -479,21 +525,24 @@ def decode_bytes(cfg, shape: tuple, *, batch: int, window: int,
 
     if D > 1 and fsdp:
         for k, sp, times, n, elt in _leaves(cfg, shape):
-            if any("data" in _axes(e) for e in sp):
+            if any("data" in _axes(e) for e in sp) and stack_of(k) != "enc":
                 add("data", "all-gather", n * elt * D * times)
     rows = batch // D if _ok(batch, D) else batch
     e = torch.empty((), dtype=cfg.cdtype).element_size()
+    audio = cfg.arch_type == "audio"
     if M > 1:
         r = Ruler(cfg, _mesh(shape))
         act = rows * cfg.d_model * e
         vocab = r.M(cfg.eff_vocab) is not None
-        for kind, n in _model_bytes(cfg, r, rows, decode=True)[0].items():
+        fwd = _model_bytes(cfg, r, rows, decode=True, cross=audio)[0]
+        for kind, n in fwd.items():
             add("model", kind, cfg.n_blocks * n)
         add("model", "all-reduce", vocab * act)
         add("model", "all-gather", vocab * rows * cfg.eff_vocab * e)
     n_attn = cfg.n_blocks * sum(m == "attn" for m, _ in cfg.pattern)
-    if n_attn:
-        spec = _ring_spec(cfg, _mesh(shape), batch, window)
+    rings = [window] + ([cfg.n_audio_frames] if audio else [])
+    for slots in rings if n_attn else ():
+        spec = _ring_spec(cfg, _mesh(shape), batch, slots)
         heads = cfg.eff_heads // (M if spec[3] == "model" else 1)
         for a in _axes(spec[2]):
             add(a, "all-reduce", n_attn * rows * heads * 4 * (cfg.hd + 2))

@@ -39,10 +39,9 @@ set.
 `launch.mesh.make_client_mesh` shapes: the clients on "pod" when N is a
 multiple of the client count, every other rank on "model" (world 2 at K =
 2 is (2, 1, 1), world 4 at K = 2 (2, 1, 2), world 2 at K = 1 (1, 1, 2)).
-Where "model" has more than one rank, the dense family splits each
-client's leaves over it (tensor parallelism, `launch.tp`); the other
-families refuse such a mesh.  `core.llm_dsfl` says what crosses between
-ranks.  The script spawns the ranks itself (`launch.dist`), or under
+Where "model" has more than one rank, every family splits each client's
+leaves over it (tensor parallelism, `launch.tp`).  `core.llm_dsfl` says
+what crosses between ranks.  The script spawns the ranks itself (`launch.dist`), or under
 ``torchrun`` it takes the world from ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK``.  Ranks use ``cuda:LOCAL_RANK % device_count`` (``--device
 cpu``: the CPU) and the backend ``--backend`` names (``nccl`` by default;

@@ -18,9 +18,9 @@ from .shardctx import current_plan
 
 
 def _check_plan(cfg: ModelConfig, prefill: bool = False) -> None:
-    """Under a tensor-parallel plan the families it splits decode (the
-    audio and VLM families raise the plan's `check_family` error), and
-    nothing prefills yet."""
+    """Under a tensor-parallel plan every family decodes (a Mamba2 mixer
+    the rules would cut inside a head raises the plan's `check_family`
+    error), and nothing prefills yet."""
     plan = current_plan()
     if plan is None:
         return
@@ -73,10 +73,8 @@ def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
     `launch.sharding.cache_specs`."""
     _check_plan(cfg)
     if cfg.arch_type == "audio":
-        with torch.no_grad():
-            enc_out = ED.encode(cfg, params, batch["frames"])
-            return ED.init_encdec_cache(cfg, params, batch_size, seq_len,
-                                        enc_out)
+        return ED.encdec_init_cache(cfg, params, batch_size, seq_len,
+                                    batch["frames"])
     return T.init_cache(cfg, batch_size, seq_len,
                         params["embed/tok"].device)
 
@@ -84,12 +82,13 @@ def model_init_cache(cfg: ModelConfig, params: dict, batch_size: int,
 def model_decode_step(cfg: ModelConfig, params: dict, cache: dict,
                       token: torch.Tensor, pos, seq_len: int | None = None):
     """One decode step at each row's position ``pos`` ((B,) or a scalar);
-    writes ``cache`` in place (see `transformer.decode_step`, also for the
-    step under a tensor-parallel plan, which needs the ``seq_len`` given to
-    `model_init_cache` where the model has attention)."""
+    writes ``cache`` in place (see `transformer.decode_step` and
+    `encdec.encdec_decode_step`, also for the step under a tensor-parallel
+    plan, which needs the ``seq_len`` given to `model_init_cache` where the
+    model has attention)."""
     _check_plan(cfg)
     if cfg.arch_type == "audio":
-        return ED.encdec_decode_step(cfg, params, cache, token, pos)
+        return ED.encdec_decode_step(cfg, params, cache, token, pos, seq_len)
     return T.decode_step(cfg, params, cache, token, pos, seq_len)
 
 

@@ -270,22 +270,31 @@ def cross_attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        enc_k: torch.Tensor,
                        enc_v: torch.Tensor) -> torch.Tensor:
     """Decoder cross-attention (whisper).  enc_k/v precomputed: (B, Se, Kh,
-    hd).  No RoPE on cross-attention."""
+    hd).  No RoPE on cross-attention.  Under a tensor-parallel plan that
+    splits the heads the rank runs its heads against its key/value heads
+    (`cross_kv` of its ``wk``/``wv``), ``wo`` row-parallel and all-reduced
+    over "model", as `attn_forward`."""
     B, S, _ = x.shape
+    plan = current_plan()
+    split = plan is not None and plan.attn_tp
+    if split:
+        x = copy_to_model(plan, x)
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, cfg.eff_heads, cfg.hd)
-    o = head_mask(cfg, flash_attention(q, enc_k, enc_v, causal=False))
-    return o.reshape(B, S, cfg.eff_heads * cfg.hd) @ p["wo"]
+    q = q.reshape(B, S, -1, cfg.hd)
+    o = head_mask(cfg, flash_attention(q, enc_k, enc_v, causal=False),
+                  plan.head_start(q.shape[2]) if split else 0)
+    out = o.reshape(B, S, -1) @ p["wo"]
+    return reduce_model(plan, out) if split else out
 
 
 def cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
     """The cross-attention's keys and values of the encoder states
-    enc_out: (B, Se, D), each (B, Se, Kh, hd)."""
+    enc_out: (B, Se, D), each (B, Se, Kh, hd): the key/value heads ``wk``
+    and ``wv`` hold (a rank's under tensor parallelism)."""
     B, Se, _ = enc_out.shape
     k, v = enc_out @ p["wk"], enc_out @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    return (k.reshape(B, Se, cfg.eff_kv_heads, cfg.hd),
-            v.reshape(B, Se, cfg.eff_kv_heads, cfg.hd))
+    return (k.reshape(B, Se, -1, cfg.hd), v.reshape(B, Se, -1, cfg.hd))

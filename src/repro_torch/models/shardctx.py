@@ -17,8 +17,9 @@ carry their collectives) the one the models read through `current_plan`,
 and this module holds Megatron's collectives as autograd functions over
 those groups: the identity whose backward all-reduces (`_CopyToModel`),
 the all-reduce whose backward is the identity (`_ReduceFromModel`), the
-vocabulary all-gather whose backward keeps the rank's columns
-(`gather_vocab`), the "model" all-gather whose backward reduce-scatters
+"model" all-gather of a column-parallel output whose backward keeps the
+rank's columns (`gather_columns`: the VLM's projector; `gather_vocab`:
+the logits), the "model" all-gather whose backward reduce-scatters
 (`gather_model_sum`: a column split the Mamba2 mixer reads whole on every
 rank, B and C), the all-reduce whose backward all-reduces too
 (`all_reduce_both`: a partial sum whose uses differ by rank, the gated
@@ -37,6 +38,7 @@ import threading
 import torch
 
 from ..launch.mesh import axis_sizes
+from ..launch.sharding import stack_of
 
 _tls = threading.local()
 
@@ -140,8 +142,9 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
-class _GatherVocab(torch.autograd.Function):
-    """The ranks' vocabulary columns gathered into whole rows; the
+class _GatherColumns(torch.autograd.Function):
+    """The ranks' columns (last dimension) of a column-parallel output
+    gathered into whole rows, which every rank then uses alike; the
     backward keeps the rank's columns of the gradient."""
 
     @staticmethod
@@ -212,6 +215,10 @@ class _SumOverData(torch.autograd.Function):
         return ctx.g.all_reduce(grad.contiguous().clone()), None
 
 
+def gather_columns(plan, x: torch.Tensor) -> torch.Tensor:
+    return _GatherColumns.apply(x, plan.model)
+
+
 def copy_to_model(plan, x: torch.Tensor) -> torch.Tensor:
     return _CopyToModel.apply(x, plan.model)
 
@@ -241,26 +248,28 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     plan = _PLAN
     if plan is None or not plan.vocab_tp:
         return logits
-    return _GatherVocab.apply(logits, plan.model)
+    return gather_columns(plan, logits)
 
 
-def gather_block(bp: dict) -> dict:
-    """One block's leaves (``s0_mix/wq``, ...) whole on "data"
-    (`_GatherData`) or summing their gradients over it."""
+def gather_block(bp: dict, stack: str = "blocks") -> dict:
+    """One block of the stack ``stack`` (``blocks``, or the
+    encoder-decoder's ``enc``, ``dec``; or a sub-layer's prefix in one,
+    ``dec/cross``) with its leaves (``s0_mix/wq``, ``cross/wk``, ...) whole
+    on "data" (`_GatherData`) or summing their gradients over it."""
     plan = _PLAN
     if plan is None or plan.data.size == 1:
         return bp
-    return {k: _data_leaf(plan, "blocks/" + k, v) for k, v in bp.items()}
+    return {k: _data_leaf(plan, f"{stack}/{k}", v) for k, v in bp.items()}
 
 
 def gather_top(params: dict) -> dict:
-    """``params`` with its leaves outside the block stack whole on
-    "data" (the blocks' stay sharded: `gather_block` takes them one
-    block at a time)."""
+    """``params`` with its leaves outside the stacks whole on "data" (a
+    stack's stay sharded: `gather_block` takes them one block at a
+    time)."""
     plan = _PLAN
     if plan is None or plan.data.size == 1:
         return params
-    return {k: (v if k.startswith("blocks/") else _data_leaf(plan, k, v))
+    return {k: (v if stack_of(k) else _data_leaf(plan, k, v))
             for k, v in params.items()}
 
 

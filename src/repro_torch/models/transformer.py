@@ -35,7 +35,8 @@ mode and dropped in prefill and decode, as in the reference.
 
 Over a mesh that splits "data" or "model" (a plan in force:
 `shardctx.active_plan`; each sub-layer runs its own part of the plan:
-`attention`, `layers.mlp`, `ssm`, `moe`),
+`attention`, `layers.mlp`, `ssm`, `moe`, and `embed_inputs` the VLM's
+column-parallel projector),
 ``lm_logits`` gathers the leaves outside the stack over "data" once and
 each block's inside its checkpoint (the recompute gathers again, whole:
 no early stop), and returns the rank's vocabulary columns; ``decode_step``
@@ -48,7 +49,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .shardctx import current_plan, gather_block, gather_top, gather_vocab
+from .shardctx import (current_plan, gather_block, gather_columns,
+                       gather_top, gather_vocab)
 
 from .attention import (attn_decode_step, attn_forward, init_attn,
                         ring_layout)
@@ -175,10 +177,14 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
 def embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                  extra_embeds=None) -> torch.Tensor:
     """Token embedding; a VLM prepends its patch features (B, P, D)
-    through the projector."""
+    through the projector (under a plan that splits its columns over
+    "model", the rank's columns gathered whole)."""
     x = embed(sub(params, "embed"), cfg, tokens)
     if extra_embeds is not None:
         pe = extra_embeds.to(cfg.cdtype) @ params["patch_proj/w"]
+        plan = current_plan()
+        if plan is not None and plan.proj_tp:
+            pe = gather_columns(plan, pe)
         x = torch.cat([pe, x], dim=1)
     return x
 

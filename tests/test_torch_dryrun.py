@@ -229,8 +229,8 @@ def test_era_round_collectives_at_full_width():
 def test_records_and_roofline(tmp_path, monkeypatch):
     """Statuses: the dense decode ``ok`` with `Roofline.build`'s terms (at
     6 of its 40 layers, the record extrapolated from 2 and 3 blocks equal
-    to the one traced whole), the VLM family ``unsupported`` naming the
-    queued item, whisper-small x long_500k ``skipped``."""
+    to the one traced whole), the VLM family's decode ``ok`` (no record is
+    ``unsupported`` any more), whisper-small x long_500k ``skipped``."""
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
     rec = dryrun.run_one("phi3-medium-14b", "decode_32k", multi_pod=False,
                          device="cpu", verbose=False)
@@ -251,9 +251,9 @@ def test_records_and_roofline(tmp_path, monkeypatch):
         rec["coll_by_axis"]["data"]["all-gather"] / IB_BYTES_PER_S
         + sum(rec["coll_by_axis"]["model"].values()) / IB_BYTES_PER_S)
     assert rec["memory"]["peak_size"] == rec["peak_mem_bytes"]
-    un = dryrun.run_one("phi-3-vision-4.2b", "decode_32k", multi_pod=False,
-                        device="cpu", verbose=False)
-    assert un["status"] == "unsupported" and "queued" in un["reason"]
+    vlm = dryrun.run_one("phi-3-vision-4.2b", "decode_32k", multi_pod=False,
+                         device="cpu", verbose=False)
+    assert vlm["status"] == "ok", vlm.get("error")
     sk = dryrun.run_one("whisper-small", "long_500k", multi_pod=True,
                         device="cpu", verbose=False)
     assert sk["status"] == "skipped"

@@ -310,10 +310,11 @@ def test_multi_pod_comm_example(capsys):
 
 def test_a_model_axis_over_ranks_raises_and_stops_the_spawn():
     """Three clients over two ranks put the ranks on "model" (the
-    reference's client mesh (1, 1, 2)): a family without tensor
-    parallelism (whisper-small's) is refused by name on every rank, and
-    the spawn raises instead of waiting."""
+    reference's client mesh (1, 1, 2)): a Mamba2 mixer whose 3 heads that
+    axis would cut in two (its d_inner of 96 splits) is refused by name on
+    every rank, and the spawn raises instead of waiting."""
     from torch.multiprocessing import ProcessRaisedException
-    with pytest.raises(ProcessRaisedException, match="NotImplementedError"):
-        dist.spawn(rank_main, 2, DrillSpec(arch="whisper-small", clients=3,
+    with pytest.raises(ProcessRaisedException, match="cut in two"):
+        dist.spawn(rank_main, 2, DrillSpec(arch="mamba2-2.7b", clients=3,
+                                           overrides=(("d_model", 48),),
                                            cases=("dsfl",)))

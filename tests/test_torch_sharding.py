@@ -231,13 +231,22 @@ def test_constrain_is_identity_on_plain_tensors(with_ctx):
 
 @pytest.mark.parametrize("sizes", [(2, 1), (1, 2)])
 def test_data_or_model_axes_above_one_raise(sizes):
-    """Tensor parallelism and FSDP run neither the audio nor the VLM
-    family: a mesh that splits "data" or "model" is refused for them by
-    name, before any group is asked for (the other families' execution is
-    tests/test_torch_tp.py's and tests/test_torch_tp_families.py's)."""
-    mesh = stand_in((1,) + sizes, ("pod", "data", "model"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2.1"):
-        LLMDSFLAlgorithm(get_config("whisper-small").smoke(), LLMDsflHP(),
-                         device="cpu", mesh=mesh)
+    """A mesh that splits "data" or "model" now builds the audio family's
+    algorithm (on a fake world of the mesh's size: its plan splits
+    whisper's heads and columns over "model", its leaves over "data";
+    the execution is tests/test_torch_tp_modality.py's); a mesh without a
+    "pod" axis is still refused for the clients."""
+    from repro_torch.launch import dryrun
+    cfg = get_config("whisper-small").smoke()
+    try:
+        mesh = dryrun.fake_world(device="cpu", shape=(1,) + sizes)
+        algo = LLMDSFLAlgorithm(cfg, LLMDsflHP(), device="cpu", mesh=mesh)
+        assert (algo.plan.data.size, algo.plan.model.size) == sizes
+        assert algo.plan.attn_tp == (sizes[1] > 1)
+        assert algo.plan.data_dims["enc/attn/wq"] == (
+            0 if sizes[0] > 1 else None)
+        assert algo.pod.size == 1
+    finally:
+        dryrun.close_world()
     with pytest.raises(ValueError, match="no 'pod' axis"):
         pod_group(stand_in(sizes, ("data", "model")))

@@ -393,6 +393,9 @@ def test_sharded_checkpoint_is_whole_and_read_by_the_reference(worlds,
 
 # ------------------------------------------------------------ refusals ----
 SPLIT_FAMILIES = ("ssm", "moe", "hybrid")
+# a Mamba2 config whose 3 heads "model" of 2 cannot split, while its
+# d_inner of 96 splits: the rules would cut a head in two
+CUT_MIXER = (("d_model", 48),)
 
 
 @pytest.mark.parametrize("arch", [a for a in list_archs()
@@ -400,12 +403,26 @@ SPLIT_FAMILIES = ("ssm", "moe", "hybrid")
                                   not in ("dense",) + SPLIT_FAMILIES])
 @pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 1)])
 def test_other_families_refuse_a_data_or_model_axis(arch, shape):
-    """Nothing runs replicated in silence: the audio and VLM families'
-    refusal names the queue."""
+    """The audio and VLM families no longer refuse: `tp.plan_for` builds on
+    a fake world of the mesh's size, and its flags say what the rules
+    split (attention's heads, the MLP's columns, the projector's columns
+    over "model"; tests/test_torch_tp_modality.py runs them).  A Mamba2
+    mixer cut inside a head is what `check_family` still refuses."""
+    from repro_torch.launch import dryrun
     cfg = get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2.1"):
-        tp.check_family(cfg, stand_in(shape))
-    tp.check_family(cfg, stand_in((2, 1, 1)))      # the client axis runs
+    try:
+        plan = tp.plan_for(cfg, dryrun.fake_world(device="cpu", shape=shape))
+    finally:
+        dryrun.close_world()
+    split = shape[2] > 1
+    assert (plan.attn_tp, plan.mlp_tp, plan.vocab_tp) == (split,) * 3
+    assert plan.proj_tp == (split and cfg.arch_type == "vlm")
+    assert not (plan.ssm_tp or plan.ep)
+    assert (plan.data.size, plan.model.size) == shape[1:]
+    mamba = get_config("mamba2-2.7b").smoke().replace(**dict(CUT_MIXER))
+    with pytest.raises(NotImplementedError, match="cut in two"):
+        tp.check_family(mamba, stand_in((1, 1, 2)))
+    tp.check_family(mamba, stand_in((2, 1, 1)))      # the client axis runs
 
 
 @pytest.mark.parametrize("arch", [a for a in list_archs()
@@ -432,9 +449,12 @@ def test_the_mixer_and_moe_families_take_a_data_or_model_axis(arch, shape):
 
 
 def test_a_non_dense_model_on_a_model_mesh_stops_the_spawn():
+    """A Mamba2 mixer the rules would cut inside a head (`CUT_MIXER`) is
+    refused on every rank, and the spawn raises instead of waiting."""
     from torch.multiprocessing import ProcessRaisedException
     with pytest.raises(ProcessRaisedException, match="NotImplementedError"):
-        dist.spawn(rank_main, 2, DrillSpec(arch="whisper-small",
+        dist.spawn(rank_main, 2, DrillSpec(arch="mamba2-2.7b",
+                                           overrides=CUT_MIXER,
                                            mesh_shape=(1, 1, 2),
                                            cases=("dsfl",)))
 

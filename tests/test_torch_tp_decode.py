@@ -172,14 +172,27 @@ def _plan(mesh_shape) -> tp.TPPlan:
 
 
 def test_other_families_and_prefill_refused_under_a_plan():
-    """Under a plan the VLM (and audio) family does not decode; nothing
-    prefills."""
+    """Under a plan the VLM decodes (on a fake world of two "model" ranks,
+    whose collectives return at once: the step runs on the rank's slices
+    and gives its rows' whole-vocabulary logits; the values are
+    tests/test_torch_tp_modality.py's, over gloo); nothing prefills."""
+    from repro_torch.launch import dryrun
     vlm = get_config("phi-3-vision-4.2b").smoke()
     dense = get_config(QWEN).smoke()
     tok = torch.zeros((2,), dtype=torch.int64)
+    try:
+        plan = tp.plan_for(vlm, dryrun.fake_world(device="cpu",
+                                                  shape=(1, 1, 2)))
+        params = plan.slices(tapi.model_init(
+            vlm, torch.Generator().manual_seed(0), "cpu"))
+        with torch.no_grad(), active_plan(plan):
+            cache = tapi.model_init_cache(vlm, params, 2, 8)
+            assert cache["s0/k"].shape[3] == vlm.eff_kv_heads // 2
+            logits, _ = tapi.model_decode_step(vlm, params, cache, tok, 0, 8)
+        assert tuple(logits.shape) == (2, vlm.eff_vocab)
+    finally:
+        dryrun.close_world()
     with active_plan(_plan((1, 1, 2))):
-        with pytest.raises(NotImplementedError, match="queued"):
-            tapi.model_decode_step(vlm, {}, {}, tok, 0)
         with pytest.raises(NotImplementedError, match="prefill"):
             tapi.model_prefill(dense, {}, {"tokens": tok[:, None]})
 

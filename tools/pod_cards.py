@@ -3,7 +3,7 @@
 client a card, and the dense family's tensor parallelism inside each
 client, each against the same cases in one process.
 
-    python3 tools/pod_cards.py [--world 2] [--smoke-world 4] [--parts abcdefgh]
+    python3 tools/pod_cards.py [--world 2] [--smoke-world 4] [--parts abcdefghij]
     python3 tools/pod_cards.py --device cpu --backend gloo --smoke  # rehearsal
 
 (a) qwen1.5-4b at full width and 40 layers (``--smoke`` cuts it), K =
@@ -59,8 +59,19 @@ FFN at full width in float32 on 1,024 tokens in groups of 256, forward and
 backward, each rank held to the same FFN whole in one process on its own
 card (`launch.pod_check` `moe_ffn_rank`: within 1e-5 of each tensor's
 largest magnitude, the dropped choices equal) and shown to fail with rank
-1's expert ``w_down`` slice 1% off.  The kernels are built before any
-case.  Per case and rank one JSON line; every card's ``nvidia-smi`` name
+1's expert ``w_down`` slice 1% off.
+(i) the VLM: phi-3-vision-4.2b (32 heads of 96, 576 patches, vocabulary
+32,064) on (2, 1, 2), one client a "pod", 16 heads a rank and the
+projector's columns split: at full width and its 32 layers in bf16, 2 ERA
+rounds then a FedAvg round, chained (timed); then at 4 layers in float32
+at VLM_HELD_LR, held as (d), the fault in the projector ``patch_proj/w``.
+(j) the encoder-decoder: whisper-small (12 heads of 64, 1,500 frames,
+vocabulary 51,865 whole on "model") at full width and its 12 + 12 layers
+in float32 on (1, 2, 2), tensor parallelism and FSDP together: 2 ERA
+rounds, a top-k 8 round and a FedAvg round, each from the init, held as
+(d) at WHISPER_HELD_LR (5e-1: at its full depth the cross-attention's
+norm scale moves least), the fault in the decoder's ``dec/mlp/w_down``.
+The kernels are built before any case.  Per case and rank one JSON line; every card's ``nvidia-smi`` name
 and power limit first.  A mismatch exits 1.
 """
 from __future__ import annotations
@@ -94,6 +105,13 @@ MAMBA, MAMBA_SHAPE, MAMBA_HELD_LR = "mamba2-2.7b", (2, 1, 2), 3e-1
 # GB + 2.1 a layer) stay under 70 GB: 59.3 GB at 6
 SCOUT, SCOUT_SHAPE, SCOUT_LAYERS = "llama4-scout-17b-a16e", (1, 1, 4), 6
 MOE_RTOL = 1e-5
+# the modality families: the least lr at which every leaf of the held
+# cases moves past ROUND_TOL (tools/tp_movement.py): phi-3-vision at 4
+# layers 3e-2; whisper at its 12 + 12 5e-1, where 2 f32 ERA rounds move
+# ``dec/n2/scale`` 1.23e-4 (7.3e-5 at 3e-1, 1.7e-5 at 3e-2)
+VLM, VLM_SHAPE, VLM_HELD_LR = "phi-3-vision-4.2b", (2, 1, 2), 3e-2
+WHISPER, WHISPER_SHAPE = "whisper-small", (1, 2, 2)
+WHISPER_CASES, WHISPER_HELD_LR = ("era", "topk", "fedavg"), 5e-1
 
 
 def _cards() -> str:
@@ -175,8 +193,8 @@ def tp_check(label, spec, backend, held: bool) -> bool:
     leaves of a case stay on card 0 while the ranks run): each leaf of the
     one-process case moved past the tolerance, every rank's slices and
     losses held against the one-process run, and the FedAvg round run
-    again with rank `FAULT_RANK`'s ``w_down`` slice 1% off before it,
-    which the check must fail."""
+    again with rank `FAULT_RANK`'s slice of `pod_check.fault_leaf` 1% off
+    before it, which the check must fail."""
     from repro_torch.launch import dist, pod_check
     cfg = spec.config()
     world = 1
@@ -364,8 +382,8 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=2)
     ap.add_argument("--smoke-world", type=int, default=4)
     ap.add_argument("--smoke", action="store_true",
-                    help="(a), (c), (d) and (e) at the smoke configs too")
-    ap.add_argument("--parts", default="abcdefgh")
+                    help="every part at the smoke configs (a rehearsal)")
+    ap.add_argument("--parts", default="abcdefghij")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl")
     args = ap.parse_args(argv)
@@ -427,6 +445,21 @@ def main(argv=None) -> int:
                        DrillSpec(chain=True, **scout), args.backend, False)
         ok &= moe_check(f"tp cards (h) {SCOUT} {SCOUT_SHAPE} moe ffn f32",
                         args.smoke, args.device, args.backend)
+    if "i" in args.parts:
+        vlm = dict(tp_base, arch=VLM, mesh_shape=VLM_SHAPE)
+        ok &= tp_check(f"tp cards (i) {VLM} {VLM_SHAPE}",
+                       DrillSpec(chain=True, **vlm), args.backend, False)
+        ok &= tp_check(f"tp cards (i) {VLM} {VLM_SHAPE} f32",
+                       DrillSpec(**dict(f32, arch=VLM, mesh_shape=VLM_SHAPE,
+                                        lr=VLM_HELD_LR)),
+                       args.backend, True)
+    if "j" in args.parts:
+        ok &= tp_check(f"tp cards (j) {WHISPER} {WHISPER_SHAPE} f32",
+                       DrillSpec(**dict(f32, arch=WHISPER, n_layers=None,
+                                        mesh_shape=WHISPER_SHAPE,
+                                        cases=WHISPER_CASES,
+                                        lr=WHISPER_HELD_LR)),
+                       args.backend, True)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 

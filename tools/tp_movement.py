@@ -4,12 +4,14 @@ scale a held comparison's tolerance must stay under to see a round go
 wrong (chip_smoke.py phase "tp", tools/pod_cards.py (d) and (e) hold
 ranks to atol 1e-5 after one round and 1e-4 after two).
 
-    python3 tools/tp_movement.py [--lrs 3e-3,3e-2]
+    python3 tools/tp_movement.py [--lrs 3e-3,3e-2] [--arch A --layers N]
 
-phi3-medium-14b at full width and 4 of its 40 layers (the held runs') in
-float32 under ``fp32-deterministic``, `launch.train`'s K = 2, batch 8,
-seq 128, the embedding scaled, on the kernels: 2 ERA rounds, a top-k 8
-round and a FedAvg round, each from the keyed init.  One JSON line per
+phi3-medium-14b (or ``--arch``) at full width and 4 of its 40 layers (or
+``--layers``; an encoder-decoder's encoder is cut with its decoder, as
+the held runs' are) in float32 under ``fp32-deterministic``,
+`launch.train`'s K = 2, batch 8, seq 128, the embedding scaled, on the
+kernels: 2 ERA rounds, a top-k 8 round and a FedAvg round, each from the
+keyed init.  One JSON line per
 learning rate and case (the leaf that moved least, every leaf's largest
 |after - before|, the losses, seconds and peak), the card's
 ``nvidia-smi`` name and power limit first.
@@ -32,6 +34,8 @@ def main(argv=None) -> int:
     from repro_torch.launch import platform, pod_check
     ap = argparse.ArgumentParser()
     ap.add_argument("--lrs", default="3e-3,3e-2")
+    ap.add_argument("--arch", default="phi3-medium-14b")
+    ap.add_argument("--layers", type=int, default=4)
     args = ap.parse_args(argv)
     print("card: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -41,7 +45,7 @@ def main(argv=None) -> int:
     for lr in (float(x) for x in args.lrs.split(",")):
         for case in ("era", "topk", "fedavg"):
             spec = pod_check.DrillSpec(
-                arch="phi3-medium-14b", smoke=False, n_layers=4,
+                arch=args.arch, smoke=False, n_layers=args.layers,
                 clients=2, batch=8, seq=128, lr=lr, device="cuda",
                 use_kernel=True, scale_embedding=True, fingerprint=True,
                 overrides=(("dtype", "float32"),), cases=(case,))
@@ -49,7 +53,7 @@ def main(argv=None) -> int:
             rec = pod_check.run_cases(spec)[case]
             least = min(rec["moved"], key=rec["moved"].get)
             print(json.dumps(dict(
-                lr=lr, case=case, least_moved_leaf=least,
+                arch=args.arch, layers=args.layers, lr=lr, case=case, least_moved_leaf=least,
                 least_moved=rec["moved"][least], moved=rec["moved"],
                 losses=[h["loss"] for h in rec["history"]],
                 seconds=rec["seconds"],
